@@ -1,0 +1,147 @@
+"""The port's attention kernels against the JAX package's kernels.
+
+On the CPU each wrapper of ``repro_torch.kernels.ops`` runs its plain
+PyTorch version; those are held against ``repro.kernels.ref`` and against
+the Pallas kernels of ``repro.kernels.ops`` (interpret mode) on the same
+numpy inputs.  The CUDA kernels are held against the plain versions on
+the card in ``tests/test_torch_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref
+from repro_torch.kernels import ops
+
+TOL = {np.float32: dict(rtol=2e-5, atol=2e-5)}   # tests/test_kernels.py:13
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small CPU ops run fastest single-threaded; restore afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _np(t):
+    return np.asarray(t, np.float32)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (2, 64, 4, 2, 16),     # GQA 2:1
+    (1, 96, 8, 2, 16),     # GQA 4:1, S = 96 (not a power of two)
+    (2, 64, 6, 3, 8),      # odd head count, hd = 8
+])
+def test_flash_plain_matches_ref_and_pallas(B, S, H, KV, hd):
+    rng = np.random.default_rng(S * H)
+    q, k, v = _rand(rng, B, S, H, hd), _rand(rng, B, S, KV, hd), \
+        _rand(rng, B, S, KV, hd)
+    before = ops.flash_attention.launches
+    out = _np(ops.flash_attention(*map(torch.from_numpy, (q, k, v))))
+    assert ops.flash_attention.launches == before  # CPU: plain version
+    gold = _np(ref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v)))
+    G = H // KV
+    pallas = _np(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, G, axis=2)),
+        jnp.asarray(np.repeat(v, G, axis=2)), chunk=32))
+    np.testing.assert_allclose(out, gold, **TOL[np.float32])
+    np.testing.assert_allclose(out, pallas, **TOL[np.float32])
+
+
+@pytest.mark.parametrize("B,S,P,H,KV,hd,plens", [
+    (2, 32, 64, 4, 2, 16, [64, 37]),     # full prefix; ragged unaligned
+    (3, 1, 16, 4, 1, 32, [16, 3, 0]),    # 1-token suffix; a pad row (0)
+    (1, 48, 32, 6, 3, 8, [20]),          # odd heads, hd = 8
+])
+def test_chunked_prefill_plain_matches_ref_and_pallas(B, S, P, H, KV, hd,
+                                                      plens):
+    rng = np.random.default_rng(S * P)
+    q = _rand(rng, B, S, H, hd)
+    k, v = _rand(rng, B, S, KV, hd), _rand(rng, B, S, KV, hd)
+    kp, vp = _rand(rng, B, P, KV, hd), _rand(rng, B, P, KV, hd)
+    plen = np.asarray(plens, np.int32)
+    out = _np(ops.chunked_prefill_attention(
+        *map(torch.from_numpy, (q, k, v, kp, vp, plen))))
+    jin = [jnp.asarray(a) for a in (q, k, v, kp, vp, plen)]
+    gold = _np(ref.chunked_prefill_attention_ref(*jin))
+    pallas = _np(jops.chunked_prefill_attention(*jin, chunk=16))
+    np.testing.assert_allclose(out, gold, **TOL[np.float32])
+    np.testing.assert_allclose(out, pallas, **TOL[np.float32])
+
+
+def test_chunked_prefill_zero_prefix_rows_equal_flash():
+    """A row with prefix_len = 0 inside a batch with P > 0 (the engine's
+    pad rows) gives the flash result for its suffix."""
+    rng = np.random.default_rng(7)
+    B, S, P, H, KV, hd = 2, 40, 32, 4, 2, 16
+    q = torch.from_numpy(_rand(rng, B, S, H, hd))
+    k, v = (torch.from_numpy(_rand(rng, B, S, KV, hd)) for _ in range(2))
+    kp, vp = (torch.from_numpy(_rand(rng, B, P, KV, hd)) for _ in range(2))
+    out = ops.chunked_prefill_attention(q, k, v, kp, vp,
+                                        torch.tensor([0, 17]))
+    flash = ops.flash_attention(q, k, v)
+    np.testing.assert_allclose(_np(out[0]), _np(flash[0]), rtol=2e-5,
+                               atol=2e-5)
+    with pytest.raises(ValueError, match="P == 0"):
+        ops.chunked_prefill_attention(q, k, v, kp[:, :0], vp[:, :0],
+                                      torch.tensor([0, 0]))
+
+
+@pytest.mark.parametrize("B,H,KV,hd,page,n_slots", [
+    (2, 4, 2, 32, 16, 4),     # engine page size
+    (3, 8, 2, 16, 8, 6),      # GQA 4:1
+    (2, 6, 3, 8, 4, 5),       # odd heads, hd = 8
+])
+def test_paged_decode_plain_matches_ref_and_pallas(B, H, KV, hd, page,
+                                                   n_slots):
+    n_pages = B * n_slots + 3
+    rng = np.random.default_rng(B * page)
+    q = _rand(rng, B, 1, H, hd)
+    kp, vp = _rand(rng, n_pages, page, KV, hd), _rand(rng, n_pages, page,
+                                                      KV, hd)
+    table = rng.permutation(n_pages)[: B * n_slots].reshape(B, n_slots)
+    table = table.astype(np.int32)
+    for clen in ([page, page + 1, 1][:B],               # page boundaries
+                 [n_slots * page] * B,                   # table fully valid
+                 list(rng.integers(1, n_slots * page + 1, B))):
+        clen = np.asarray(clen, np.int32)
+        out = _np(ops.paged_decode_attention(
+            *map(torch.from_numpy, (q, kp, vp, table, clen))))
+        jin = [jnp.asarray(a) for a in (q, kp, vp, table, clen)]
+        gold = _np(ref.paged_decode_attention_ref(*jin))
+        pallas = _np(jops.paged_decode_attention(*jin))
+        np.testing.assert_allclose(out, gold, **TOL[np.float32])
+        np.testing.assert_allclose(out, pallas, **TOL[np.float32])
+
+
+def test_paged_decode_clamps_ids_and_skips_dead_slots():
+    """Slots past ceil(cache_len / page) may hold garbage ids (negative
+    or past the pool); they are never read.  Ids are clamped."""
+    rng = np.random.default_rng(3)
+    B, H, KV, hd, page, n_slots, n_pages = 2, 4, 2, 16, 4, 4, 9
+    q = torch.from_numpy(_rand(rng, B, 1, H, hd))
+    kp, vp = (torch.from_numpy(_rand(rng, n_pages, page, KV, hd))
+              for _ in range(2))
+    good = torch.tensor([[3, 5, 0, 0], [1, 2, 4, 0]], dtype=torch.int32)
+    bad = torch.tensor([[3, 5, -7, 99], [1, 2, 4, 1000]], dtype=torch.int32)
+    clen = torch.tensor([6, 12], dtype=torch.int32)
+    np.testing.assert_array_equal(
+        _np(ops.paged_decode_attention(q, kp, vp, good, clen)),
+        _np(ops.paged_decode_attention(q, kp, vp, bad, clen)))
+
+
+def test_wrappers_reject_mixed_devices():
+    q = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
+        ops.flash_attention(q, torch.zeros(1, 4, 2, 16, device="meta"),
+                            torch.zeros(1, 4, 2, 16))
