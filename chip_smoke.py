@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
 
+The port has four CUDA kernels on two paths: the three attention kernels
+(flash, chunked prefill, paged decode) carry the block and adaptive
+joins; flash, chunked prefill and the top-k similarity kernel carry the
+prefilter path (embedding, candidates, scored verification).
+
 Phases, in order; any failure ends the run with a non-zero exit code and
 no result line:
 
@@ -10,25 +15,39 @@ no result line:
    CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, all at once);
 2. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at edge cases, in fp32 (TF32 off) and bf16,
-   with the tolerances of ``tests/test_kernels.py`` (2e-5 fp32, 2e-2
-   bf16);
+   main path's shapes and at edge cases: the attention kernels in fp32
+   (TF32 off) and bf16 with the tolerances of ``tests/test_kernels.py``
+   (2e-5 fp32, 2e-2 bf16); top-k in fp32 over the sweep of
+   ``tests/test_kernels.py`` (lattice inputs bit for bit, ties, k >= N,
+   Gaussian inputs to 1e-6, k up to 2048);
 3. small inputs against a reference: the smoke engine decodes the same
    greedy tokens on the card as on the CPU, and the full-width model cut
    to two layers gives the same logits through the kernels as through the
    plain versions (fp32);
-4. the main path: full-width granite-3-2b in bf16 (random weights from
-   ``--seed``) behind ``Engine(max_seq=1024, slots=4)``, the block join
-   (4 x 4) and the adaptive join on the ads scenario through
+4. the block + adaptive path: full-width granite-3-2b in bf16 (random
+   weights from ``--seed``) behind ``Engine(max_seq=1024, slots=4)``, the
+   block join (4 x 4) and the adaptive join on the ads scenario through
    ``EngineClient`` with the rule oracle teacher-forcing the answers.
-   F1 must be 1.00 and every kernel must have launched;
-5. every kernel against its plain version again at each shape the main
-   path gave it; then each kernel's time (CUDA events, inputs rotated
-   past the 50 MB L2) at the main path's most frequent shape, beside its
-   plain version, one ``scaled_dot_product_attention`` call as a
-   yardstick (timed here, never called by the port) and its bound from
-   bytes and operations.  ``--profile`` adds one block join under
-   ``torch.profiler`` (device busy share, device time by kernel).
+   F1 must be 1.00 and the three attention kernels must have launched;
+5. the prefilter path on the same engine, through a fresh
+   ``EngineClient``: (a) the 10,000 x 1,000 marketplace, hashed
+   embeddings, ``prefilter_join(k=8)`` verified by the rule oracle on the
+   host (81,646 candidates, F1 0.9851, the candidates those of the plain
+   top-k on the card); (b) the 96 x 48 marketplace, hashed embeddings,
+   ``k=4``, verified by scoring through the engine (397 candidates, F1
+   1.00, zero decode steps); (c) the same through ``EngineEmbedder``
+   (9,337 embedding tokens, precision 1.00, the candidates those of the
+   plain top-k on the same embeddings); (d) the scored tuple join on ads
+   (F1 1.00, zero decode steps).  Flash, chunked prefill and top-k must
+   have launched, paged decode must not;
+6. every kernel against its plain version again at each shape the two
+   paths gave it; then each kernel's time (CUDA events, inputs rotated
+   past the 50 MB L2) at its path's most frequent shape, beside its
+   plain version, one PyTorch call as a yardstick (timed here, never
+   called by the port: ``scaled_dot_product_attention``, or
+   ``torch.topk(e1 @ e2.T, k)``) and its bound from bytes and
+   operations.  ``--profile`` adds one block join and prefilter leg (b)
+   under ``torch.profiler`` (device busy share, device time by kernel).
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  The script needs
@@ -38,6 +57,7 @@ one CUDA card and the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -49,6 +69,7 @@ import time
 import types
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -58,6 +79,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,    # dense tensor-core rate
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
 L2_BYTES = 50 * 2 ** 20
 MAIN = dict(H=32, KV=8, hd=64, page=16, B=4)   # granite-3-2b at full width
+ATTENTION = ("flash_attention", "chunked_prefill_attention",
+             "paged_decode_attention")
+TOPK_SHAPES = [(16, 16, 8), (32, 48, 16), (64, 30, 32), (17, 13, 8),
+               (31, 29, 16), (97, 101, 24), (257, 259, 8), (5, 3, 4),
+               (1, 7, 8)]                  # tests/test_kernels.py:345-349
 
 
 def log(msg: str = "") -> None:
@@ -98,6 +124,22 @@ class Checks:
         if main and dtype == torch.bfloat16:
             self.max_err[name] = max(self.max_err.get(name, 0.0), max_err)
 
+    def compare_topk(self, label, got, want, atol, main=False):
+        """Top-k: indices equal, similarities within ``atol`` (0: bit for
+        bit); the fp32 error at the prefilter path's shapes is kept."""
+        (gi, gs), (wi, ws) = got, want
+        err = float((gs - ws).abs().max()) if gs.numel() else 0.0
+        ok = (gi.shape == wi.shape and bool(torch.equal(gi, wi))
+              and bool(torch.isfinite(gs).all()) and err <= atol)
+        log(f"  {'topk_similarity':26s} float32  {label:44s} "
+            f"indices {'equal' if torch.equal(gi, wi) else 'DIFFER'} "
+            f"max_abs_err={err:.3e} tol={atol:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            self.failed.append(f"topk_similarity {label}")
+        if main:
+            self.max_err["topk_similarity"] = max(
+                self.max_err.get("topk_similarity", 0.0), err)
+
 
 def _randn(g, dtype, *shape):
     return torch.randn(*shape, generator=g, device=g.device).to(dtype)
@@ -124,6 +166,46 @@ def decode_inputs(g, dtype, B, H, KV, hd, page, n_slots, lens):
     table = table[: B * n_slots].reshape(B, n_slots).to(torch.int32)
     clen = torch.tensor(lens, dtype=torch.int32, device=g.device)
     return q, kp, vp, table, clen
+
+
+def _lattice(g, *shape):
+    """Quarter integers in [-1, 1]: every dot is exact in fp32, duplicated
+    rows are true ties."""
+    return torch.randint(-4, 5, shape, generator=g, device=g.device).float() / 4
+
+
+def _unit_rows(g, *shape):
+    return torch.nn.functional.normalize(
+        torch.randn(*shape, generator=g, device=g.device), dim=1)
+
+
+def check_topk(ops, L, dev, c: "Checks") -> None:
+    """The sweep of tests/test_kernels.py:345-399, then k past 1024."""
+    g = torch.Generator(dev).manual_seed(4)
+    cases = [(f"lattice M,N,D,k={(M, N, D, k)}", _lattice(g, M, D),
+              _lattice(g, N, D), k, 0.0)
+             for M, N, D in TOPK_SHAPES for k in (1, 4, 16)]
+    cases += [(f"k >= N M,N,D,k={(M, N, D, k)}", _lattice(g, M, D),
+               _lattice(g, N, D), k, 0.0)
+              for M, N, D, k in ((5, 3, 4, 25), (31, 29, 16, 1000),
+                                 (16, 16, 8, 16))]
+    for M in (1, 33):
+        base = _lattice(g, 5, 8)
+        for k in (1, 3, 8, 25, 40):
+            cases.append((f"ties (25 rows of 5) M,k={(M, k)}",
+                          _lattice(g, M, 8), base.repeat(5, 1), k, 0.0))
+    cases += [(f"gaussian M,N,D,k={(M, N, D, k)}", _unit_rows(g, M, D),
+               _unit_rows(g, N, D), k, 1e-6)
+              for M, N, D, k in ((64, 50, 32, 8), (97, 1500, 40, 1024),
+                                 (13, 2100, 24, 2048))]
+    for label, e1, e2, k, atol in cases:
+        c.compare_topk(label, ops.topk_similarity(e1, e2, k=k),
+                       L.topk_similarity(e1, e2, k), atol)
+    e = _lattice(g, 31, 16)
+    i1, s1 = ops.top1_similarity(e, e[:29])
+    ik, sk = ops.topk_similarity(e, e[:29], k=1)
+    c.compare_topk("top1 == column 0 of k = 1", (i1, s1), (ik[:, 0], sk[:, 0]),
+                   0.0)
 
 
 def check_kernels(ops, L, dev) -> Checks:
@@ -182,6 +264,7 @@ def check_kernels(ops, L, dev) -> Checks:
             c.compare("paged_decode_attention", "  garbage ids in dead slots",
                       ops.paged_decode_attention(q, kp, vp, dead, clen), out,
                       dtype, exact=True)
+    check_topk(ops, L, dev, c)
     torch.cuda.synchronize()
     return c
 
@@ -192,9 +275,9 @@ def check_kernels(ops, L, dev) -> Checks:
 
 
 @contextlib.contextmanager
-def plain_attention(ops):
-    """Route the model's attention to the plain versions (on any device)
-    for a reference run; the kernels are restored on exit."""
+def plain_kernels(ops):
+    """Route every kernel wrapper to its plain version (on any device) for
+    a reference run; the kernels are restored on exit."""
     saved = {k.name: k for k in ops.KERNELS}
     try:
         for k in ops.KERNELS:
@@ -267,7 +350,7 @@ def check_full_width_depth_cut(rt, ops, dev) -> None:
         return lp, lc, ld[:3]
 
     got = run()
-    with plain_attention(ops):
+    with plain_kernels(ops):
         want = run()
     for name, a, b in zip(("prefill", "chunked_prefill", "decode_step"),
                           got, want):
@@ -357,15 +440,165 @@ def run_main_path(rt, ops, dev, seed: int) -> dict:
         f"prefill_batches={stats.prefill_batches} "
         f"TTFT mean={ttft.mean:.3f} s "
         f"max_memory_allocated={summary['max_memory_allocated_gib']:.2f} GiB")
-    log(f"  kernel launches on the main path: {counts}")
+    log(f"  kernel launches on the block + adaptive path: {counts}")
     for name, by_shape in shapes.items():
         log(f"    {name} launches by integer arguments: {by_shape}")
-    missing = [k for k, n in counts.items() if n == 0]
+    missing = [k for k in ATTENTION if counts[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+        raise AssertionError(f"kernels never launched on the block + "
+                             f"adaptive path: {missing}")
     summary["shapes"] = shapes
     return summary, engine
+
+
+class RecordingEmbedder:
+    """An embedder that keeps the vectors it hands out, so the candidates
+    can be recomputed from the same embeddings by the plain top-k."""
+
+    def __init__(self, inner):
+        self.inner, self.dim, self.vectors = inner, inner.dim, []
+
+    def embed(self, texts):
+        out = self.inner.embed(texts)
+        self.vectors.append(out)
+        return out
+
+    @property
+    def tokens_read(self):
+        return self.inner.tokens_read
+
+
+def run_prefilter_path(rt, ops, dev, engine) -> dict:
+    """The prefilter path, legs (a)-(d) (module docstring), on the full-
+    width engine of phase 4 through fresh clients.  Launch counts are
+    zeroed just before and read just after; the plain top-k runs used as
+    references go around the wrappers and count nothing."""
+    stats_of = lambda c: c.executor.stats if hasattr(c, "executor") else None  # noqa: E731
+    legs, recorded = {}, {}
+    ops.reset_launch_counts()
+    t_path = time.perf_counter()
+
+    def leg(name, fn, client):
+        before = dataclasses.replace(stats_of(client)) if stats_of(client) else None
+        launches0 = ops.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res, sc, extra = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        st = stats_of(client)
+        d = dict(
+            wall_s=wall, calls=res.ledger.calls,
+            prompt_tokens=res.ledger.prompt_tokens,
+            cached_prompt_tokens=res.ledger.cached_prompt_tokens,
+            scored_tokens=res.ledger.scored_tokens,
+            completion_tokens=res.ledger.completion_tokens,
+            candidates=res.meta.get("candidates"),
+            f1=res.f1(sc.truth), precision=res.precision(sc.truth),
+            decode_steps=(st.decode_steps - before.decode_steps) if st else 0,
+            prefill_batches=((st.prefill_batches - before.prefill_batches)
+                             if st else 0),
+            launches={k: n - launches0[k]
+                      for k, n in ops.launch_counts().items()},
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            **extra)
+        legs[name] = d
+        log(f"  leg {name}: wall={wall:.3f} s calls={d['calls']} "
+            f"candidates={d['candidates']} F1={d['f1']:.4f} "
+            f"precision={d['precision']:.4f} prompt_tokens="
+            f"{d['prompt_tokens']} cached={d['cached_prompt_tokens']} "
+            f"scored={d['scored_tokens']} decode_steps={d['decode_steps']} "
+            f"prefill_batches={d['prefill_batches']}")
+        log(f"    launches={d['launches']} peak_memory_allocated="
+            f"{d['peak_memory_gib']:.2f} GiB"
+            + "".join(f" {k}={v}" for k, v in extra.items()))
+        return d
+
+    # (a) real-scale candidates: 10,000 x 1,000, verified on the host
+    def leg_a():
+        sc = rt.marketplace_scenario(n1=10_000, n2=1_000, n_products=25,
+                                     n_cities=10)
+        emb = RecordingEmbedder(rt.HashEmbedder())
+        res = rt.prefilter_join(
+            sc.r1, sc.r2, sc.condition,
+            rt.OracleLLM(sc.predicate, context_limit=1_000_000), emb, k=8)
+        recorded["a"] = (emb.vectors, 8, res.meta["candidate_pairs"])
+        cand = set(res.meta["candidate_pairs"])
+        return res, sc, dict(candidate_recall=len(cand & sc.truth)
+                             / len(sc.truth))
+    la = leg("a 10000x1000 hashed k=8 oracle", leg_a, None)
+    if la["candidates"] != 81646 or round(la["f1"], 4) != 0.9851:
+        raise AssertionError(f"leg (a): {la['candidates']} candidates, F1 "
+                             f"{la['f1']:.4f} (expected 81646, 0.9851)")
+
+    small = rt.marketplace_scenario(n1=96, n2=48, n_products=6, n_cities=4,
+                                    seed=5)
+
+    def client():
+        return rt.EngineClient(engine, oracle=rt.OracleLLM(
+            small.predicate, context_limit=1_000_000))
+
+    # (b) the engine verifies hashed-embedding candidates by scoring
+    cb = client()
+    lb = leg("b 96x48 hashed k=4 engine-scored", lambda: (rt.prefilter_join(
+        small.r1, small.r2, small.condition, cb, rt.HashEmbedder(), k=4),
+        small, {}), cb)
+    if (lb["candidates"] != 397 or lb["f1"] != 1.0
+            or lb["calls"] != 2 + lb["candidates"] or lb["decode_steps"]
+            or not lb["launches"]["flash_attention"]
+            or not lb["launches"]["chunked_prefill_attention"]
+            or lb["launches"]["paged_decode_attention"]):
+        raise AssertionError(f"leg (b) guards failed: {lb}")
+
+    # (c) the same, embedded by the model itself through encode
+    cc = client()
+
+    def leg_c():
+        emb = RecordingEmbedder(rt.EngineEmbedder(cc))
+        res = rt.prefilter_join(small.r1, small.r2, small.condition, cc,
+                                emb, k=4)
+        recorded["c"] = (emb.vectors, 4, res.meta["candidate_pairs"])
+        return res, small, dict(embed_tokens=emb.tokens_read,
+                                embed_batches=emb.inner.batches)
+    lc = leg("c 96x48 EngineEmbedder k=4 engine-scored", leg_c, cc)
+    if (lc["embed_tokens"] != 9337 or lc["precision"] != 1.0
+            or lc["calls"] != 2 + lc["candidates"] or lc["decode_steps"]):
+        raise AssertionError(f"leg (c) guards failed: {lc}")
+
+    # (d) the scored tuple join on ads: 16 x 16 pairs, 512 score rows
+    ads = rt.ads_scenario()
+    cd = rt.EngineClient(engine, oracle=rt.OracleLLM(ads.predicate,
+                                                     context_limit=1024))
+    ld = leg("d ads tuple join scored", lambda: (rt.tuple_join(
+        ads.r1, ads.r2, ads.condition, cd, scoring=True), ads, {}), cd)
+    if ld["f1"] != 1.0 or ld["decode_steps"]:
+        raise AssertionError(f"leg (d) guards failed: {ld}")
+
+    wall = time.perf_counter() - t_path
+    counts = ops.launch_counts()          # read right after the path
+    shapes = {k.name: k.shapes.most_common() for k in ops.KERNELS}
+    log(f"  prefilter path: wall={wall:.3f} s launches={counts}")
+    log(f"    topk_similarity launches by integer arguments: "
+        f"{shapes['topk_similarity']}")
+    needed = ("flash_attention", "chunked_prefill_attention",
+              "topk_similarity")
+    if [k for k in needed if counts[k] == 0] or counts["paged_decode_attention"]:
+        raise AssertionError(f"prefilter path launches {counts}: expected "
+                             f"{needed} and no paged decode")
+
+    # the candidates of legs (a) and (c) again, from the same embeddings
+    # through the plain top-k on the card
+    for name, (vectors, k, got) in recorded.items():
+        with plain_kernels(ops):
+            want = rt.topk_candidates(*(np.asarray(v) for v in vectors), k,
+                                      device=dev)
+        same = set(got) == want
+        log(f"  leg ({name}) candidates == plain top-k on the card: "
+            f"{'yes' if same else 'NO'} ({len(want)})")
+        if not same:
+            raise AssertionError(f"leg ({name}): kernel candidates differ "
+                                 "from the plain version's")
+    return dict(wall_s=wall, launches=counts, shapes=shapes, legs=legs)
 
 
 def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
@@ -395,28 +628,50 @@ def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
                        f"{(B, H, KV, hd, pg, n_slots)}",
                        ops.paged_decode_attention(*x),
                        L.paged_decode_attention(*x), dt, main=True)
+    for (M, N, D, k), _ in shapes["topk_similarity"]:
+        e1, e2 = _unit_rows(g, M, D), _unit_rows(g, N, D)
+        checks.compare_topk(f"prefilter path M,N,D,k={(M, N, D, k)}",
+                            ops.topk_similarity(e1, e2, k=k),
+                            L.topk_similarity(e1, e2, k), 1e-6, main=True)
     torch.cuda.synchronize()
     if checks.failed:
         raise AssertionError(f"kernel checks failed: {checks.failed}")
 
 
-def profile_block_join(rt, engine, out: Path) -> None:
-    """The block join once more on a fresh engine over the same weights
-    (cold prefix cache) under ``torch.profiler``: device busy share and
-    device time by kernel, written to ``out/profile_block_join.txt``."""
+def profile_joins(rt, engine, out: Path) -> None:
+    """One join of each path once more, each on a fresh engine over the
+    same weights (cold prefix cache), under ``torch.profiler``: the block
+    join, and leg (b) of the prefilter path (hashed candidates verified by
+    scoring through the engine)."""
+    sc = rt.ads_scenario()
+    small = rt.marketplace_scenario(n1=96, n2=48, n_products=6, n_cities=4,
+                                    seed=5)
+
+    def client(scenario):
+        eng = rt.Engine(engine.cfg, engine.params, engine.tokenizer,
+                        max_seq=1024, slots=4)
+        return rt.EngineClient(eng, oracle=rt.OracleLLM(
+            scenario.predicate, context_limit=1_000_000))
+
+    cb, cp = client(sc), client(small)
+    profile_one("block join", "block_join", out, lambda: rt.block_join(
+        sc.r1, sc.r2, sc.condition, cb, 4, 4))
+    profile_one("prefilter leg (b)", "prefilter_b", out,
+                lambda: rt.prefilter_join(small.r1, small.r2, small.condition,
+                                          cp, rt.HashEmbedder(), k=4))
+
+
+def profile_one(label: str, name: str, out: Path, run) -> None:
+    """``run()`` under ``torch.profiler``: device busy share and device
+    time by kernel, written to ``out/profile_<name>.txt``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng = rt.Engine(engine.cfg, engine.params, engine.tokenizer,
-                    max_seq=1024, slots=4)
-    sc = rt.ads_scenario()
-    client = rt.EngineClient(
-        eng, oracle=rt.OracleLLM(sc.predicate, context_limit=1024))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        rt.block_join(sc.r1, sc.r2, sc.condition, client, 4, 4)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     # device-side events only: an operator's own entry repeats the time
@@ -426,12 +681,12 @@ def profile_block_join(rt, engine, out: Path) -> None:
               and e.self_device_time_total > 0}
     busy = sum(dev_us.values()) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:25]
-    lines = [f"block join under torch.profiler: wall {wall:.3f} s, device "
+    lines = [f"{label} under torch.profiler: wall {wall:.3f} s, device "
              f"busy {busy:.3f} s ({100 * busy / wall:.1f}%), idle "
              f"{100 * (1 - busy / wall):.1f}%"]
     lines += [f"  {us / 1e3:10.1f} ms {100 * us / 1e6 / wall:5.1f}%  {k[:110]}"
               for k, us in top]
-    (out / "profile_block_join.txt").write_text("\n".join(lines) + "\n")
+    (out / f"profile_{name}.txt").write_text("\n".join(lines) + "\n")
     for line in lines[:16]:
         log("  " + line)
 
@@ -570,6 +825,29 @@ def time_decode(ops, L, g, dtype, B, H, KV, hd, page, n_slots, lens):
                           .abs().max()))
 
 
+def time_topk(ops, L, g, M, N, D, k):
+    """fp32 top-k: the kernel, its plain version, and torch.topk over the
+    full similarity matrix (two library calls: matmul, then topk)."""
+    mk = lambda: (_unit_rows(g, M, D), _unit_rows(g, N, D))  # noqa: E731
+    x0 = mk()
+    sets = [x0] + [mk() for _ in range(n_sets(_nbytes(*x0)) - 1)]
+    kk = min(k, N)
+    b_ms, b_by = bound(_nbytes(*x0) + M * kk * 8, 2 * M * N * D,
+                       torch.float32)
+    got, want = ops.topk_similarity(*x0, k=k), L.topk_similarity(*x0, k)
+    return dict(
+        shape=dict(M=M, N=N, D=D, k=k),
+        ms=time_ms(lambda a, b: ops.topk_similarity(a, b, k=k), sets, 20),
+        plain_ms=time_ms(lambda a, b: L.topk_similarity(a, b, k), sets[:2],
+                         3),
+        library_ms=time_ms(lambda a, b: torch.topk(a @ b.T, kk, dim=1),
+                           sets, 20),
+        library="torch.topk(e1 @ e2.T, k): two library calls",
+        bound_ms=b_ms, bound_by=b_by,
+        indices_equal=bool(torch.equal(got[0], want[0])),
+        max_abs_err=float((got[1] - want[1]).abs().max()))
+
+
 def time_kernels(ops, L, dev, shapes) -> dict:
     """Time each kernel at the main path's most frequent shape (bf16), and
     flash / chunked prefill at the other prefill buckets."""
@@ -587,6 +865,8 @@ def time_kernels(ops, L, dev, shapes) -> dict:
         "paged_decode_attention": time_decode(
             ops, L, g, dt, dB, dH, dKV, dhd, dpg, dslots,
             [dslots * dpg] * dB),
+        # leg (a)'s shape: the prefilter's candidates at real scale
+        "topk_similarity": time_topk(ops, L, g, 10_000, 1_000, 256, 8),
     }
     sweep = []
     for S in (128, 512, 1024):
@@ -599,12 +879,24 @@ def time_kernels(ops, L, dev, shapes) -> dict:
         sweep.append(("paged_decode_attention",
                       time_decode(ops, L, g, dt, 4, 32, 8, 64, 16, 64,
                                   [n] * 4)))
+    # leg (a)'s other direction, and the width of EngineEmbedder's
+    # vectors (d_model 2048)
+    sweep.append(("topk_similarity",
+                  time_topk(ops, L, g, 1_000, 10_000, 256, 8)))
+    sweep.append(("topk_similarity",
+                  time_topk(ops, L, g, 10_000, 1_000, 2048, 8)))
     torch.cuda.synchronize()
     for name, r in [(k, v) for k, v in main.items()] + sweep:
-        log(f"  {name:26s} bf16 {json.dumps(r['shape']):80s} "
+        lib = "topk" if name == "topk_similarity" else "sdpa"
+        dt_name = "fp32" if name == "topk_similarity" else "bf16"
+        log(f"  {name:26s} {dt_name} {json.dumps(r['shape']):80s} "
             f"kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
-            f"sdpa={r['library_ms']:.4f} ms bound={r['bound_ms']:.4f} ms "
+            f"{lib}={r['library_ms']:.4f} ms bound={r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) kernel/bound={r['ms'] / r['bound_ms']:.1f}x")
+        if name == "topk_similarity" and (not r["indices_equal"]
+                                          or r["max_abs_err"] > 1e-6):
+            raise AssertionError(f"topk_similarity timed inputs: kernel "
+                                 f"differs from plain ({r})")
     return dict(main=main, sweep=sweep)
 
 
@@ -614,15 +906,18 @@ def time_kernels(ops, L, dev, shapes) -> dict:
 def port() -> types.SimpleNamespace:
     """The port's entry points this script drives, in one namespace."""
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.core import adaptive_join, block_join
+    from repro_torch.core import (HashEmbedder, adaptive_join, block_join,
+                                  prefilter_join, topk_candidates,
+                                  tuple_join)
     from repro_torch.core.oracle import OracleLLM
     from repro_torch.data import ads_scenario
+    from repro_torch.data.scenarios import marketplace_scenario
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.launch.serve import build_engine
     from repro_torch.models import (chunked_prefill, decode_step,
                                     init_params, model_specs, prefill)
     from repro_torch.models.params import tree_items
-    from repro_torch.serve import Engine, EngineClient
+    from repro_torch.serve import Engine, EngineClient, EngineEmbedder
 
     return types.SimpleNamespace(**{k: v for k, v in locals().items()})
 
@@ -633,7 +928,8 @@ def main() -> int:
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
                     help="directory for chip_smoke.json (the full record)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one block join with torch.profiler")
+                    help="also profile one block join and prefilter leg "
+                         "(b) with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -683,30 +979,45 @@ def main() -> int:
     log("== phase 4: main path, full-width granite-3-2b bf16, block + "
         "adaptive joins")
     summary, engine = run_main_path(rt, ops, dev, args.seed)
-    check_main_shapes(ops, L, dev, summary["shapes"], checks)
 
-    log("== phase 5: kernel times (CUDA events, bf16)")
+    log("== phase 5: the prefilter path on the same engine")
+    prefilter = run_prefilter_path(rt, ops, dev, engine)
+    both = {name: [(shape, n) for shape, n in (
+        collections.Counter(dict(summary["shapes"][name]))
+        + collections.Counter(dict(prefilter["shapes"][name]))).most_common()]
+        for name in summary["shapes"]}
+    check_main_shapes(ops, L, dev, both, checks)
+
+    log("== phase 6: kernel times (CUDA events; attention bf16, top-k fp32)")
     timing = time_kernels(ops, L, dev, summary["shapes"])
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     if args.profile:
-        log("== profile: block join under torch.profiler")
-        profile_block_join(rt, engine, out)
+        log("== profile: block join and prefilter leg (b) under "
+            "torch.profiler")
+        profile_joins(rt, engine, out)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for k in ops.KERNELS:
         r = timing["main"][k.name]
+        # each kernel with the launches of the path it was timed for: the
+        # attention kernels on block + adaptive, top-k on the prefilter
+        path = prefilter if k.name == "topk_similarity" else summary
         kernels.append(dict(
             name=k.name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{k.source}.cu",
-            replaces=k.replaces, launches=summary["launches"][k.name],
+            replaces=k.replaces, launches=path["launches"][k.name],
+            launches_by_path=dict(
+                block_adaptive=summary["launches"][k.name],
+                prefilter=prefilter["launches"][k.name]),
             max_abs_err=max(checks.max_err[k.name], r["max_abs_err"]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, build_s=times, main_path=summary,
-        timing=timing, kernels=kernels), indent=1, default=str))
+        prefilter_path=prefilter, timing=timing, kernels=kernels), indent=1,
+        default=str))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

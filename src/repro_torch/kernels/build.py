@@ -25,7 +25,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention", "chunked_prefill", "paged_decode_attention")
+SOURCES = ("flash_attention", "chunked_prefill", "paged_decode_attention",
+           "topk_sim")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v", "-lineinfo")

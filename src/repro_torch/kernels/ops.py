@@ -1,8 +1,15 @@
-"""Wrappers of the hand-written CUDA attention kernels.
+"""Wrappers of the port's four hand-written CUDA kernels.
+
+Three attention kernels carry the serving path (block and adaptive
+joins): ``flash_attention``, ``chunked_prefill_attention`` and
+``paged_decode_attention``.  The prefilter path (embedding, top-k
+candidates, scored verification) runs the first two for its prefill
+passes and ``topk_similarity`` for its candidates.
 
 Each wrapper takes the layouts of the JAX package's kernels (q
 ``(B, S, H, hd)``, K/V unrepeated with ``KV`` heads, pools ``(n_pages,
-page, KV, hd)``) and dispatches on the device of its tensors:
+page, KV, hd)``, embeddings ``(M, D)``) and dispatches on the device of
+its tensors:
 
 * CPU tensors go to the plain PyTorch version in
   :mod:`repro_torch.models.layers` — the only case it is used;
@@ -28,6 +35,10 @@ from repro_torch.kernels import build
 from repro_torch.models import layers as L
 
 HEAD_DIMS = (16, 32, 64, 128)
+#: the largest k' = min(k, N) the top-k kernel takes (kMaxK in
+#: csrc/topk_sim.cu): 4 query rows a block keep two 2048-long lists in
+#: 128 KB of shared memory
+TOPK_MAX_K = 2048
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -170,6 +181,39 @@ class _PagedDecodeAttention(CudaKernel):
         return out
 
 
+class _TopkSimilarity(CudaKernel):
+    def __call__(self, e1: torch.Tensor, e2: torch.Tensor, *,
+                 k: int) -> tuple:
+        """The ``k' = min(k, N)`` most similar rows of ``e2 (N, D)`` for
+        every row of ``e1 (M, D)``: ``(idx (M, k') int32, sim (M, k')
+        fp32)``, sorted by value descending, ties to the lower index."""
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        if _on_cpu(e1, e2):
+            return self.plain(e1, e2, k)
+        if e1.dim() != 2 or e2.dim() != 2 or e1.shape[1] != e2.shape[1]:
+            raise ValueError(f"topk_similarity: e1 {tuple(e1.shape)} and e2 "
+                             f"{tuple(e2.shape)} are not (M, D) and (N, D)")
+        for t in (e1, e2):
+            if t.dtype != torch.float32:
+                raise TypeError(f"topk_similarity: dtype {t.dtype} not "
+                                "supported (float32)")
+            if not t.is_contiguous():
+                raise ValueError("topk_similarity: inputs must be contiguous")
+        (M, D), N = e1.shape, e2.shape[0]
+        kk = min(k, N)
+        if kk > TOPK_MAX_K:
+            raise ValueError(f"topk_similarity: k' = min(k, N) = {kk} is "
+                             f"above the kernel's cap of {TOPK_MAX_K}")
+        idx = torch.empty((M, kk), dtype=torch.int32, device=e1.device)
+        sim = torch.empty((M, kk), dtype=torch.float32, device=e1.device)
+        if M and kk:
+            if D == 0:
+                raise ValueError("topk_similarity: D == 0")
+            self._launch((e1, e2, idx, sim), (M, N, D, kk))
+        return idx, sim
+
+
 flash_attention = _FlashAttention(
     "flash_attention", "flash_attention", "repro_flash_attention",
     n_ptrs=4, n_ints=6, plain=L.flash_attention,
@@ -184,9 +228,22 @@ paged_decode_attention = _PagedDecodeAttention(
     "repro_paged_decode_attention", n_ptrs=6, n_ints=8,
     plain=L.paged_decode_attention,
     replaces="src/repro/kernels/paged_decode_attention.py:75")
+topk_similarity = _TopkSimilarity(
+    "topk_similarity", "topk_sim", "repro_topk_similarity", n_ptrs=4,
+    n_ints=4, plain=L.topk_similarity,
+    replaces="src/repro/kernels/topk_sim.py:75")
 
-#: every kernel of the serving path, in the order the model reaches them
-KERNELS = (flash_attention, chunked_prefill_attention, paged_decode_attention)
+#: every kernel of the port: the three attention kernels in the order the
+#: model reaches them, then the prefilter's top-k
+KERNELS = (flash_attention, chunked_prefill_attention, paged_decode_attention,
+           topk_similarity)
+
+
+def top1_similarity(e1: torch.Tensor, e2: torch.Tensor) -> tuple:
+    """``(idx (M,) int32, sim (M,) fp32)``: column 0 of a k = 1
+    :func:`topk_similarity`, as ``repro.kernels.topk_sim`` defines it."""
+    idx, sim = topk_similarity(e1, e2, k=1)
+    return idx[:, 0], sim[:, 0]
 
 
 def reset_launch_counts() -> None:

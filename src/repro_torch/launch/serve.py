@@ -4,13 +4,16 @@ a semantic join on it (after ``repro.launch.serve``, single engine).
   python -m repro_torch.launch.serve --arch granite-3-2b --operator block
   python -m repro_torch.launch.serve --arch granite-3-2b --smoke \\
       --device cpu --operator adaptive
+  REPRO_SCORE_JOIN=1 python -m repro_torch.launch.serve \\
+      --arch granite-3-2b --operator tuple
 
 Weights are random, drawn on the device from ``--seed``; the rule oracle
 teacher-forces the answers, so every prefill, cache write and decode step
 runs for real with honest token accounting.  The engine runs on ``cuda``
-in bf16 unless ``--device cpu`` is given (fp32 there).  Replicas and
-tensor parallelism (``--replicas``/``--tp`` above 1) and the tuple join
-are not yet ported.
+in bf16 unless ``--device cpu`` is given (fp32 there).  The tuple join
+answers each pair by decoding, or with ``REPRO_SCORE_JOIN=1`` by scoring
+Yes/No from one prefill pass (zero decode steps).  Replicas and tensor
+parallelism (``--replicas``/``--tp`` above 1) are not yet ported.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.configs import PORTED_ARCH_IDS, get_config, get_smoke_config
-from repro_torch.core import adaptive_join, block_join
+from repro_torch.core import adaptive_join, block_join, tuple_join
 from repro_torch.core.oracle import OracleLLM
 from repro_torch.data import all_scenarios
 from repro_torch.data.tokenizer import ByteTokenizer
@@ -50,7 +53,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--scenario", default="ads",
                     choices=["ads", "emails", "reviews"])
     ap.add_argument("--operator", default="adaptive",
-                    choices=["block", "adaptive"])
+                    choices=["tuple", "block", "adaptive"])
     ap.add_argument("--max-seq", type=int, default=1024)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--replicas", type=int, default=1)
@@ -73,7 +76,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     sc = {s.name: s for s in all_scenarios()}[args.scenario]
     client = EngineClient(
         engine, oracle=OracleLLM(sc.predicate, context_limit=args.max_seq))
-    if args.operator == "block":
+    if args.operator == "tuple":
+        res = tuple_join(sc.r1, sc.r2, sc.condition, client)
+    elif args.operator == "block":
         res = block_join(sc.r1, sc.r2, sc.condition, client, 4, 4)
     else:
         res = adaptive_join(sc.r1, sc.r2, sc.condition, client,

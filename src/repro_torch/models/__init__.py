@@ -4,6 +4,7 @@ from repro_torch.models.model import (
     cache_specs,
     chunked_prefill,
     decode_step,
+    encode,
     model_specs,
     prefill,
 )
@@ -15,7 +16,7 @@ from repro_torch.models.params import (
 )
 
 __all__ = [
-    "cache_specs", "chunked_prefill", "decode_step",
+    "cache_specs", "chunked_prefill", "decode_step", "encode",
     "model_specs", "prefill", "Spec", "from_numpy", "init_params",
     "param_count",
 ]

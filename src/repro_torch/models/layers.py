@@ -1,5 +1,5 @@
-"""Shared layers in plain PyTorch, and the plain versions of the three
-attention kernels.
+"""Shared layers in plain PyTorch, and the plain versions of the four
+kernels (three attention kernels and the prefilter's top-k).
 
 Conventions follow ``repro.models.layers``:
 
@@ -14,13 +14,14 @@ ops, with fp32 scores, an fp32 softmax and fp32 accumulation.  The
 wrappers in :mod:`repro_torch.kernels.ops` call them for CPU tensors
 only; ``chip_smoke.py`` holds each kernel against them on the card.  They
 mirror ``repro.models.layers`` (``blockwise_causal_attention``,
-``chunked_prefill_attention``, ``paged_decode_attention``) and
-``repro.kernels.ref``.
+``chunked_prefill_attention``, ``paged_decode_attention``,
+``topk_similarity``) and ``repro.kernels.ref``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -169,3 +170,33 @@ def paged_decode_attention(
     k = k_pool[table].reshape(B, n_slots * page, KV, hd)
     v = v_pool[table].reshape(B, n_slots * page, KV, hd)
     return decode_attention(q, k, v, cache_len)
+
+
+# ---------------------------------------------------------------------------
+# Plain version of the top-k similarity kernel (embedding prefilter)
+# ---------------------------------------------------------------------------
+
+
+def topk_similarity(e1: torch.Tensor, e2: torch.Tensor,
+                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k' = min(k, N)`` most similar rows of ``e2 (N, D)`` for every
+    row of ``e1 (M, D)``: ``(idx (M, k') int32, sim (M, k') fp32)``,
+    sorted by value descending with ties to the lower index.
+
+    The fp32 dots are a rounded product then a rounded sum over ``d = 0,
+    1, ..., D-1`` in order, one tensor op each, exactly as the kernel
+    takes them: equal vectors give equal values (ties stay ties) and the
+    kernel's values match bit for bit.  The order is then a *stable*
+    descending sort, so ties go to the lower index; ``torch.topk`` leaves
+    the order among equal values unspecified.
+    """
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    a, b = e1.float(), e2.float()
+    sim = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.float32,
+                      device=a.device)
+    for d in range(a.shape[1]):
+        sim.add_(a[:, d, None] * b[None, :, d])
+    vals, idx = torch.sort(sim, dim=1, descending=True, stable=True)
+    kk = min(k, b.shape[0])
+    return idx[:, :kk].to(torch.int32), vals[:, :kk].contiguous()

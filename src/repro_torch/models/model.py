@@ -5,6 +5,7 @@ Public surface (plain functions of ``(cfg, params, ...)``):
 * :func:`model_specs`     — parameter spec tree (scan-stacked layers)
 * :func:`cache_specs`     — cache tree, dense or paged
 * :func:`prefill`         — ragged bucketed prefill → (cache, logits)
+* :func:`encode`          — mean-pooled final-norm hidden states, no cache
 * :func:`chunked_prefill` — the uncached suffix over a gathered prefix;
   with ``paged=True`` it returns the suffix K/V only
 * :func:`decode_step`     — one paged decode step with the ``active`` mask
@@ -116,8 +117,27 @@ def _cache_dtype(cfg: ModelConfig, x: torch.Tensor):
     return x.dtype
 
 
+def _backbone(cfg: ModelConfig, params, x: torch.Tensor,
+              positions: torch.Tensor, ks: Optional[torch.Tensor] = None,
+              vs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The layers over full sequences (causal, flash attention), then the
+    final norm.  With ``ks``/``vs`` ``(layers, B, >= S, KV, hd)`` each
+    layer's K/V land at ``[i, :, :S]``; without them nothing is kept."""
+    S = x.shape[1]
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        out, (k, v) = B.attn_apply(cfg, lp["attn"], x, positions,
+                                   return_kv=True)
+        x = x + out
+        if ks is not None:
+            ks[i, :, :S] = k
+            vs[i, :, :S] = v
+        x = x + B.mlp_apply(cfg, lp["mlp"], x)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
 # ---------------------------------------------------------------------------
-# Prefill
+# Prefill and encode
 # ---------------------------------------------------------------------------
 
 
@@ -143,15 +163,7 @@ def prefill(
     shape = (cfg.n_layers, Bsz, max_seq, KV, hd)
     ks = torch.zeros(shape, dtype=dt, device=x.device)
     vs = torch.zeros(shape, dtype=dt, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        out, (k, v) = B.attn_apply(cfg, lp["attn"], x, positions,
-                                   return_kv=True)
-        x = x + out
-        ks[i, :, :S] = k
-        vs[i, :, :S] = v
-        x = x + B.mlp_apply(cfg, lp["mlp"], x)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _backbone(cfg, params, x, positions, ks, vs)
     if all_logits:
         logits = L.unembed(x, _unembed_table(cfg, params))
     else:
@@ -159,6 +171,32 @@ def prefill(
     lens = (torch.full((Bsz,), S, dtype=torch.int32, device=x.device)
             if valid_len is None else valid_len.to(torch.int32))
     return {"k": ks, "v": vs, "len": lens}, logits
+
+
+def encode(
+    cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+    valid_len: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sequence embeddings: final-norm hidden states mean-pooled in fp32
+    over each row's valid positions → ``(B, d_model)`` fp32.
+
+    The same backbone as :func:`prefill` (so flash attention on the
+    card), but no KV cache is allocated and nothing is unembedded: the
+    serving tier's embedding surface (``Engine.embed_rows``).  Causality
+    keeps right-padding out of every position ``< valid_len``, and only
+    those are pooled.
+    """
+    _require_dense(cfg)
+    tokens = batch["tokens"]
+    x = L.embed(tokens, params["embed"])
+    Bsz, S = tokens.shape
+    positions = torch.arange(S, device=x.device).expand(Bsz, S)
+    xf = _backbone(cfg, params, x, positions).float()
+    if valid_len is None:
+        return xf.mean(dim=1)
+    mask = (positions < valid_len.to(x.device)[:, None]).float()   # (B, S)
+    denom = mask.sum(dim=1, keepdim=True).clamp(min=1.0)
+    return (xf * mask[..., None]).sum(dim=1) / denom
 
 
 def chunked_prefill(

@@ -20,13 +20,18 @@ What carries over unchanged from the JAX engine:
   kernel); rows of one batch that share a cold prefix write it once.
 * **Per-row termination** with O(1) stop-string matching, token
   accounting, and teacher forcing through ``expected`` answers.
+* **Prefill-only scoring** (:meth:`Engine.score_rows`) — teacher-forced
+  ``prompt + continuation`` through the same paged prefill with
+  per-position logits, zero decode steps, pages released right after.
+* **The embedding surface** (:meth:`Engine.embed_rows`) — a bucketed,
+  cache-free encode pass returning mean-pooled fp32 hidden states.
 
 PyTorch runs eagerly, so there are no jitted closures: every pass is a
 call into :mod:`repro_torch.models` on the engine's device (the device of
 the weights).  The pool is updated in place where the JAX engine donates
 buffers.  Dense KV (``paged=False``), speculative decoding, int8
-weights, meshes, scoring and embedding are not yet ported and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+weights and meshes are not yet ported and raise ``NotImplementedError``
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.llm_client import cancel_unfinished
-from repro_torch.models import chunked_prefill, decode_step, prefill
+from repro_torch.models import chunked_prefill, decode_step, encode, prefill
 from repro_torch.obs.trace import NULL_TRACE
 from repro_torch.serve.prefix_cache import PagedKVPool, RadixPrefixCache
 
@@ -54,6 +59,29 @@ class GenResult:
     #: prompt tokens served from the radix prefix cache (never recomputed);
     #: always <= prompt_tokens, 0 when the cache is off or missed
     cached_prompt_tokens: int = 0
+    #: prefill-only scoring: candidate-continuation tokens whose log-probs
+    #: were read from prefill logits (subset of prompt_tokens;
+    #: completion_tokens stays 0 for score requests)
+    scored_tokens: int = 0
+    #: total log-prob of the scored continuation (None for generation)
+    score_logprob: Optional[float] = None
+
+
+@dataclasses.dataclass
+class ScoreRow:
+    """One scored (prompt, continuation) pair from :meth:`Engine.score_rows`.
+
+    ``logprob`` is the sum of per-token log-probs of the continuation under
+    teacher forcing after the prompt — read from per-position prefill
+    logits, zero decode steps.  ``cached_tokens`` of the sequence were
+    served by the radix prefix cache instead of recomputed.
+    """
+
+    logprob: float
+    token_logprobs: List[float]
+    prompt_tokens: int
+    cont_tokens: int
+    cached_tokens: int
 
 
 class StopMatcher:
@@ -112,6 +140,18 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not yet ported to repro_torch (ROADMAP.md {item})")
+
+
+def _score_gather(logits: torch.Tensor, idx: torch.Tensor,
+                  tgt: torch.Tensor) -> torch.Tensor:
+    """Per-position log-probs: each row's continuation-predicting
+    positions ``idx (B, M)`` of ``logits (B, L, V)``, a log-softmax over
+    the whole padded vocab (no mask, as the JAX engine takes it), then
+    the targets ``tgt (B, M)`` → ``(B, M)`` fp32."""
+    sel = torch.gather(logits, 1,
+                       idx[:, :, None].expand(-1, -1, logits.shape[-1]))
+    return torch.gather(torch.log_softmax(sel, dim=-1), 2,
+                        tgt[:, :, None])[..., 0]
 
 
 class Engine:
@@ -353,15 +393,114 @@ class Engine:
                 cached=int(sum(out[3])))
         return out
 
-    def score_rows(self, pairs):
-        raise _not_ported("prefill-only scoring (score_rows)",
-                          "queue A item 6")
+    def score_rows(
+        self, pairs: Sequence[Tuple[str, str]]
+    ) -> List[ScoreRow]:
+        """Score up to ``slots`` (prompt, continuation) pairs in ONE
+        prefill pass with zero decode steps.
 
-    def embed_rows(self, texts):
-        raise _not_ported("the embedding surface (embed_rows)",
-                          "queue A item 8")
+        Each row teacher-forces ``prompt + continuation`` through prefill
+        with per-position logits: the logit at position ``i`` predicts
+        token ``i + 1``, so the continuation's log-prob is read directly
+        — no decode step, no sampling, no decode slot.
 
-    def _prefill_over_cache(self, ids: List[List[int]], matches: List[Any]):
+        The radix prefix cache serves any cached prefix (capped at
+        ``len(prompt_ids) - 1`` so the position predicting the first
+        continuation token is always computed), the uncached suffix runs
+        through chunked prefill over the gathered prefix, and the rows'
+        pages are allocated, deduplicated and interned exactly as for a
+        generation prefill — then **released right after the gather**:
+        a score request holds no page past its own batch (the radix tree
+        keeps its interned pages, evictable under pressure).
+        """
+        if not 0 < len(pairs) <= self.slots:
+            raise ValueError(f"score_rows takes 1..{self.slots} pairs")
+        prompt_ids = [self.tokenizer.encode(p) for p, _ in pairs]
+        cont_ids = [self.tokenizer.encode(c, bos=False) for _, c in pairs]
+        if any(not ci for ci in cont_ids):
+            raise ValueError("cannot score an empty continuation")
+        seqs = [p + c for p, c in zip(prompt_ids, cont_ids)]
+        lens = [len(s) for s in seqs]
+        if max(lens) > self.max_seq:
+            raise ValueError(
+                f"prompt+continuation of {max(lens)} tokens exceeds "
+                f"engine max_seq {self.max_seq}")
+        limits = [len(p) - 1 for p in prompt_ids]
+        t0 = self.trace.now() if self.trace else 0.0
+        (tables, _), logits, _, cached = self._prefill_rows_paged(
+            seqs, lens, limits=limits, all_logits=True)
+        # logits: (slots, L, vocab) over each row's *computed* suffix —
+        # continuation token i lives at suffix-relative position
+        # len(prompt_ids) - 1 + i - cached[r]
+        M = max(len(ci) for ci in cont_ids)
+        idx = np.zeros((self.slots, M), np.int64)
+        tgt = np.zeros((self.slots, M), np.int64)
+        for r, (pi, ci) in enumerate(zip(prompt_ids, cont_ids)):
+            base = len(pi) - 1 - cached[r]
+            for i, t in enumerate(ci):
+                idx[r, i] = base + i
+                tgt[r, i] = t
+        lp = _score_gather(logits, self._tensor(idx),
+                           self._tensor(tgt)).cpu().numpy()
+        # release right away: score rows never own pages past their batch
+        # — only the radix tree's own (evictable) refs remain
+        for t in tables:
+            if t:
+                self.pool.decref(t)
+        rows = []
+        for r, (pi, ci) in enumerate(zip(prompt_ids, cont_ids)):
+            token_lps = [float(lp[r, i]) for i in range(len(ci))]
+            rows.append(ScoreRow(
+                logprob=float(sum(token_lps)), token_logprobs=token_lps,
+                prompt_tokens=len(pi), cont_tokens=len(ci),
+                cached_tokens=cached[r]))
+        if self.trace:
+            self.trace.complete(
+                "engine.score", "engine", t0, pid=self.trace_pid,
+                rows=len(pairs), cached=int(sum(cached)))
+        return rows
+
+    def embed_rows(
+        self, texts: Sequence[str]
+    ) -> Tuple[np.ndarray, List[int]]:
+        """Embed up to ``slots`` texts in ONE bucketed encode pass.
+
+        Each text runs the full backbone as a ragged right-padded row
+        (same bucketing as prefill); the fp32 mean-pooled final-norm
+        hidden states come back as a ``(len(texts), d_model)`` array
+        together with each row's prompt-token count — the serving tier's
+        embedding surface, consumed by
+        :class:`repro_torch.serve.client.EngineEmbedder`.
+
+        No KV cache, page or decode slot is touched.  The batch is padded
+        to ``slots`` rows, as the JAX engine pads it to compile once per
+        bucket, so the two engines run the same shapes.
+        """
+        if not 0 < len(texts) <= self.slots:
+            raise ValueError(f"embed_rows takes 1..{self.slots} texts")
+        ids = [self.tokenizer.encode(t) for t in texts]
+        lens = [len(i) for i in ids]
+        if max(lens) > self.max_seq:
+            raise ValueError(
+                f"text of {max(lens)} tokens exceeds engine max_seq "
+                f"{self.max_seq}")
+        t0 = self.trace.now() if self.trace else 0.0
+        L = _bucket(max(lens), self.prefill_buckets)
+        toks = np.zeros((self.slots, L), np.int64)
+        vlen = np.zeros((self.slots,), np.int32)
+        for r, seq in enumerate(ids):
+            toks[r, :len(seq)] = seq
+            vlen[r] = len(seq)
+        vecs = encode(self.cfg, self.params, {"tokens": self._tensor(toks)},
+                      valid_len=self._tensor(vlen)).cpu().numpy()
+        if self.trace:
+            self.trace.complete("engine.embed", "engine", t0,
+                                pid=self.trace_pid, rows=len(texts),
+                                bucket=int(L))
+        return vecs[:len(texts)], lens
+
+    def _prefill_over_cache(self, ids: List[List[int]], matches: List[Any],
+                            all_logits: bool = False):
         """Gather cached pages + chunked-prefill the uncached suffixes.
         Returns the suffix-only K/V for page-scattering; the gathered
         prefix is a transient input, never per-row storage."""
@@ -385,9 +524,11 @@ class Engine:
             self.cfg, self.params, {"tokens": self._tensor(toks)},
             max_seq=self.max_seq, valid_len=self._tensor(vlen),
             prefix_k=kp, prefix_v=vp, prefix_len=self._tensor(plen),
-            paged=True)
+            paged=True, all_logits=all_logits)
 
-    def _prefill_rows_paged(self, ids: List[List[int]], lens: List[int]):
+    def _prefill_rows_paged(self, ids: List[List[int]], lens: List[int],
+                            limits: Optional[List[int]] = None,
+                            all_logits: bool = False):
         """Prefill into freshly allocated pool pages; share matched
         prefixes by reference (zero-copy).
 
@@ -400,13 +541,17 @@ class Engine:
         (keyed by the whole token prefix); duplicate chunks scatter to
         the dump page.  Each row still computes its copy, so accounting
         is that of the dense engine.
+
+        ``limits`` caps each row's prefix match (default ``len - 1``;
+        scoring passes ``len(prompt) - 1``); ``all_logits`` returns the
+        ``(slots, L, vocab)`` logits of every computed position.
         """
         pg = self.page_size
         pc = self.prefix_cache
         matches: List[Any] = [None] * len(ids)
         cached = [0] * len(ids)
         if pc is not None and self.pool.bound:
-            caps = [len(seq) - 1 for seq in ids]
+            caps = limits or [len(seq) - 1 for seq in ids]
             matches = [pc.match(seq, limit=cap)
                        for seq, cap in zip(ids, caps)]
             cached = [m.length for m in matches]
@@ -448,7 +593,8 @@ class Engine:
                     own.append(page)
                     plan.append(page)
             if any(cached):
-                cache, logits = self._prefill_over_cache(ids, matches)
+                cache, logits = self._prefill_over_cache(
+                    ids, matches, all_logits=all_logits)
             else:
                 L = _bucket(max(lens), self.prefill_buckets)
                 toks = np.zeros((self.slots, L), np.int64)
@@ -458,7 +604,8 @@ class Engine:
                     vlen[r] = len(seq)
                 cache, logits = prefill(
                     self.cfg, self.params, {"tokens": self._tensor(toks)},
-                    max_seq=L, valid_len=self._tensor(vlen))
+                    max_seq=L, valid_len=self._tensor(vlen),
+                    all_logits=all_logits)
             if not self.pool.bound:
                 self.pool.bind(cache["k"], cache["v"])
             self._scatter_rows(cache, chunks)

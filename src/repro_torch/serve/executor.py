@@ -31,9 +31,10 @@ refill+decode round; :meth:`as_completed` / :meth:`drain` / :meth:`result`
 loop over :meth:`step` until the requests a caller cares about resolve.
 
 Ported from ``repro.serve.executor`` for the paged engine of
-:mod:`repro_torch.serve.engine`.  Left out until their engine paths are
-ported: speculative steps (ROADMAP.md queue A item 7), score requests
-(item 6), and the fault-injection wrapping of the cluster slice (item 9).
+:mod:`repro_torch.serve.engine`, prefill-only score requests included
+(:meth:`~ContinuousBatchingExecutor.submit_score`).  Left out until their
+engine paths are ported: speculative steps (ROADMAP.md queue A item 7)
+and the fault-injection wrapping of the cluster slice (item 9).
 """
 
 from __future__ import annotations
@@ -75,6 +76,16 @@ class ServeHandle:
     deadline: Optional[float] = None
     #: True when the cancellation was a deadline expiry, not a caller's
     deadline_expired: bool = False
+    #: prefill-only scoring: the candidate continuation to score after
+    #: ``prompt`` (None for generation requests).  Score requests carry
+    #: ``max_tokens=0`` and ``prompt_tokens`` = the FULL
+    #: prompt+continuation token count, so Eq. (1) sees every position
+    #: they occupy and zero reserved output.
+    score: Optional[str] = None
+    #: teacher-forcing analogue for scoring: a caller-supplied log-prob
+    #: (e.g. from the rule oracle) reported instead of the raw model's —
+    #: the engine still runs the real scoring pass with honest accounting
+    expected_score: Optional[float] = None
     #: the executor that owns this handle (set by submit)
     _owner: Optional[object] = dataclasses.field(default=None, repr=False)
     # decode-time bookkeeping (populated on admission)
@@ -122,8 +133,14 @@ class ExecutorStats:
     retries: int = 0
     backoff_s: float = 0.0
     deadline_expired: int = 0
-    #: requests retired FINISHED — the conservation anchor for the
-    #: latency histograms: ttft_s.count == requests_finished, exactly
+    #: prefill-only scoring: score requests retired and continuation
+    #: tokens whose log-probs were read from prefill logits.  A score
+    #: batch counts as ONE prefill batch and ZERO decode steps
+    score_requests: int = 0
+    scored_tokens: int = 0
+    #: requests retired FINISHED (generation and score alike) — the
+    #: conservation anchor for the latency histograms: ttft_s.count +
+    #: score_e2e_s.count == requests_finished, exactly
     requests_finished: int = 0
 
     @property
@@ -208,6 +225,9 @@ class ContinuousBatchingExecutor:
         self._used_pages = 0  # paged engine: KV pages reserved in flight
         self._queued_tokens = 0  # same reservation, for still-queued work
         self._next_id = 0
+        #: a failed score batch exhausted some request's retries — the
+        #: next step() must re-raise instead of swallowing the failure
+        self._score_exhausted = False
 
     # ------------------------------------------------------------------
     # Submission side
@@ -261,6 +281,53 @@ class ContinuousBatchingExecutor:
                 "submit", "request", pid=self.trace_pid,
                 request=handle.request_id, prompt_tokens=ntok,
                 max_tokens=max_tokens, queued=len(self._queue))
+        return handle
+
+    def submit_score(
+        self,
+        prompt: str,
+        continuation: str,
+        *,
+        expected_logprob: Optional[float] = None,
+    ) -> ServeHandle:
+        """Enqueue one prefill-only scoring request.
+
+        The request is admitted under Eq. (1) with ``max_tokens=0`` —
+        its reservation is exactly the prompt+continuation tokens it
+        prefills, held only for the duration of its scoring batch: it
+        never occupies a decode slot, never reserves completion tokens
+        or worst-case pages, and retires with zero decode steps.
+        """
+        if not continuation:
+            raise ValueError("cannot score an empty continuation")
+        tok = self.engine.tokenizer
+        seq_tok = (len(tok.encode(prompt))
+                   + len(tok.encode(continuation, bos=False)))
+        if seq_tok > self.engine.max_seq:
+            raise ValueError(
+                f"prompt+continuation of {seq_tok} tokens exceeds engine "
+                f"max_seq {self.engine.max_seq}")
+        if (self.engine.paged
+                and self.engine.request_pages(seq_tok, 0)
+                > self.engine.total_kv_pages):
+            raise ValueError(
+                f"score request needs {self.engine.request_pages(seq_tok, 0)} "
+                f"KV pages but the pool holds only "
+                f"{self.engine.total_kv_pages} — it could never be admitted")
+        handle = ServeHandle(
+            request_id=self._next_id, prompt=prompt, max_tokens=0,
+            stop=None, expected=None, prompt_tokens=seq_tok, _owner=self,
+            score=continuation, expected_score=expected_logprob,
+        )
+        self._next_id += 1
+        handle._submit_ts = self.clock.now()
+        self._queue.append(handle)
+        self._queued_tokens += self._need(handle)
+        if self.trace:
+            self.trace.instant(
+                "submit_score", "request", pid=self.trace_pid,
+                request=handle.request_id, prompt_tokens=seq_tok,
+                queued=len(self._queue))
         return handle
 
     def _check_owned(self, handle: ServeHandle) -> None:
@@ -345,7 +412,9 @@ class ContinuousBatchingExecutor:
         try:
             finished = self._step_inner()
         except Exception:
-            if self._requeue_in_flight():
+            exhausted = self._requeue_in_flight() or self._score_exhausted
+            self._score_exhausted = False
+            if exhausted:
                 raise
             self._backoff()
             return expired
@@ -587,13 +656,19 @@ class ContinuousBatchingExecutor:
         """Admit queued requests into free slots under Eq. (1) — and, on
         a paged engine, under the pool's free-page budget (each request
         reserves its worst-case page count; DESIGN.md §10) — then
-        prefill them as one ragged batch and scatter the rows in."""
+        prefill them as one ragged batch and scatter the rows in.  Score
+        requests go first, in batches of their own."""
+        self._score_refill(finished)
         budget = self.engine.slots * self.engine.max_seq
         page_budget = self.engine.total_kv_pages  # 0 on dense engines
         admitted: List[ServeHandle] = []
         free = [s for s, h in enumerate(self._slots) if h is None]
         while free and self._queue:
             h = self._queue[0]
+            if h.score is not None:
+                # a score request _score_refill could not yet admit —
+                # capacity frees as decode rows retire; FIFO preserved
+                break
             need_pages = self.engine.request_pages(h.prompt_tokens,
                                                    h.max_tokens)
             occupied = any(s is not None for s in self._slots) or admitted
@@ -650,6 +725,90 @@ class ContinuousBatchingExecutor:
             )
             if h._budget <= 0:  # prompt alone fills the context window
                 self._retire(h, "length", finished)
+
+    def _score_refill(self, finished: List[ServeHandle]) -> None:
+        """Admit and retire queued score requests.
+
+        Score requests are batch-admitted under Eq. (1) and the page
+        budget like everything else, but their reservation is
+        *transient*: the whole batch prefills, its log-probs are read,
+        and its pages are released inside this one call — no decode
+        slot, no completion reservation, nothing carried across steps.
+        They are admitted opportunistically (ahead of queued generation
+        requests) precisely because they cannot hold capacity.
+        """
+        if all(h.score is None for h in self._queue):
+            return
+        eng = self.engine
+        budget = eng.slots * eng.max_seq
+        page_budget = eng.total_kv_pages
+        while True:
+            batch: List[ServeHandle] = []
+            batch_tok = batch_pages = 0
+            for h in self._queue:
+                if h.score is None:
+                    continue
+                if len(batch) == eng.slots:
+                    break
+                pages = eng.request_pages(h.prompt_tokens, 0)
+                if (self._used or batch) and (
+                        self._used + batch_tok + self._need(h) > budget
+                        or self._used_pages + batch_pages + pages
+                        > page_budget > 0):
+                    break  # budget exhausted; FIFO among score requests
+                batch.append(h)
+                batch_tok += self._need(h)
+                batch_pages += pages
+            if not batch:
+                return
+            for h in batch:
+                self._queue.remove(h)
+                self._queued_tokens -= self._need(h)
+                h.status = ACTIVE
+            t0 = self.trace.now() if self.trace else 0.0
+            try:
+                rows = eng.score_rows([(h.prompt, h.score) for h in batch])
+            except Exception:
+                # idempotent like generation prefill: back onto the queue
+                # front, count a retry, re-raise into step()'s handler
+                for h in reversed(batch):
+                    h.status = QUEUED
+                    h.retries += 1
+                    if h.retries > self.max_retries:
+                        self._score_exhausted = True
+                    self._queue.appendleft(h)
+                    self._queued_tokens += self._need(h)
+                raise
+            self.stats.prefill_batches += 1
+            self.stats.score_requests += len(batch)
+            if self.trace:
+                self.trace.complete("score_batch", "executor", t0,
+                                    pid=self.trace_pid, rows=len(batch))
+            done_ts = self.clock.now()
+            se = self.metrics.histogram("score_e2e_s")
+            for h, row in zip(batch, rows):
+                self.stats.scored_tokens += row.cont_tokens
+                self.stats.prefill_tokens_computed += (
+                    h.prompt_tokens - row.cached_tokens)
+                self.stats.prefill_tokens_cached += row.cached_tokens
+                h.result = GenResult(
+                    text="", prompt_tokens=h.prompt_tokens,
+                    completion_tokens=0, finish_reason="score",
+                    cached_prompt_tokens=row.cached_tokens,
+                    scored_tokens=row.cont_tokens,
+                    score_logprob=(h.expected_score
+                                   if h.expected_score is not None
+                                   else row.logprob),
+                )
+                h.status = FINISHED
+                finished.append(h)
+                self.stats.requests_finished += 1
+                se.record(max(0.0, done_ts - h._submit_ts))
+                if self.trace:
+                    self.trace.complete(
+                        "score_request", "request", h._submit_ts,
+                        pid=self.trace_pid, request=h.request_id,
+                        scored=int(row.cont_tokens))
 
     def _requeue_in_flight(self) -> bool:
         """Engine failure: reset in-flight requests back onto the queue.

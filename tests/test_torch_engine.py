@@ -150,9 +150,15 @@ def test_unported_engine_paths_raise(weights):
         _port_engine(weights, spec_decode=True)
     with pytest.raises(NotImplementedError, match="int8"):
         _port_engine(weights, quant=True)
+    # scoring and embedding are ported: on CPU tensors they run the
+    # plain versions and launch no kernel
     eng = _port_engine(weights)
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        eng.score_rows([("a", "b")])
+    launches = dict(ops.launch_counts())
+    (row,) = eng.score_rows([("a", " b")])
+    assert row.cont_tokens > 0 and np.isfinite(row.logprob)
+    vecs, lens = eng.embed_rows(["a", "bc"])
+    assert vecs.shape == (2, eng.cfg.d_model) and np.isfinite(vecs).all()
+    assert ops.launch_counts() == launches
 
 
 def test_launcher_raises_on_unported_options_and_without_a_card():
