@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
 
-The port has four CUDA kernels on two paths: the three attention kernels
-(flash, chunked prefill, paged decode) carry the block and adaptive
-joins; flash, chunked prefill and the top-k similarity kernel carry the
-prefilter path (embedding, candidates, scored verification).
+The port has six CUDA kernels on four paths: the three attention kernels
+of the paged engine (flash, chunked prefill, paged decode) carry the
+block and adaptive joins; flash, chunked prefill and the top-k
+similarity kernel carry the prefilter path (embedding, candidates,
+scored verification); speculative decoding verifies its windows with
+``spec_verify_attention``; the dense-KV engine decodes (and verifies)
+with ``decode_attention``.
 
 Phases, in order; any failure ends the run with a non-zero exit code and
 no result line:
@@ -17,18 +20,21 @@ no result line:
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at edge cases: the attention kernels in fp32
    (TF32 off) and bf16 with the tolerances of ``tests/test_kernels.py``
-   (2e-5 fp32, 2e-2 bf16); top-k in fp32 over the sweep of
+   (2e-5 fp32, 2e-2 bf16); every window row of the verify kernel against
+   the paged decode kernel at its length, and dense decode against paged
+   decode on the same data, bit for bit; top-k in fp32 over the sweep of
    ``tests/test_kernels.py`` (lattice inputs bit for bit, ties, k >= N,
    Gaussian inputs to 1e-6, k up to 2048);
-3. small inputs against a reference: the smoke engine decodes the same
-   greedy tokens on the card as on the CPU, and the full-width model cut
-   to two layers gives the same logits through the kernels as through the
-   plain versions (fp32);
+3. small inputs against a reference: the smoke engine (paged and dense,
+   speculation off and on) decodes the same greedy tokens on the card as
+   on the CPU, and the full-width model cut to two layers gives the same
+   logits through the kernels as through the plain versions (fp32);
 4. the block + adaptive path: full-width granite-3-2b in bf16 (random
    weights from ``--seed``) behind ``Engine(max_seq=1024, slots=4)``, the
    block join (4 x 4) and the adaptive join on the ads scenario through
    ``EngineClient`` with the rule oracle teacher-forcing the answers.
-   F1 must be 1.00 and the three attention kernels must have launched;
+   F1 must be 1.00, the counts those of the JAX engine (``EXPECTED``) and
+   the three attention kernels must have launched;
 5. the prefilter path on the same engine, through a fresh
    ``EngineClient``: (a) the 10,000 x 1,000 marketplace, hashed
    embeddings, ``prefilter_join(k=8)`` verified by the rule oracle on the
@@ -40,18 +46,34 @@ no result line:
    plain top-k on the same embeddings); (d) the scored tuple join on ads
    (F1 1.00, zero decode steps).  Flash, chunked prefill and top-k must
    have launched, paged decode must not;
-6. every kernel against its plain version again at each shape the two
-   paths gave it; then each kernel's time (CUDA events, inputs rotated
-   past the 50 MB L2) at its path's most frequent shape, beside its
-   plain version, one PyTorch call as a yardstick (timed here, never
-   called by the port: ``scaled_dot_product_attention``, or
-   ``torch.topk(e1 @ e2.T, k)``) and its bound from bytes and
-   operations.  ``--profile`` adds one block join and prefilter leg (b)
-   under ``torch.profiler`` (device busy share, device time by kernel).
+6. speculative decoding on the same weights: (i) the ads joins on a
+   fresh engine with ``spec_decode=True``: phase 4's pairs, F1 1.00,
+   fewer decode steps, the JAX engine's counts, the verify kernel
+   launched; (ii) the match-dense block join of
+   ``benchmarks/spec_decode.py`` spec off then on: the same pairs and
+   token ids, the JAX engine's 553 and 228 decode steps; (iii) a K = 9
+   verify pass against 9 decode steps at full width (fp32 held to 2e-2;
+   bf16 printed beside the floor of GEMM-row rounding), and greedy tokens
+   spec on against off (printed);
+7. the dense-KV engine (``paged=False``) on the same weights, spec off
+   and on: the paged engine's pairs, calls, prompt and completion tokens
+   and decode steps, the JAX dense engine's counts, ``decode_attention``
+   launched and no paged kernel;
+8. every kernel against its plain version again at each shape the paths
+   gave it; then each kernel's time (CUDA events, inputs rotated past the
+   50 MB L2) at its path's most frequent shape, beside its plain version,
+   one PyTorch call as a yardstick (timed here, never called by the
+   port: ``scaled_dot_product_attention``, with a mask where needed, or
+   ``torch.topk(e1 @ e2.T, k)``) and its bound from bytes and operations.
+   ``--profile`` adds one block join and prefilter leg (b) under
+   ``torch.profiler`` (device busy share, device time by kernel).
 
-The last lines are the ``{"kernels": [...]}`` summary, the card's name
-and power limit, and ``{"ok": true, "device": {...}}``.  The script needs
-one CUDA card and the repository's ``src/`` beside it.
+Each phase sets its engine's mode itself; ``REPRO_SPEC_DECODE``,
+``REPRO_PAGED_KV`` and ``REPRO_PREFIX_CACHE`` are dropped if set.  The
+last lines are the ``{"kernels": [...]}`` summary (launches on each
+kernel's own path, and by path), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
+the repository's ``src/`` beside it.
 """
 
 from __future__ import annotations
@@ -62,6 +84,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -81,6 +104,70 @@ L2_BYTES = 50 * 2 ** 20
 MAIN = dict(H=32, KV=8, hd=64, page=16, B=4)   # granite-3-2b at full width
 ATTENTION = ("flash_attention", "chunked_prefill_attention",
              "paged_decode_attention")
+#: the path each kernel's launches and time are reported for
+HOME_PATH = {"topk_similarity": "prefilter", "spec_verify_attention": "spec",
+             "decode_attention": "dense"}
+#: the match-dense block join of benchmarks/spec_decode.py, rebuilt here
+#: from its parameters: every left row matches half of the right rows
+MATCH_DENSE = dict(left_rows=24, right_rows=32, b1=12, b2=16, max_seq=1536,
+                   slots=4, spec_k=12)
+
+# Counts of the teacher-forced workloads.  With the rule oracle forcing
+# every answer, decode steps, drafted and accepted tokens and the Ledger's
+# tokens depend only on the token streams and the scheduling, not on the
+# model's width or weights.  They were computed with the JAX engine
+# (src/repro, ``Engine`` on the CPU) on the granite-3-2b smoke config
+# under the same engine settings as each phase here (max_seq, slots, page
+# 16, prefix cache on, the default spec_k = 8; MATCH_DENSE's own), and
+# the card is held to them exactly.  Two things the counts show of the
+# reference itself: with speculation on, requests finish in another
+# order, so the adaptive join takes 64 calls instead of 60 and the prefix
+# cache serves other prompts; and the dense engine's prefix cache (512
+# pages of its own) keeps more than the paged pool (256 pages shared with
+# the live rows), so its adaptive join has more cached tokens.
+EXPECTED = {
+    ("paged", "base"): dict(
+        block=dict(calls=16, prompt_tokens=14016, cached_prompt_tokens=6336,
+                   completion_tokens=208, decode_steps=54, drafted_tokens=0,
+                   accepted_draft_tokens=0),
+        adaptive=dict(calls=60, prompt_tokens=58252,
+                      cached_prompt_tokens=53584, completion_tokens=696,
+                      decode_steps=188, drafted_tokens=0,
+                      accepted_draft_tokens=0)),
+    ("paged", "spec"): dict(
+        block=dict(calls=16, prompt_tokens=14016, cached_prompt_tokens=6624,
+                   completion_tokens=208, decode_steps=24, drafted_tokens=600,
+                   accepted_draft_tokens=116),
+        adaptive=dict(calls=64, prompt_tokens=62272,
+                      cached_prompt_tokens=57120, completion_tokens=748,
+                      decode_steps=82, drafted_tokens=1976,
+                      accepted_draft_tokens=448)),
+    ("dense", "base"): dict(
+        block=dict(calls=16, prompt_tokens=14016, cached_prompt_tokens=6336,
+                   completion_tokens=208, decode_steps=54, drafted_tokens=0,
+                   accepted_draft_tokens=0),
+        adaptive=dict(calls=60, prompt_tokens=58252,
+                      cached_prompt_tokens=54480, completion_tokens=696,
+                      decode_steps=188, drafted_tokens=0,
+                      accepted_draft_tokens=0)),
+    ("dense", "spec"): dict(
+        block=dict(calls=16, prompt_tokens=14016, cached_prompt_tokens=6624,
+                   completion_tokens=208, decode_steps=24, drafted_tokens=600,
+                   accepted_draft_tokens=116),
+        adaptive=dict(calls=64, prompt_tokens=62272,
+                      cached_prompt_tokens=58016, completion_tokens=748,
+                      decode_steps=82, drafted_tokens=1976,
+                      accepted_draft_tokens=448)),
+    # MATCH_DENSE, spec off then on: 4 calls, 384 pairs, 3076 prompt
+    # tokens (benchmarks/BENCH_spec_decode.json records the same)
+    ("match_dense", "base"): dict(calls=4, pairs=384, prompt_tokens=3076,
+                                  generated_tokens=2216, decode_steps=553,
+                                  drafted_tokens=0, accepted_draft_tokens=0),
+    ("match_dense", "spec"): dict(calls=4, pairs=384, prompt_tokens=3076,
+                                  generated_tokens=2216, decode_steps=228,
+                                  drafted_tokens=8432,
+                                  accepted_draft_tokens=1304),
+}
 TOPK_SHAPES = [(16, 16, 8), (32, 48, 16), (64, 30, 32), (17, 13, 8),
                (31, 29, 16), (97, 101, 24), (257, 259, 8), (5, 3, 4),
                (1, 7, 8)]                  # tests/test_kernels.py:345-349
@@ -166,6 +253,24 @@ def decode_inputs(g, dtype, B, H, KV, hd, page, n_slots, lens):
     table = table[: B * n_slots].reshape(B, n_slots).to(torch.int32)
     clen = torch.tensor(lens, dtype=torch.int32, device=g.device)
     return q, kp, vp, table, clen
+
+
+def verify_inputs(g, dtype, B, K, H, KV, hd, page, n_slots, lens):
+    """A window of K queries over a random pool through a permuted table;
+    ``lens`` are the lengths before the window."""
+    _, kp, vp, table, clen = decode_inputs(g, dtype, B, H, KV, hd, page,
+                                           n_slots, lens)
+    return _randn(g, dtype, B, K, H, hd), kp, vp, table, clen
+
+
+def dense_inputs(g, dtype, B, H, KV, hd, Skv, lens):
+    """One query over a dense cache ``(B, Skv, KV, hd)``, and the same
+    rows as pages of a pool through a permuted table (page 16)."""
+    x = decode_inputs(g, dtype, B, H, KV, hd, 16, Skv // 16, lens)
+    q, kp, vp, table, clen = x
+    kc, vc = (p[table.long()].reshape(B, Skv, KV, hd).contiguous()
+              for p in (kp, vp))
+    return (q, kc, vc, clen), x
 
 
 def _lattice(g, *shape):
@@ -264,9 +369,56 @@ def check_kernels(ops, L, dev) -> Checks:
             c.compare("paged_decode_attention", "  garbage ids in dead slots",
                       ops.paged_decode_attention(q, kp, vp, dead, clen), out,
                       dtype, exact=True)
+        check_verify_and_dense(ops, L, g, dtype, c)
     check_topk(ops, L, dev, c)
     torch.cuda.synchronize()
     return c
+
+
+def check_verify_and_dense(ops, L, g, dtype, c: "Checks") -> None:
+    """The speculative-verify kernel at K = 1, 2, 9, 13 (the engine's
+    default spec_k = 8 and the match-dense join's 12) and edge cases, and
+    the dense decode kernel; each against its plain version and against
+    the paged decode kernel bit for bit."""
+    H, KV, hd, page, B = (MAIN[k] for k in ("H", "KV", "hd", "page", "B"))
+    for (Bv, K, Hv, KVv, hdv, n_slots, lens), main in (
+            [((B, K, H, KV, hd, 64, [1024 - K, 500, 17, 0]), True)
+             for K in (1, 2, 9, 13)]
+            + [((B, 9, H, KV, hd, 64, [1020, 15, 16, 1]), False),
+               ((2, 13, 6, 3, 32, 8, [100, 3]), False),
+               ((2, 9, 4, 1, 128, 8, [64, 119]), False),
+               ((3, 32, 4, 1, 16, 8, [0, 50, 96]), False)]):   # 128 rows
+        x = verify_inputs(g, dtype, Bv, K, Hv, KVv, hdv, page, n_slots, lens)
+        q, kp, vp, table, clen = x
+        out = ops.spec_verify_attention(*x)
+        c.compare("spec_verify_attention",
+                  f"B,K,H,KV,hd,slots={(Bv, K, Hv, KVv, hdv, n_slots)}", out,
+                  L.spec_verify_attention_paged(*x), dtype, main)
+        rows = torch.cat([ops.paged_decode_attention(
+            q[:, j:j + 1].contiguous(), kp, vp, table, clen + j + 1)
+            for j in range(K)], dim=1)
+        c.compare("spec_verify_attention",
+                  "  every row j == paged decode at len+j+1", out, rows,
+                  dtype, exact=True)
+        dead = table.clone()   # the dump page and out-of-range ids
+        for b, n in enumerate(lens):
+            dead[b, -(-(n + K) // page):] = (0, -7, 10 ** 6)[b % 3]
+        c.compare("spec_verify_attention", "  dump/garbage ids past window",
+                  ops.spec_verify_attention(q, kp, vp, dead, clen), out,
+                  dtype, exact=True)
+    for (Bd, Hd, KVd, hdd, Skv, lens), main in (
+            [((B, H, KV, hd, 1024, [1024, 16, 17, 1]), True),
+             ((B, H, KV, hd, 1024, [1023, 900, 512, 2]), True),
+             ((2, 6, 3, 32, 128, [48, 127]), False),
+             ((2, 4, 1, 128, 128, [128, 15]), False),
+             ((3, 4, 2, 16, 96, [95, 1, 64]), False)]):
+        x, paged = dense_inputs(g, dtype, Bd, Hd, KVd, hdd, Skv, lens)
+        out = ops.decode_attention(*x)
+        c.compare("decode_attention",
+                  f"B,H,KV,hd,Skv={(Bd, Hd, KVd, hdd, Skv)}", out,
+                  L.decode_attention(*x), dtype, main)
+        c.compare("decode_attention", "  == paged decode on the same data",
+                  out, ops.paged_decode_attention(*paged), dtype, exact=True)
 
 
 # ---------------------------------------------------------------------------
@@ -288,40 +440,58 @@ def plain_kernels(ops):
             setattr(ops, name, k)
 
 
-def _to(tree, device):
+def _to(tree, device_or_dtype):
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: _to(v, device_or_dtype) for k, v in tree.items()}
+    return tree.to(device_or_dtype)
+
+
+def merge_shapes(paths, name: str) -> list:
+    """Launches of kernel ``name`` by shape, summed over the ``paths``'
+    records, most frequent first."""
+    total = collections.Counter()
+    for path in paths:
+        total.update(dict(path["shapes"][name]))
+    return total.most_common()
 
 
 def check_small_engine(rt, dev) -> None:
-    """Smoke config, fp32: greedy tokens on the card == on the CPU."""
+    """Smoke config, fp32: greedy tokens on the card == on the CPU, on the
+    paged and the dense engine, with speculative decoding off and on."""
     cfg = rt.get_smoke_config("granite-3-2b")
     params = rt.init_params(rt.model_specs(cfg),
                             torch.Generator("cpu").manual_seed(0),
                             device="cpu")
     head = "Compare these two listings carefully and answer yes or no: "
     prompts = [head + "red bike / red bike", head + "blue car / red bike"]
-    texts = {}
-    for d in ("cpu", dev):
-        eng = rt.Engine(cfg, _to(params, d), rt.ByteTokenizer(cfg.vocab_size),
-                        max_seq=256, slots=2)
-        res = eng.generate(prompts + prompts, max_tokens=12)
-        texts[str(d)] = [r.text for r in res]
-        cached = sum(r.cached_prompt_tokens for r in res)
-    torch.cuda.synchronize()
-    same = texts["cpu"] == texts[str(dev)]
-    log(f"  smoke engine greedy tokens, card vs CPU: "
-        f"{'same' if same else 'DIFFER'} ({len(prompts) * 2} requests, "
-        f"{cached} prompt tokens from the prefix cache on the card)")
-    if not same:
-        raise AssertionError(f"card {texts[str(dev)]} != cpu {texts['cpu']}")
+    for paged in (True, False):
+        for spec in (False, True):
+            texts = {}
+            for d in ("cpu", dev):
+                eng = rt.Engine(cfg, _to(params, d),
+                                rt.ByteTokenizer(cfg.vocab_size), max_seq=256,
+                                slots=2, paged=paged, spec_decode=spec)
+                res = eng.generate(prompts + prompts, max_tokens=12)
+                texts[str(d)] = [r.text for r in res]
+                cached = sum(r.cached_prompt_tokens for r in res)
+                drafted = sum(r.drafted_tokens for r in res)
+            torch.cuda.synchronize()
+            same = texts["cpu"] == texts[str(dev)]
+            log(f"  smoke engine {'paged' if paged else 'dense'} spec "
+                f"{'on ' if spec else 'off'} greedy tokens, card vs CPU: "
+                f"{'same' if same else 'DIFFER'} ({len(prompts) * 2} "
+                f"requests, {cached} prompt tokens from the prefix cache, "
+                f"{drafted} drafted on the card)")
+            if not same:
+                raise AssertionError(
+                    f"card {texts[str(dev)]} != cpu {texts['cpu']}")
 
 
 def check_full_width_depth_cut(rt, ops, dev) -> None:
-    """granite-3-2b widths, 2 layers, fp32: prefill, chunked prefill and a
-    paged decode step give the same logits through the kernels as through
-    the plain versions (2e-5, the fp32 kernel tolerance)."""
+    """granite-3-2b widths, 2 layers, fp32: prefill, chunked prefill, a
+    paged and a dense decode step and a paged and a dense K = 9 verify
+    step give the same logits through the kernels as through the plain
+    versions (2e-5, the fp32 kernel tolerance)."""
     cfg = dataclasses.replace(rt.get_config("granite-3-2b"), n_layers=2)
     g = torch.Generator(dev).manual_seed(1)
     params = rt.init_params(rt.model_specs(cfg), g, torch.float32, dev)
@@ -337,6 +507,9 @@ def check_full_width_depth_cut(rt, ops, dev) -> None:
     table = torch.randperm(n_pages, generator=g, device=dev)[: B * n_slots]
     cache_len = torch.tensor([200, 15, 16, 0], dtype=torch.int32, device=dev)
     active = torch.tensor([True, True, True, False], device=dev)
+    dense = torch.randn(2, 2, B, n_slots * page, KV, hd, generator=g,
+                        device=dev)
+    window = torch.randint(0, cfg.vocab_size, (B, 9), generator=g, device=dev)
 
     def run():
         _, lp = rt.prefill(cfg, params, {"tokens": toks}, max_seq=S,
@@ -344,21 +517,43 @@ def check_full_width_depth_cut(rt, ops, dev) -> None:
         _, lc = rt.chunked_prefill(cfg, params, {"tokens": toks}, max_seq=S,
                                    valid_len=vlen, prefix_k=kp, prefix_v=vp,
                                    prefix_len=plen, paged=True)
-        cache = {"len": cache_len, "k": pool[0].clone(), "v": pool[1].clone(),
-                 "pages": table.reshape(B, n_slots).to(torch.int32)}
-        _, ld = rt.decode_step(cfg, params, cache, toks[:, :1], active=active)
-        return lp, lc, ld[:3]
+        def paged():
+            return {"len": cache_len, "k": pool[0].clone(),
+                    "v": pool[1].clone(),
+                    "pages": table.reshape(B, n_slots).to(torch.int32)}
+
+        def rows():
+            return {"len": cache_len, "k": dense[0].clone(),
+                    "v": dense[1].clone()}
+
+        _, ld = rt.decode_step(cfg, params, paged(), toks[:, :1],
+                               active=active)
+        _, ldd = rt.decode_step(cfg, params, rows(), toks[:, :1],
+                                active=active)
+        _, lv = rt.verify_step(cfg, params, paged(), window)
+        _, lvd = rt.verify_step(cfg, params, rows(), window)
+        return lp, lc, ld[:3], ldd[:3], lv, lvd
 
     got = run()
     with plain_kernels(ops):
         want = run()
-    for name, a, b in zip(("prefill", "chunked_prefill", "decode_step"),
-                          got, want):
+    for name, a, b in zip(("prefill", "chunked_prefill", "decode_step",
+                           "dense decode_step", "verify_step",
+                           "dense verify_step"), got, want):
         err = float((a - b).abs().max())
+        # A verify window's tokens attend to each other.  At these weights
+        # (std 0.71: the reference's fan-in rule over 2 stacked layers)
+        # their q, k and v reach ~10^2, scores ~10^4, and fp32 rounding in
+        # another summation order moves an attention output by ~5e-5 of
+        # its size, so those logits are held to 1e-4 of the largest one.
+        # A wiring fault moves logits by O(1).
+        atol = 2e-5 + (1e-4 * float(b.abs().max()) if "verify" in name
+                       else 0.0)
         ok = bool(torch.isfinite(a).all()) and torch.allclose(
-            a, b, rtol=2e-5, atol=2e-5)
-        log(f"  full width x 2 layers fp32 {name:16s} logits {tuple(a.shape)} "
-            f"kernels vs plain max_abs_err={err:.3e} tol=2e-05 "
+            a, b, rtol=2e-5, atol=atol)
+        log(f"  full width x 2 layers fp32 {name:17s} logits {tuple(a.shape)} "
+            f"kernels vs plain max_abs_err={err:.3e} tol={atol:.1e} "
+            f"(max |logit| {float(b.abs().max()):.2f}) "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name}: kernel path differs from plain")
@@ -369,23 +564,18 @@ def check_full_width_depth_cut(rt, ops, dev) -> None:
 # ---------------------------------------------------------------------------
 
 
-def run_main_path(rt, ops, dev, seed: int) -> dict:
-    t0 = time.perf_counter()
-    engine = rt.build_engine("granite-3-2b", device=dev, seed=seed,
-                             max_seq=1024, slots=4)   # bf16 on the card
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for _, t in rt.tree_items(engine.params))
-    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
-    log(f"  granite-3-2b full width: {n_params:,} parameters in bf16 "
-        f"drawn on the card in {time.perf_counter() - t0:.1f} s; "
-        f"{weights_gib:.2f} GiB allocated")
-    torch.cuda.reset_peak_memory_stats()   # the serving peak, not the init
+def run_joins(rt, ops, engine, label: str) -> tuple:
+    """The ads block join (4 x 4) then the adaptive join through one fresh
+    ``EngineClient`` over ``engine``, the rule oracle teacher-forcing the
+    answers.  Launch counts are zeroed just before and read just after.
+    Returns ``(summary, pairs by join)``; F1 must be 1.00."""
     sc = rt.ads_scenario()
     client = rt.EngineClient(
         engine, oracle=rt.OracleLLM(sc.predicate, context_limit=1024))
     stats = client.executor.stats
-    per_join = {}
-    ops.reset_launch_counts()           # counts of the main path only
+    per_join, pairs = {}, {}
+    torch.cuda.reset_peak_memory_stats()   # this path's serving peak
+    ops.reset_launch_counts()
     t_main = time.perf_counter()
     for name in ("block", "adaptive"):
         before = dataclasses.replace(stats)
@@ -403,24 +593,28 @@ def run_main_path(rt, ops, dev, seed: int) -> dict:
         steps = stats.decode_steps - before.decode_steps
         gen = stats.generated_tokens - before.generated_tokens
         launches = {k: n - launches0[k] for k, n in ops.launch_counts().items()}
+        pairs[name] = res.pairs
         per_join[name] = dict(
             calls=lg.calls, prompt_tokens=lg.prompt_tokens,
             cached_prompt_tokens=lg.cached_prompt_tokens,
             completion_tokens=lg.completion_tokens, decode_steps=steps,
+            drafted_tokens=lg.drafted_tokens,
+            accepted_draft_tokens=lg.accepted_draft_tokens,
             prefill_batches=stats.prefill_batches - before.prefill_batches,
             generated_tokens=gen, f1=f1, wall_s=wall,
             generated_tok_per_s=gen / wall, launches=launches)
-        log(f"  {name} join: calls={lg.calls} prompt_tokens={lg.prompt_tokens}"
-            f" cached={lg.cached_prompt_tokens} "
+        log(f"  {label} {name} join: calls={lg.calls} prompt_tokens="
+            f"{lg.prompt_tokens} cached={lg.cached_prompt_tokens} "
             f"completion_tokens={lg.completion_tokens} decode_steps={steps} "
-            f"prefill_batches={per_join[name]['prefill_batches']} "
+            f"drafted={lg.drafted_tokens} accepted={lg.accepted_draft_tokens}"
+            f" prefill_batches={per_join[name]['prefill_batches']} "
             f"F1={f1:.2f} wall={wall:.3f} s generated={gen} "
             f"({gen / wall:.1f} tok/s) launches={launches}")
         if f1 != 1.0:
-            raise AssertionError(f"{name} join F1 {f1} != 1.00 under the "
-                                 "teacher-forcing oracle")
+            raise AssertionError(f"{label} {name} join F1 {f1} != 1.00 "
+                                 "under the teacher-forcing oracle")
     wall = time.perf_counter() - t_main
-    counts = ops.launch_counts()         # read right after the main path
+    counts = ops.launch_counts()         # read right after the joins
     shapes = {k.name: k.shapes.most_common() for k in ops.KERNELS}
     ttft = client.executor.metrics.histogram("ttft_s")
     summary = dict(
@@ -428,27 +622,57 @@ def run_main_path(rt, ops, dev, seed: int) -> dict:
         generated_tok_per_s=stats.generated_tokens / wall,
         decode_steps=stats.decode_steps,
         prefill_batches=stats.prefill_batches,
+        drafted_tokens=stats.drafted_tokens,
+        accepted_draft_tokens=stats.accepted_draft_tokens,
         ttft_mean_s=ttft.mean, ttft_p50_s=ttft.percentile(0.5),
         ttft_p99_s=ttft.percentile(0.99),
-        weights_gib=weights_gib,
         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         kv=engine.kv_stats(), prefix_cache=engine.prefix_cache_stats(),
-        launches=counts, joins=per_join)
-    log(f"  both joins: wall={wall:.3f} s generated={stats.generated_tokens} "
-        f"({summary['generated_tok_per_s']:.1f} tok/s) "
-        f"decode_steps={stats.decode_steps} "
-        f"prefill_batches={stats.prefill_batches} "
-        f"TTFT mean={ttft.mean:.3f} s "
+        launches=counts, shapes=shapes, joins=per_join)
+    log(f"  {label} both joins: wall={wall:.3f} s generated="
+        f"{stats.generated_tokens} ({summary['generated_tok_per_s']:.1f} "
+        f"tok/s) decode_steps={stats.decode_steps} prefill_batches="
+        f"{stats.prefill_batches} drafted={stats.drafted_tokens} accepted="
+        f"{stats.accepted_draft_tokens} TTFT mean={ttft.mean:.3f} s "
         f"max_memory_allocated={summary['max_memory_allocated_gib']:.2f} GiB")
-    log(f"  kernel launches on the block + adaptive path: {counts}")
+    log(f"  kernel launches on the {label} path: {counts}")
     for name, by_shape in shapes.items():
-        log(f"    {name} launches by integer arguments: {by_shape}")
-    missing = [k for k in ATTENTION if counts[k] == 0]
+        if by_shape:
+            log(f"    {name} launches by integer arguments: {by_shape}")
+    return summary, pairs
+
+
+def hold_counts(label: str, per_join: dict, expected: dict) -> None:
+    """Fail unless every count of ``expected`` (per join) is the run's."""
+    bad = [f"{join}.{key}={per_join[join][key]} (JAX engine: {want})"
+           for join, counts in expected.items()
+           for key, want in counts.items() if per_join[join][key] != want]
+    log(f"  {label} counts against the JAX engine's (CPU, smoke config): "
+        f"{'all equal' if not bad else 'DIFFER ' + ', '.join(bad)}")
+    if bad:
+        raise AssertionError(f"{label}: counts differ from the JAX engine's: "
+                             f"{bad}")
+
+
+def run_main_path(rt, ops, dev, seed: int) -> tuple:
+    t0 = time.perf_counter()
+    engine = rt.build_engine("granite-3-2b", device=dev, seed=seed,
+                             max_seq=1024, slots=4)   # bf16 on the card
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in rt.tree_items(engine.params))
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"  granite-3-2b full width: {n_params:,} parameters in bf16 "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{weights_gib:.2f} GiB allocated")
+    summary, pairs = run_joins(rt, ops, engine, "block + adaptive")
+    summary["weights_gib"] = weights_gib
+    hold_counts("block + adaptive", summary["joins"],
+                EXPECTED[("paged", "base")])
+    missing = [k for k in ATTENTION if summary["launches"][k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the block + "
                              f"adaptive path: {missing}")
-    summary["shapes"] = shapes
-    return summary, engine
+    return summary, pairs, engine
 
 
 class RecordingEmbedder:
@@ -601,6 +825,247 @@ def run_prefilter_path(rt, ops, dev, engine) -> dict:
     return dict(wall_s=wall, launches=counts, shapes=shapes, legs=legs)
 
 
+def _same_counts(a: dict, b: dict, keys) -> list:
+    return [f"{k}: {a[k]} != {b[k]}" for k in keys if a[k] != b[k]]
+
+
+def run_spec_path(rt, ops, dev, engine, base: dict,
+                  base_pairs: dict) -> tuple:
+    """Speculative decoding on the full-width engine's weights:
+    (i) the ads joins on a fresh paged engine with ``spec_decode=True``
+    (the spec path: launch counts zeroed before, read after);
+    (ii) the match-dense block join, spec off then on;
+    (iii) a K = 9 verify pass against 9 decode steps on copies of one
+    state (bf16), and greedy (not teacher-forced) agreement of spec on
+    against spec off."""
+    cfg, params, tok = engine.cfg, engine.params, engine.tokenizer
+    eng = rt.Engine(cfg, params, tok, max_seq=1024, slots=4,
+                    spec_decode=True)
+    summary, pairs = run_joins(rt, ops, eng, "spec")
+    hold_counts("spec", summary["joins"], EXPECTED[("paged", "spec")])
+    for name in ("block", "adaptive"):
+        s, b = summary["joins"][name], base["joins"][name]
+        log(f"  spec {name} join against phase 4: decode_steps "
+            f"{s['decode_steps']} vs {b['decode_steps']}, drafted "
+            f"{s['drafted_tokens']}, accepted {s['accepted_draft_tokens']}, "
+            f"wall {s['wall_s']:.3f} vs {b['wall_s']:.3f} s, "
+            f"{s['generated_tok_per_s']:.1f} vs "
+            f"{b['generated_tok_per_s']:.1f} generated tok/s")
+        if pairs[name] != base_pairs[name]:
+            raise AssertionError(f"spec {name} join pairs differ from "
+                                 "phase 4's")
+    counts = summary["launches"]
+    if (summary["decode_steps"] >= base["decode_steps"]
+            or not counts["spec_verify_attention"]
+            or counts["paged_decode_attention"]):
+        raise AssertionError(f"spec path: {summary['decode_steps']} decode "
+                             f"steps (phase 4: {base['decode_steps']}), "
+                             f"launches {counts}")
+    summary["match_dense"] = run_match_dense(rt, ops, engine)
+    summary["verify_vs_decode"] = check_verify_vs_decode(rt, engine)
+    summary["greedy_agreement"] = greedy_agreement(rt, engine)
+    return summary, pairs
+
+
+def run_match_dense(rt, ops, engine) -> dict:
+    """The match-dense block join of benchmarks/spec_decode.py, spec off
+    then on, each on a fresh engine: the same pairs and the same
+    generated token ids, the counts of the JAX engine."""
+    md = MATCH_DENSE
+    colours = ["red", "blue"]
+    left = [f"item {i} in {colours[i % 2]}" for i in range(md["left_rows"])]
+    right = [f"want {k} {colours[k % 2]}" for k in range(md["right_rows"])]
+    pred = lambda a, b: a.split()[-1] == b.split()[-1]  # noqa: E731
+    legs, ids, pairs = {}, {}, {}
+    for mode in ("base", "spec"):
+        eng = rt.Engine(engine.cfg, engine.params, engine.tokenizer,
+                        max_seq=md["max_seq"], slots=md["slots"],
+                        spec_decode=mode == "spec", spec_k=md["spec_k"])
+        client = rt.EngineClient(eng, oracle=rt.OracleLLM(
+            pred, context_limit=md["max_seq"]))
+        served = []
+        submit = client.submit
+
+        def recording_submit(*a, **kw):   # keep each request's token ids
+            h = submit(*a, **kw)
+            served.append(h._serve)
+            return h
+        client.submit = recording_submit
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        res = rt.block_join(left, right, "the colours match", client,
+                            md["b1"], md["b2"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        st = client.executor.stats
+        ids[mode] = [h._out_ids for h in served]
+        pairs[mode] = res.pairs
+        legs[mode] = dict(
+            calls=res.ledger.calls, pairs=len(res.pairs),
+            prompt_tokens=res.ledger.prompt_tokens,
+            generated_tokens=st.generated_tokens,
+            decode_steps=st.decode_steps, drafted_tokens=st.drafted_tokens,
+            accepted_draft_tokens=st.accepted_draft_tokens, wall_s=wall,
+            generated_tok_per_s=st.generated_tokens / wall,
+            launches=ops.launch_counts())
+        log(f"  match-dense block join spec {mode}: {legs[mode]}")
+    hold_counts("match-dense", legs, {m: EXPECTED[("match_dense", m)]
+                                      for m in ("base", "spec")})
+    same = pairs["base"] == pairs["spec"] and ids["base"] == ids["spec"]
+    ratio = legs["base"]["decode_steps"] / legs["spec"]["decode_steps"]
+    log(f"  match-dense: pairs and generated token ids spec on == off: "
+        f"{'yes' if same else 'NO'}; decode steps {ratio:.3f}x fewer; wall "
+        f"{legs['base']['wall_s']:.3f} s off, {legs['spec']['wall_s']:.3f} "
+        f"s on ({legs['base']['wall_s'] / legs['spec']['wall_s']:.3f}x)")
+    if not same:
+        raise AssertionError("match-dense: speculation changed the output")
+    return dict(legs=legs, decode_step_ratio=ratio)
+
+
+def check_verify_vs_decode(rt, engine) -> dict:
+    """Full width: a K = 9 window through ``verify_step`` against the same
+    tokens through 9 ``decode_step`` calls on a copy of the same state
+    (random K/V, ragged lengths), on the paged and the dense cache.
+
+    The attention rows are the decode kernel's bits by contract; what can
+    differ is cuBLAS rounding a row of a product differently at M = 36
+    (the window) than at M = 4, and 40 layers amplify that.  So the same
+    first decode step is also run with its 4 rows inside a batch of 36
+    (copies), which measures that floor, and the comparison runs in bf16
+    (printed: 2e-2 is below the floor there) and in fp32 (held to 2e-2)."""
+    cfg = engine.cfg
+    dev = engine.params["embed"].device
+    B, K, page, n_slots = 4, 9, 16, 64
+    KV, hd, nl = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
+    n_pages = B * n_slots + 1
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        params = _to(engine.params, dt)
+        g = torch.Generator(dev).manual_seed(6)
+        lens = torch.tensor([1000, 517, 16, 3], dtype=torch.int32, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (B, K), generator=g,
+                             device=dev)
+        table = torch.randperm(n_pages, generator=g, device=dev)[: B * n_slots]
+        states = {
+            "paged": {"len": lens, "pages": table.reshape(B, n_slots).int(),
+                      "k": _randn(g, dt, nl, n_pages, page, KV, hd),
+                      "v": _randn(g, dt, nl, n_pages, page, KV, hd)},
+            "dense": {"len": lens, "k": _randn(g, dt, nl, B, 1024, KV, hd),
+                      "v": _randn(g, dt, nl, B, 1024, KV, hd)},
+        }
+        name_dt = str(dt)[6:]
+        # the floor: decode step 0 of the dense state, rows alone (M = 4)
+        # and inside a batch of 36 copies (M = 36)
+        dense = states["dense"]
+        wide = {k: v.repeat_interleave(K, dim=1 if v.dim() > 1 else 0)
+                for k, v in dense.items()}
+        _, alone = rt.decode_step(cfg, params,
+                                  {k: v.clone() for k, v in dense.items()},
+                                  toks[:, :1])
+        _, inside = rt.decode_step(cfg, params, wide,
+                                   toks[:, :1].repeat_interleave(K, dim=0))
+        floor = float((alone - inside[::K]).abs().max())
+        log(f"  {name_dt} decode step, rows at M = 4 vs inside M = 36: "
+            f"max_abs_err={floor:.3e} (the floor of GEMM row rounding)")
+        del wide
+        for name, state in states.items():
+            a = {k: v.clone() for k, v in state.items()}
+            b = {k: v.clone() for k, v in state.items()}
+            _, vlog = rt.verify_step(cfg, params, a, toks)
+            dlog = []
+            for j in range(K):
+                b, lj = rt.decode_step(cfg, params, b, toks[:, j:j + 1])
+                dlog.append(lj)
+            dlog = torch.stack(dlog, dim=1)
+            err = float((vlog - dlog).abs().max())
+            argmax = (vlog.argmax(-1) == dlog.argmax(-1)).all(0).tolist()
+            gate = dt == torch.float32
+            ok = bool(torch.isfinite(vlog).all()) and (err <= 2e-2
+                                                       or not gate)
+            out[f"{name} {name_dt}"] = dict(
+                max_abs_err=err, floor=floor, max_abs_logit=float(
+                    dlog.abs().max()), argmax_agrees_by_position=argmax)
+            log(f"  {name} {name_dt} verify_step (K = 9) vs 9 decode_steps: "
+                f"max_abs_err={err:.3e} "
+                + (f"tol=2e-02 {'ok' if ok else 'FAIL'}" if gate
+                   else "(printed, not held)")
+                + f"; max |logit| {float(dlog.abs().max()):.2f}; argmax "
+                f"agrees at positions 0-8: {argmax}")
+            if not ok:
+                raise AssertionError(f"{name} {name_dt} verify_step differs "
+                                     f"from sequential decode by {err}")
+        del params, states, a, b
+        torch.cuda.empty_cache()
+    return out
+
+
+def greedy_agreement(rt, engine) -> dict:
+    """Greedy tokens (no teacher forcing) of 4 requests, spec on against
+    spec off: printed, not a gate (cuBLAS may round a row of a product
+    differently at M = slots than at M = slots x K)."""
+    head = "Compare the following two listings carefully and answer. "
+    prompts = [head + f"Listing {c}: item {i}" for i, c in enumerate("ABCD")]
+    ids = {}
+    for spec in (False, True):
+        eng = rt.Engine(engine.cfg, engine.params, engine.tokenizer,
+                        max_seq=1024, slots=4, spec_decode=spec)
+        ex = eng.executor()
+        hs = [ex.submit(p, max_tokens=48) for p in prompts]
+        ex.drain()
+        ids[spec] = [h._out_ids for h in hs]
+        drafted = ex.stats.drafted_tokens
+    first = []
+    for a, b in zip(ids[False], ids[True]):
+        diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        first.append(diff[0] if diff else
+                     (None if len(a) == len(b) else min(len(a), len(b))))
+    log(f"  greedy tokens spec on vs off, 4 requests x <= 48 tokens: "
+        f"{'identical' if all(f is None for f in first) else 'DIFFER'}; "
+        f"first differing position per request {first}; {drafted} drafted")
+    return dict(first_difference=first, identical=all(f is None for f in first),
+                lengths=[len(x) for x in ids[False]])
+
+
+def run_dense_path(rt, ops, dev, engine, base: dict, base_pairs: dict,
+                   spec: dict, spec_pairs: dict) -> dict:
+    """The dense-KV engine (``paged=False``) on the same weights: the ads
+    joins with speculation off, then on, each on a fresh engine.  Pairs,
+    calls, prompt and completion tokens and decode steps must equal the
+    paged counterparts (phases 4 and 6); every count must equal the JAX
+    dense engine's; ``decode_attention`` must have launched."""
+    cfg, params, tok = engine.cfg, engine.params, engine.tokenizer
+    legs, launches = {}, collections.Counter()
+    t0 = time.perf_counter()
+    for mode, paged_sum, paged_pairs in (("base", base, base_pairs),
+                                         ("spec", spec, spec_pairs)):
+        eng = rt.Engine(cfg, params, tok, max_seq=1024, slots=4, paged=False,
+                        spec_decode=mode == "spec")
+        summary, pairs = run_joins(rt, ops, eng, f"dense {mode}")
+        launches.update(summary["launches"])
+        hold_counts(f"dense {mode}", summary["joins"],
+                    EXPECTED[("dense", mode)])
+        for name in ("block", "adaptive"):
+            bad = _same_counts(summary["joins"][name],
+                               paged_sum["joins"][name],
+                               ("calls", "prompt_tokens", "completion_tokens",
+                                "decode_steps", "drafted_tokens",
+                                "accepted_draft_tokens"))
+            if pairs[name] != paged_pairs[name] or bad:
+                raise AssertionError(f"dense {mode} {name} join differs from "
+                                     f"the paged engine's: {bad}")
+        legs[mode] = summary
+    counts = dict(launches)
+    log(f"  dense path: pairs, calls, prompt and completion tokens and decode"
+        f" steps == the paged engine's; wall {time.perf_counter() - t0:.3f} s"
+        f"; launches {counts}")
+    if (not counts["decode_attention"] or counts["paged_decode_attention"]
+            or counts["spec_verify_attention"]):
+        raise AssertionError(f"dense path launches {counts}: expected "
+                             "decode_attention and no paged kernel")
+    shapes = {k: merge_shapes(legs.values(), k) for k in legs["base"]["shapes"]}
+    return dict(legs=legs, launches=counts, shapes=shapes)
+
+
 def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
     """Every kernel against its plain version again, in bf16, at each
     shape the main path gave it (ragged lengths; these launches come after
@@ -633,6 +1098,23 @@ def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
         checks.compare_topk(f"prefilter path M,N,D,k={(M, N, D, k)}",
                             ops.topk_similarity(e1, e2, k=k),
                             L.topk_similarity(e1, e2, k), 1e-6, main=True)
+    for (B, K, H, KV, pg, _, n_slots, hd, _), _ in \
+            shapes["spec_verify_attention"]:
+        cap = n_slots * pg
+        lens = ([cap - K, cap * 7 // 8, pg - 1, 0] * B)[:B]
+        x = verify_inputs(g, dt, B, K, H, KV, hd, pg, n_slots, lens)
+        checks.compare("spec_verify_attention",
+                       f"spec path B,K,H,KV,hd,slots="
+                       f"{(B, K, H, KV, hd, n_slots)}",
+                       ops.spec_verify_attention(*x),
+                       L.spec_verify_attention_paged(*x), dt, main=True)
+    for (B, H, KV, Skv, hd, _), _ in shapes["decode_attention"]:
+        lens = ([Skv, Skv * 7 // 8, 16, 1] * B)[:B]
+        x, _ = dense_inputs(g, dt, B, H, KV, hd, Skv, lens)
+        checks.compare("decode_attention",
+                       f"dense path B,H,KV,hd,Skv={(B, H, KV, hd, Skv)}",
+                       ops.decode_attention(*x), L.decode_attention(*x), dt,
+                       main=True)
     torch.cuda.synchronize()
     if checks.failed:
         raise AssertionError(f"kernel checks failed: {checks.failed}")
@@ -825,6 +1307,66 @@ def time_decode(ops, L, g, dtype, B, H, KV, hd, page, n_slots, lens):
                           .abs().max()))
 
 
+def time_verify(ops, L, g, dtype, B, K, H, KV, hd, page, n_slots, lens):
+    """The verify kernel; the yardstick attends over a dense cache gathered
+    from the pages beforehand, under an explicit window mask."""
+    mk = lambda: verify_inputs(g, dtype, B, K, H, KV, hd, page,  # noqa
+                               n_slots, lens)
+    x0 = mk()
+    q = x0[0]
+    cap = n_slots * page
+    read = sum(min(n + K, cap) for n in lens)       # positions each row reads
+    es = q.element_size()
+    sets = [x0] + [mk() for _ in range(
+        n_sets(_nbytes(q) + 2 * read * KV * hd * es) - 1)]
+    clen = x0[4]
+    limit = clen[:, None] + torch.arange(K, device=q.device)[None] + 1
+    mask = (torch.arange(cap, device=q.device)[None, None]
+            < limit[:, :, None])[:, None]           # (B, 1, K, cap)
+    lib_sets = [(s[0],) + tuple(p[s[3].long()].reshape(B, cap, KV, hd)
+                                for p in (s[1], s[2])) for s in sets]
+    call = sdpa()
+    keys = sum(min(n + j + 1, cap) for n in lens for j in range(K))
+    used_slots = sum(-(-min(n + K, cap) // page) for n in lens)
+    b_ms, b_by = bound(2 * _nbytes(q) + 2 * read * KV * hd * es
+                       + 4 * (used_slots + B), 4 * hd * H * keys, dtype)
+    return dict(
+        shape=dict(B=B, K=K, H=H, KV=KV, hd=hd, page=page, n_slots=n_slots,
+                   cache_len=lens),
+        ms=time_ms(ops.spec_verify_attention, sets, 50),
+        plain_ms=time_ms(L.spec_verify_attention_paged, sets[:2], 3),
+        library_ms=time_ms(lambda q, k, v: call(q, k, v, attn_mask=mask),
+                           lib_sets, 50),
+        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=float((ops.spec_verify_attention(*x0).float()
+                           - L.spec_verify_attention_paged(*x0).float())
+                          .abs().max()))
+
+
+def time_dense_decode(ops, L, g, dtype, B, H, KV, hd, Skv, lens):
+    """The dense decode kernel; the yardstick takes a length mask."""
+    mk = lambda: dense_inputs(g, dtype, B, H, KV, hd, Skv, lens)[0]  # noqa
+    x0 = mk()
+    q, clen = x0[0], x0[3]
+    es = q.element_size()
+    sets = [x0] + [mk() for _ in range(
+        n_sets(_nbytes(q) + 2 * sum(lens) * KV * hd * es) - 1)]
+    mask = (torch.arange(Skv, device=q.device)[None]
+            < clen[:, None])[:, None, None]          # (B, 1, 1, Skv)
+    call = sdpa()
+    b_ms, b_by = bound(2 * _nbytes(q) + 2 * sum(lens) * KV * hd * es + 4 * B,
+                       4 * hd * H * sum(lens), dtype)
+    return dict(
+        shape=dict(B=B, H=H, KV=KV, hd=hd, Skv=Skv, cache_len=lens),
+        ms=time_ms(ops.decode_attention, sets, 50),
+        plain_ms=time_ms(L.decode_attention, sets[:2], 5),
+        library_ms=time_ms(lambda q, k, v, n: call(q, k, v, attn_mask=mask),
+                           sets, 50),
+        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=float((ops.decode_attention(*x0).float()
+                           - L.decode_attention(*x0).float()).abs().max()))
+
+
 def time_topk(ops, L, g, M, N, D, k):
     """fp32 top-k: the kernel, its plain version, and torch.topk over the
     full similarity matrix (two library calls: matmul, then topk)."""
@@ -849,14 +1391,18 @@ def time_topk(ops, L, g, M, N, D, k):
 
 
 def time_kernels(ops, L, dev, shapes) -> dict:
-    """Time each kernel at the main path's most frequent shape (bf16), and
-    flash / chunked prefill at the other prefill buckets."""
+    """Time each kernel at its path's most frequent shape (bf16), and
+    flash / chunked prefill at the other prefill buckets.  ``shapes``
+    holds each kernel's launches by shape on its own path."""
     g = torch.Generator(dev).manual_seed(2)
     dt = torch.bfloat16
     (fB, fS, fH, fKV, fhd, _), _ = shapes["flash_attention"][0]
     (cB, cS, cP, cH, cKV, chd, _), _ = shapes["chunked_prefill_attention"][0]
     (dB, dH, dKV, dpg, _, dslots, dhd, _), _ = \
         shapes["paged_decode_attention"][0]
+    (vB, vK, vH, vKV, vpg, _, vslots, vhd, _), _ = \
+        shapes["spec_verify_attention"][0]
+    (eB, eH, eKV, eSkv, ehd, _), _ = shapes["decode_attention"][0]
     full = [cP] * cB
     main = {
         "flash_attention": time_flash(ops, L, g, dt, fB, fS, fH, fKV, fhd),
@@ -867,6 +1413,12 @@ def time_kernels(ops, L, dev, shapes) -> dict:
             [dslots * dpg] * dB),
         # leg (a)'s shape: the prefilter's candidates at real scale
         "topk_similarity": time_topk(ops, L, g, 10_000, 1_000, 256, 8),
+        # a full table: each window reaches the table's last position
+        "spec_verify_attention": time_verify(
+            ops, L, g, dt, vB, vK, vH, vKV, vhd, vpg, vslots,
+            [vslots * vpg - vK] * vB),
+        "decode_attention": time_dense_decode(
+            ops, L, g, dt, eB, eH, eKV, ehd, eSkv, [eSkv] * eB),
     }
     sweep = []
     for S in (128, 512, 1024):
@@ -879,6 +1431,17 @@ def time_kernels(ops, L, dev, shapes) -> dict:
         sweep.append(("paged_decode_attention",
                       time_decode(ops, L, g, dt, 4, 32, 8, 64, 16, 64,
                                   [n] * 4)))
+    # the match-dense join's window (spec_k = 12) over its 1536 positions,
+    # and windows over a quarter-full table
+    sweep.append(("spec_verify_attention",
+                  time_verify(ops, L, g, dt, 4, 13, 32, 8, 64, 16, 96,
+                              [1536 - 13] * 4)))
+    sweep.append(("spec_verify_attention",
+                  time_verify(ops, L, g, dt, 4, 9, 32, 8, 64, 16, 64,
+                              [256] * 4)))
+    sweep.append(("decode_attention",
+                  time_dense_decode(ops, L, g, dt, 4, 32, 8, 64, 1024,
+                                    [256] * 4)))
     # leg (a)'s other direction, and the width of EngineEmbedder's
     # vectors (d_model 2048)
     sweep.append(("topk_similarity",
@@ -889,7 +1452,7 @@ def time_kernels(ops, L, dev, shapes) -> dict:
     for name, r in [(k, v) for k, v in main.items()] + sweep:
         lib = "topk" if name == "topk_similarity" else "sdpa"
         dt_name = "fp32" if name == "topk_similarity" else "bf16"
-        log(f"  {name:26s} {dt_name} {json.dumps(r['shape']):80s} "
+        log(f"  {name:26s} {dt_name} {json.dumps(r['shape']):100s} "
             f"kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
             f"{lib}={r['library_ms']:.4f} ms bound={r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) kernel/bound={r['ms'] / r['bound_ms']:.1f}x")
@@ -915,7 +1478,8 @@ def port() -> types.SimpleNamespace:
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.launch.serve import build_engine
     from repro_torch.models import (chunked_prefill, decode_step,
-                                    init_params, model_specs, prefill)
+                                    init_params, model_specs, prefill,
+                                    verify_step)
     from repro_torch.models.params import tree_items
     from repro_torch.serve import Engine, EngineClient, EngineEmbedder
 
@@ -945,6 +1509,11 @@ def main() -> int:
         return 2
     rt = port()
     from repro_torch.models import layers as L
+    # every phase sets its engine's mode itself (phase 6 speculative, phase
+    # 7 dense); the variables that would change the defaults are dropped
+    for var in ("REPRO_SPEC_DECODE", "REPRO_PAGED_KV", "REPRO_PREFIX_CACHE"):
+        if os.environ.pop(var, None) is not None:
+            log(f"chip_smoke: ignoring {var}: each phase sets its own mode")
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -978,18 +1547,28 @@ def main() -> int:
 
     log("== phase 4: main path, full-width granite-3-2b bf16, block + "
         "adaptive joins")
-    summary, engine = run_main_path(rt, ops, dev, args.seed)
+    summary, pairs, engine = run_main_path(rt, ops, dev, args.seed)
 
     log("== phase 5: the prefilter path on the same engine")
     prefilter = run_prefilter_path(rt, ops, dev, engine)
-    both = {name: [(shape, n) for shape, n in (
-        collections.Counter(dict(summary["shapes"][name]))
-        + collections.Counter(dict(prefilter["shapes"][name]))).most_common()]
-        for name in summary["shapes"]}
-    check_main_shapes(ops, L, dev, both, checks)
 
-    log("== phase 6: kernel times (CUDA events; attention bf16, top-k fp32)")
-    timing = time_kernels(ops, L, dev, summary["shapes"])
+    log("== phase 6: speculative decoding on the same weights")
+    spec, spec_pairs = run_spec_path(rt, ops, dev, engine, summary, pairs)
+
+    log("== phase 7: the dense-KV engine on the same weights, spec off and on")
+    dense = run_dense_path(rt, ops, dev, engine, summary, pairs, spec,
+                           spec_pairs)
+
+    paths = dict(block_adaptive=summary, prefilter=prefilter, spec=spec,
+                 dense=dense)
+    every = {name: merge_shapes(paths.values(), name)
+             for name in summary["shapes"]}
+    check_main_shapes(ops, L, dev, every, checks)
+
+    log("== phase 8: kernel times (CUDA events; attention bf16, top-k fp32)")
+    home = {k.name: paths[HOME_PATH.get(k.name, "block_adaptive")]["shapes"][
+        k.name] for k in ops.KERNELS}
+    timing = time_kernels(ops, L, dev, home)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     if args.profile:
@@ -1002,22 +1581,22 @@ def main() -> int:
     for k in ops.KERNELS:
         r = timing["main"][k.name]
         # each kernel with the launches of the path it was timed for: the
-        # attention kernels on block + adaptive, top-k on the prefilter
-        path = prefilter if k.name == "topk_similarity" else summary
+        # paged attention kernels on block + adaptive, top-k on the
+        # prefilter, the verify kernel on spec, dense decode on dense
+        path = paths[HOME_PATH.get(k.name, "block_adaptive")]
         kernels.append(dict(
             name=k.name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{k.source}.cu",
             replaces=k.replaces, launches=path["launches"][k.name],
-            launches_by_path=dict(
-                block_adaptive=summary["launches"][k.name],
-                prefilter=prefilter["launches"][k.name]),
+            launches_by_path={name: pth["launches"][k.name]
+                              for name, pth in paths.items()},
             max_abs_err=max(checks.max_err[k.name], r["max_abs_err"]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, build_s=times, main_path=summary,
-        prefilter_path=prefilter, timing=timing, kernels=kernels), indent=1,
-        default=str))
+        prefilter_path=prefilter, spec_path=spec, dense_path=dense,
+        timing=timing, kernels=kernels), indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -16,8 +16,10 @@
 // valid K/V byte of that head exactly once and serves all G query heads
 // of the group from shared memory (one warp per query head).  Positions
 // are resolved page by page (page id = table[pos / page], clamped to
-// [0, n_pages)), so no contiguous copy of the row is ever gathered; table
-// slots at or past ceil(cache_len / page) are never read.  The softmax
+// [0, n_pages); load_paged_tile in attention_common.cuh, shared with the
+// speculative-verify kernel), so no contiguous copy of the row is ever
+// gathered; table slots at or past ceil(cache_len / page) are never
+// read.  The softmax
 // runs online in fp32 registers.  Known limit, left for a later change:
 // the grid has only B * KV blocks (32 at B = 4, KV = 8) for the 132 SMs,
 // so most of the card idles at small batch; splitting a row's pages
@@ -64,22 +66,8 @@ paged_decode_kernel(const T* __restrict__ q,         // (B, 1, H, HD)
   acc.init();
   for (int t0 = 0; t0 < len; t0 += kTile) {
     __syncthreads();
-    for (int idx = threadIdx.x; idx < kTile * HD; idx += blockDim.x) {
-      const int j = idx / HD;
-      const int d = idx % HD;
-      const int pos = t0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (pos < len) {
-        int pid = trow[pos / page];
-        pid = pid < 0 ? 0 : (pid >= n_pages ? n_pages - 1 : pid);
-        const size_t off =
-            (((size_t)pid * page + pos % page) * KV + kvh) * HD + d;
-        kv = load_f(k_pool + off);
-        vv = load_f(v_pool + off);
-      }
-      Ks[j * (HD + 1) + d] = kv;
-      Vs[j * HD + d] = vv;
-    }
+    load_paged_tile<T, HD>(Ks, Vs, k_pool, v_pool, trow, kvh, KV, page,
+                           n_pages, t0, len);
     __syncthreads();
     attend_tile<HD>(Qs + warp * HD, Ks, Vs, len - t0, scale, acc, lane);
   }

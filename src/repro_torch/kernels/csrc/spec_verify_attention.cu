@@ -1,0 +1,184 @@
+// Speculative-verification attention: a window of K query tokens per row
+// of the batch against K/V held in a shared page pool and read through
+// the row's page table, causal inside the window, fp32 or bf16, on
+// sm_90a.  Query j of row b sees positions < cache_len[b] + j + 1, where
+// cache_len is the row's length BEFORE the window (the window's own K/V
+// are already in the pool).
+//
+// Replaces: src/repro/kernels/spec_verify_attention.py::
+// spec_verify_attention (the Pallas TPU kernel that rides all K x G
+// window queries of one KV head in a single (K*G, hd) VMEM tile over the
+// paged-decode grid (B, KV, table slots)).
+//
+// The contract that greedy parity of speculative decoding rests on:
+// window row j equals paged_decode_attention at cache_len + j + 1 on the
+// same pool BIT FOR BIT, for every j (the JAX design pins only K = 1).
+// It holds by construction: the same kTile = 64 tiles from position 0,
+// loaded by the same load_paged_tile (ids clamped to [0, n_pages)), and
+// each row folded by the same attend_tile with n_valid = cache_len + j +
+// 1 - t0 (so the keys a row reads are exactly those the decode kernel
+// reads), the same RowAcc and store_row, and the same host-computed
+// scale.  Tile positions past a row's own length are loaded for the
+// deeper rows of the window but never read by it.
+//
+// What bounds it on the H100: bytes.  Each valid KV byte is read once per
+// (row, KV head) and serves K * G queries (36 multiply-adds per byte at
+// K = 9 and granite's G = 4), still far below the ~295 operations per
+// byte where compute would matter.  At B = 4, a 1024-token context, KV =
+// 8, hd = 64 in bf16 a layer reads ~8.4 MB: ~2.5 us at 3.35 TB/s.
+//
+// What the design does about it: one block per (row, KV head) loads each
+// K/V tile once into shared memory for the whole window.  The K * G
+// query rows (36 at the engine's default spec_k = 8, 52 at spec_k = 12)
+// can exceed the 32 warps of a 1024-thread block, so each warp keeps up
+// to kMaxRowsPerWarp running softmax states (RowAcc) in registers across
+// the tile loop: rows warp, warp + n_warps, ...  The alternative, a
+// third grid dimension over window rows, would re-read every K/V tile
+// once per split; keeping several rows per warp reads them once.  Table
+// slots at or past ceil((cache_len + K) / page) are never read.  Known
+// limit, as for paged decode: only B * KV blocks (32 at B = 4), so most
+// SMs idle; splitting table slots across blocks needs a combine pass
+// that keeps each row's order of tiles.
+#include "attention_common.cuh"
+
+namespace repro_attn {
+
+constexpr int kMaxRowsPerWarp = 4;
+constexpr int kMaxWarps = 32;
+
+template <int HD>
+constexpr size_t verify_smem_bytes(int rows) {
+  return sizeof(float) * ((size_t)rows * HD + kTile * (HD + 1) + kTile * HD);
+}
+
+__device__ __forceinline__ int clamp_len(int n, int cap) {
+  return n < 0 ? 0 : (n > cap ? cap : n);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(1024)
+spec_verify_kernel(const T* __restrict__ q,          // (B, K, H, HD)
+                   const T* __restrict__ k_pool,     // (n_pages, page, KV, HD)
+                   const T* __restrict__ v_pool,
+                   const int* __restrict__ table,    // (B, n_slots)
+                   const int* __restrict__ cache_len,  // (B,) before window
+                   T* __restrict__ out,              // (B, K, H, HD)
+                   int K, int H, int KV, int page, int n_pages, int n_slots,
+                   float scale) {
+  extern __shared__ float smem[];
+  const int G = H / KV;
+  const int rows = K * G;                    // row r = j * G + g
+  float* Qs = smem;                          // [rows][HD]
+  float* Ks = Qs + (size_t)rows * HD;        // [kTile][HD + 1]
+  float* Vs = Ks + kTile * (HD + 1);         // [kTile][HD]
+
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+
+  for (int idx = threadIdx.x; idx < rows * HD; idx += blockDim.x) {
+    const int r = idx / HD;
+    const int d = idx % HD;
+    const int j = r / G;
+    const int g = r % G;
+    Qs[idx] = load_f(q + (((size_t)b * K + j) * H + (size_t)kvh * G + g) * HD
+                     + d);
+  }
+
+  const int cap = n_slots * page;
+  const int base = cache_len[b];
+  const int limit = clamp_len(base + K, cap);  // the deepest row's length
+  const int* trow = table + (size_t)b * n_slots;
+
+  RowAcc<HD> acc[kMaxRowsPerWarp];
+  int lens[kMaxRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kMaxRowsPerWarp; ++i) {
+    acc[i].init();
+    const int r = warp + i * n_warps;
+    // exactly the length paged decode is given for window position j
+    lens[i] = r < rows ? clamp_len(base + r / G + 1, cap) : 0;
+  }
+  for (int t0 = 0; t0 < limit; t0 += kTile) {
+    __syncthreads();
+    load_paged_tile<T, HD>(Ks, Vs, k_pool, v_pool, trow, kvh, KV, page,
+                           n_pages, t0, limit);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kMaxRowsPerWarp; ++i) {
+      const int r = warp + i * n_warps;       // the same on every lane
+      if (r < rows)
+        attend_tile<HD>(Qs + (size_t)r * HD, Ks, Vs, lens[i] - t0, scale,
+                        acc[i], lane);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxRowsPerWarp; ++i) {
+    const int r = warp + i * n_warps;
+    if (r < rows) {
+      const int j = r / G;
+      const int g = r % G;
+      store_row<T, HD>(
+          out + (((size_t)b * K + j) * H + (size_t)kvh * G + g) * HD, acc[i],
+          lane);
+    }
+  }
+}
+
+template <typename T, int HD>
+int launch_verify_t(const void* q, const void* k_pool, const void* v_pool,
+                    const int* table, const int* cache_len, void* out, int B,
+                    int K, int H, int KV, int page, int n_pages, int n_slots,
+                    cudaStream_t stream) {
+  const int rows = K * (H / KV);
+  const int n_warps = rows < kMaxWarps ? rows : kMaxWarps;
+  const size_t smem = verify_smem_bytes<HD>(rows);
+  auto kernel = spec_verify_kernel<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(KV, B);
+  kernel<<<grid, 32 * n_warps, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), table, cache_len, static_cast<T*>(out),
+      K, H, KV, page, n_pages, n_slots, 1.0f / sqrtf((float)HD));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace repro_attn
+
+// dtype: 0 = float32, 1 = bfloat16.  K * (H / KV) query rows per block,
+// at most 32 warps x kMaxRowsPerWarp.  Returns a cudaError_t code.
+extern "C" int repro_spec_verify_attention(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* page_table, const void* cache_len, void* out, int B, int K,
+    int H, int KV, int page, int n_pages, int n_slots, int hd, int dtype,
+    void* stream) {
+  using namespace repro_attn;
+  if (B <= 0 || K <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
+      K * (H / KV) > kMaxWarps * kMaxRowsPerWarp || page <= 0 ||
+      n_pages <= 0 || n_slots <= 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const int* table = static_cast<const int*>(page_table);
+  const int* lens = static_cast<const int*>(cache_len);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_VERIFY_CASE(HD)                                                 \
+  case HD:                                                                    \
+    return dtype == 1                                                         \
+               ? launch_verify_t<__nv_bfloat16, HD>(q, k_pool, v_pool, table,  \
+                                                    lens, out, B, K, H, KV,    \
+                                                    page, n_pages, n_slots, s) \
+               : launch_verify_t<float, HD>(q, k_pool, v_pool, table, lens,    \
+                                            out, B, K, H, KV, page, n_pages,   \
+                                            n_slots, s);
+  switch (hd) {
+    REPRO_VERIFY_CASE(16)
+    REPRO_VERIFY_CASE(32)
+    REPRO_VERIFY_CASE(64)
+    REPRO_VERIFY_CASE(128)
+  }
+#undef REPRO_VERIFY_CASE
+  return (int)cudaErrorInvalidValue;
+}

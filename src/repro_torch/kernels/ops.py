@@ -1,10 +1,13 @@
-"""Wrappers of the port's four hand-written CUDA kernels.
+"""Wrappers of the port's six hand-written CUDA kernels.
 
 Three attention kernels carry the serving path (block and adaptive
 joins): ``flash_attention``, ``chunked_prefill_attention`` and
 ``paged_decode_attention``.  The prefilter path (embedding, top-k
 candidates, scored verification) runs the first two for its prefill
-passes and ``topk_similarity`` for its candidates.
+passes and ``topk_similarity`` for its candidates.  Speculative decoding
+on the paged engine verifies its draft windows with
+``spec_verify_attention``; the dense-KV engine decodes with
+``decode_attention`` and verifies by looping it over the window.
 
 Each wrapper takes the layouts of the JAX package's kernels (q
 ``(B, S, H, hd)``, K/V unrepeated with ``KV`` heads, pools ``(n_pages,
@@ -35,6 +38,9 @@ from repro_torch.kernels import build
 from repro_torch.models import layers as L
 
 HEAD_DIMS = (16, 32, 64, 128)
+#: the most window query rows K * (H / KV) the verify kernel takes (32
+#: warps of 4 rows each in csrc/spec_verify_attention.cu)
+SPEC_MAX_ROWS = 128
 #: the largest k' = min(k, N) the top-k kernel takes (kMaxK in
 #: csrc/topk_sim.cu): 4 query rows a block keep two 2048-long lists in
 #: 128 KB of shared memory
@@ -181,6 +187,61 @@ class _PagedDecodeAttention(CudaKernel):
         return out
 
 
+class _SpecVerifyAttention(CudaKernel):
+    def __call__(self, q: torch.Tensor, k_pool: torch.Tensor,
+                 v_pool: torch.Tensor, page_table: torch.Tensor,
+                 cache_len: torch.Tensor) -> torch.Tensor:
+        """A window of K queries ``(B,K,H,hd)`` over pool ``(n_pages,page,
+        KV,hd)`` through ``page_table (B,n_slots)``; ``cache_len (B,)`` is
+        the length before the window, and query ``j`` sees positions
+        ``< cache_len + j + 1``."""
+        if _on_cpu(q, k_pool, v_pool, page_table, cache_len):
+            return self.plain(q, k_pool, v_pool, page_table, cache_len)
+        B, K, H, hd = q.shape
+        n_pages, page, KV, _ = k_pool.shape
+        n_slots = page_table.shape[1]
+        if (k_pool.shape[3] != hd or v_pool.shape != k_pool.shape
+                or page_table.shape != (B, n_slots) or cache_len.shape != (B,)
+                or H % KV):
+            raise ValueError("spec_verify_attention: shapes do not fit")
+        if K * (H // KV) > SPEC_MAX_ROWS:
+            raise ValueError(f"spec_verify_attention: K * H / KV = "
+                             f"{K * (H // KV)} window rows, above the "
+                             f"kernel's cap of {SPEC_MAX_ROWS}")
+        dt = _check(self.name, (q, k_pool, v_pool), hd)
+        table = _int32(page_table, q.device)
+        lens = _int32(cache_len, q.device)
+        out = torch.empty_like(q)
+        if out.numel() and n_slots:
+            self._launch((q, k_pool, v_pool, table, lens, out),
+                         (B, K, H, KV, page, n_pages, n_slots, hd, dt))
+        return out
+
+
+class _DecodeAttention(CudaKernel):
+    def __call__(self, q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor,
+                 cache_len: torch.Tensor) -> torch.Tensor:
+        """One query ``(B,1,H,hd)`` over a dense cache ``(B,Skv,KV,hd)``
+        masked by ``cache_len (B,)``."""
+        if _on_cpu(q, k_cache, v_cache, cache_len):
+            return self.plain(q, k_cache, v_cache, cache_len)
+        B, one, H, hd = q.shape
+        Skv, KV = k_cache.shape[1], k_cache.shape[2]
+        if (one != 1 or k_cache.shape != (B, Skv, KV, hd)
+                or v_cache.shape != k_cache.shape or cache_len.shape != (B,)
+                or H % KV or H // KV > 32):
+            raise ValueError("decode_attention: shapes do not fit "
+                             "(or more than 32 query heads per KV head)")
+        dt = _check(self.name, (q, k_cache, v_cache), hd)
+        lens = _int32(cache_len, q.device)
+        out = torch.empty_like(q)
+        if out.numel() and Skv:
+            self._launch((q, k_cache, v_cache, lens, out),
+                         (B, H, KV, Skv, hd, dt))
+        return out
+
+
 class _TopkSimilarity(CudaKernel):
     def __call__(self, e1: torch.Tensor, e2: torch.Tensor, *,
                  k: int) -> tuple:
@@ -232,11 +293,21 @@ topk_similarity = _TopkSimilarity(
     "topk_similarity", "topk_sim", "repro_topk_similarity", n_ptrs=4,
     n_ints=4, plain=L.topk_similarity,
     replaces="src/repro/kernels/topk_sim.py:75")
+spec_verify_attention = _SpecVerifyAttention(
+    "spec_verify_attention", "spec_verify_attention",
+    "repro_spec_verify_attention", n_ptrs=6, n_ints=9,
+    plain=L.spec_verify_attention_paged,
+    replaces="src/repro/kernels/spec_verify_attention.py:84")
+decode_attention = _DecodeAttention(
+    "decode_attention", "decode_attention", "repro_decode_attention",
+    n_ptrs=5, n_ints=6, plain=L.decode_attention,
+    replaces="src/repro/kernels/decode_attention.py:65")
 
-#: every kernel of the port: the three attention kernels in the order the
-#: model reaches them, then the prefilter's top-k
+#: every kernel of the port: the three attention kernels of the paged
+#: engine in the order the model reaches them, the prefilter's top-k, then
+#: the speculative verify and the dense engine's decode
 KERNELS = (flash_attention, chunked_prefill_attention, paged_decode_attention,
-           topk_similarity)
+           topk_similarity, spec_verify_attention, decode_attention)
 
 
 def top1_similarity(e1: torch.Tensor, e2: torch.Tensor) -> tuple:

@@ -7,6 +7,7 @@ from repro_torch.models.model import (
     encode,
     model_specs,
     prefill,
+    verify_step,
 )
 from repro_torch.models.params import (
     Spec,
@@ -18,5 +19,5 @@ from repro_torch.models.params import (
 __all__ = [
     "cache_specs", "chunked_prefill", "decode_step", "encode",
     "model_specs", "prefill", "Spec", "from_numpy", "init_params",
-    "param_count",
+    "param_count", "verify_step",
 ]

@@ -94,6 +94,54 @@ def attn_apply_chunked(cfg: ModelConfig, p, x: torch.Tensor,
     return _out_proj(cfg, p, o), (k, v)
 
 
+def attn_decode(cfg: ModelConfig, p, x: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, cache_len: torch.Tensor):
+    """One-token attention against a dense cache ``(B, Skv, KV, hd)``.
+
+    The new token's K/V are written in place at each row's ``cache_len``
+    (a per-row point scatter; rows may be ragged).  A position past the
+    cache writes its last slot, as ``dynamic_update_slice`` clamps in the
+    JAX package; such a row is retired and its write masked.  Returns
+    ``(out, k_cache, v_cache)``.
+    """
+    positions = cache_len[:, None]
+    q, k, v = _qkv(cfg, p, x, positions)
+    rows = torch.arange(x.shape[0], device=x.device)
+    at = (rows, cache_len.long().clamp(0, k_cache.shape[1] - 1))
+    k_cache.index_put_(at, k[:, 0].to(k_cache.dtype))
+    v_cache.index_put_(at, v[:, 0].to(v_cache.dtype))
+    o = ops.decode_attention(q, k_cache, v_cache, cache_len + 1)
+    return _out_proj(cfg, p, o), k_cache, v_cache
+
+
+def attn_verify(cfg: ModelConfig, p, x: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, cache_len: torch.Tensor,
+                write_at: tuple, window_at: tuple):
+    """K-token speculative-verification attention against a dense cache.
+
+    ``x``: (B, K, D), the window at positions ``cache_len + j``.  All K
+    tokens' K/V are written first: window cells ``window_at`` (rows,
+    window positions) land at cache cells ``write_at`` (rows, positions);
+    the caller leaves out positions at or past the cache's end, which the
+    JAX package drops (``mode="drop"``).  Then each query ``j`` attends to
+    positions ``< cache_len + j + 1`` through ``decode_attention`` called
+    once per window position, as the Pallas branch of the JAX
+    ``attn_verify`` does: the verify logits come from the same numeric
+    path as the decode steps this engine would otherwise run.  Returns
+    ``(out, k_cache, v_cache)``.
+    """
+    K = x.shape[1]
+    positions = (cache_len[:, None]
+                 + torch.arange(K, device=x.device, dtype=cache_len.dtype))
+    q, k, v = _qkv(cfg, p, x, positions)
+    k_cache.index_put_(write_at, k[window_at].to(k_cache.dtype))
+    v_cache.index_put_(write_at, v[window_at].to(v_cache.dtype))
+    o = torch.cat(
+        [ops.decode_attention(q[:, j:j + 1].contiguous(), k_cache, v_cache,
+                              cache_len + j + 1) for j in range(K)], dim=1)
+    return _out_proj(cfg, p, o), k_cache, v_cache
+
+
 def attn_decode_paged(cfg: ModelConfig, p, x: torch.Tensor,
                       k_pool: torch.Tensor, v_pool: torch.Tensor,
                       page_table: torch.Tensor, cache_len: torch.Tensor,
@@ -114,6 +162,33 @@ def attn_decode_paged(cfg: ModelConfig, p, x: torch.Tensor,
     v_pool.index_put_((write_page, write_off), v[:, 0].to(v_pool.dtype))
     o = ops.paged_decode_attention(q, k_pool, v_pool, page_table,
                                    cache_len + 1)
+    return _out_proj(cfg, p, o), k_pool, v_pool
+
+
+def attn_verify_paged(cfg: ModelConfig, p, x: torch.Tensor,
+                      k_pool: torch.Tensor, v_pool: torch.Tensor,
+                      page_table: torch.Tensor, cache_len: torch.Tensor,
+                      write_at: tuple, window_at: tuple):
+    """K-token speculative-verification attention through a per-row page
+    table.
+
+    ``x``: (B, K, D), the window at positions ``cache_len + j``.  Window
+    cells ``window_at`` (rows, window positions) write their K/V in place
+    at pool cells ``write_at`` (pages, offsets); the engine pre-extends
+    each row's pages over its window, and the caller leaves out positions
+    past the table's capacity (the JAX package routes them to the
+    out-of-range page ``n_pages`` and drops them; ``index_put_`` would
+    raise).  Attention then reads through the table, causal inside the
+    window (the ``spec_verify_attention`` kernel).  Returns ``(out,
+    k_pool, v_pool)``.
+    """
+    K = x.shape[1]
+    positions = (cache_len[:, None]
+                 + torch.arange(K, device=x.device, dtype=cache_len.dtype))
+    q, k, v = _qkv(cfg, p, x, positions)
+    k_pool.index_put_(write_at, k[window_at].to(k_pool.dtype))
+    v_pool.index_put_(write_at, v[window_at].to(v_pool.dtype))
+    o = ops.spec_verify_attention(q, k_pool, v_pool, page_table, cache_len)
     return _out_proj(cfg, p, o), k_pool, v_pool
 
 

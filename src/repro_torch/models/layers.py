@@ -1,5 +1,5 @@
-"""Shared layers in plain PyTorch, and the plain versions of the four
-kernels (three attention kernels and the prefilter's top-k).
+"""Shared layers in plain PyTorch, and the plain versions of the six
+kernels (five attention kernels and the prefilter's top-k).
 
 Conventions follow ``repro.models.layers``:
 
@@ -14,7 +14,8 @@ ops, with fp32 scores, an fp32 softmax and fp32 accumulation.  The
 wrappers in :mod:`repro_torch.kernels.ops` call them for CPU tensors
 only; ``chip_smoke.py`` holds each kernel against them on the card.  They
 mirror ``repro.models.layers`` (``blockwise_causal_attention``,
-``chunked_prefill_attention``, ``paged_decode_attention``,
+``chunked_prefill_attention``, ``decode_attention``,
+``paged_decode_attention``, ``spec_verify_attention(_paged)``,
 ``topk_similarity``) and ``repro.kernels.ref``.
 """
 
@@ -170,6 +171,36 @@ def paged_decode_attention(
     k = k_pool[table].reshape(B, n_slots * page, KV, hd)
     v = v_pool[table].reshape(B, n_slots * page, KV, hd)
     return decode_attention(q, k, v, cache_len)
+
+
+def spec_verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor,
+                          cache_len: torch.Tensor) -> torch.Tensor:
+    """A window of K queries ``(B,K,H,hd)`` against a dense cache that
+    already holds the window's K/V; ``cache_len (B,)`` is the length
+    before the window.  Query ``j`` sees positions ``< cache_len + j +
+    1``: a static loop over :func:`decode_attention`, so every window row
+    is the single-token decode it replaces, bit for bit."""
+    return torch.cat(
+        [decode_attention(q[:, j:j + 1], k_cache, v_cache, cache_len + j + 1)
+         for j in range(q.shape[1])], dim=1)
+
+
+def spec_verify_attention_paged(
+    q: torch.Tensor,           # (B, K, H, hd)
+    k_pool: torch.Tensor,      # (n_pages, page, KV, hd)
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # (B, n_slots) int
+    cache_len: torch.Tensor,   # (B,) int — length BEFORE the window
+) -> torch.Tensor:
+    """The plain version of the ``spec_verify_attention`` kernel: a static
+    loop over :func:`paged_decode_attention`, one window position at a
+    time, so row ``j`` equals paged decode at ``cache_len + j + 1`` bit
+    for bit."""
+    return torch.cat(
+        [paged_decode_attention(q[:, j:j + 1], k_pool, v_pool, page_table,
+                                cache_len + j + 1)
+         for j in range(q.shape[1])], dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,12 @@ Public surface (plain functions of ``(cfg, params, ...)``):
 * :func:`prefill`         — ragged bucketed prefill → (cache, logits)
 * :func:`encode`          — mean-pooled final-norm hidden states, no cache
 * :func:`chunked_prefill` — the uncached suffix over a gathered prefix;
-  with ``paged=True`` it returns the suffix K/V only
-* :func:`decode_step`     — one paged decode step with the ``active`` mask
+  dense slot rows with the prefix copied in, or with ``paged=True`` the
+  suffix K/V only
+* :func:`decode_step`     — one decode step, dense or paged, with the
+  ``active`` mask
+* :func:`verify_step`     — one pass over a K-token speculative window,
+  dense or paged
 
 The JAX package scans the stacked layer weights with ``lax.scan``; here a
 Python loop takes layer ``i``'s views ``leaf[i]``.  Only the KV-only
@@ -208,16 +212,14 @@ def chunked_prefill(
     prefix K/V ``(layers, B, P, KV, hd)`` masked by ``prefix_len`` (B,).
 
     Suffix tokens sit at absolute positions ``prefix_len + i``.  With
-    ``paged=True`` the cache holds the suffix K/V only, ``(layers, B, S,
-    KV, hd)``, for the engine to page-scatter; ``len = prefix_len +
-    valid_len``.
+    ``paged=False`` (the dense engine) the cache is laid out as
+    :func:`prefill`'s, ``(layers, B, max_seq, KV, hd)``: the gathered
+    prefix at ``[0, P)``, each row's suffix written over it from its own
+    ``prefix_len``.  With ``paged=True`` the cache holds the suffix K/V
+    only, ``(layers, B, S, KV, hd)``, for the engine to page-scatter.
+    Either way ``len = prefix_len + valid_len``.
     """
     _require_dense(cfg)
-    if not paged:
-        raise NotImplementedError(
-            "chunked_prefill(paged=False) builds dense slot rows for the "
-            "dense-KV engine, which is not yet ported (ROADMAP.md queue A, "
-            "left out of the first slice)")
     tokens = batch["tokens"]
     x = L.embed(tokens, params["embed"])
     Bsz, S = tokens.shape
@@ -225,17 +227,35 @@ def chunked_prefill(
                  + torch.arange(S, device=x.device)[None])
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     dt = _cache_dtype(cfg, x)
-    shape = (cfg.n_layers, Bsz, S, KV, hd)
+    shape = (cfg.n_layers, Bsz, S if paged else max_seq, KV, hd)
     ks = torch.empty(shape, dtype=dt, device=x.device)
     vs = torch.empty(shape, dtype=dt, device=x.device)
+    rows = torch.arange(Bsz, device=x.device)[:, None]
+    P = prefix_k.shape[2]
+
+    def place(dst, suffix, prefix):
+        """A dense slot row: prefix at [0, P), the suffix from each row's
+        prefix_len on.  The scratch is max_seq + S long so a near-full
+        row's suffix never falls off; positions past ``len`` are masked
+        by decode."""
+        buf = torch.zeros((Bsz, max_seq + S, KV, hd), dtype=dt,
+                          device=x.device)
+        buf[:, :P] = prefix
+        buf[rows, positions] = suffix.to(dt)
+        dst.copy_(buf[:, :max_seq])
+
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         out, (k, v) = B.attn_apply_chunked(
             cfg, lp["attn"], x, positions, prefix_k[i], prefix_v[i],
             prefix_len)
         x = x + out
-        ks[i] = k
-        vs[i] = v
+        if paged:
+            ks[i] = k
+            vs[i] = v
+        else:
+            place(ks[i], k, prefix_k[i])
+            place(vs[i], v, prefix_v[i])
         x = x + B.mlp_apply(cfg, lp["mlp"], x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if all_logits:
@@ -255,39 +275,99 @@ def decode_step(
     cfg: ModelConfig, params, cache: Dict[str, torch.Tensor],
     tokens: torch.Tensor, active: Optional[torch.Tensor] = None,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """One greedy-decode step through page tables.  tokens: (B, 1).
+    """One greedy-decode step.  tokens: (B, 1).
 
-    ``cache`` holds ``len`` (B,), ``pages`` (B, n_slots) and the pool
-    ``k``/``v`` ``(layers, n_pages, page, KV, hd)``.  Each row's new K/V
-    is appended **in place** into the page holding position ``len``
-    (``index_put_``: the returned ``k``/``v`` are the same tensors);
-    inactive rows, pointed by the engine at its dump page with
-    ``len = 0``, keep their length.  Returns ``(cache', logits)``.
+    Dense cache: ``len`` (B,) and rows ``k``/``v`` ``(layers, B, max_seq,
+    KV, hd)``; each row's new K/V is written at its ``len``.  Paged cache:
+    ``len``, ``pages`` (B, n_slots) and the pool ``k``/``v`` ``(layers,
+    n_pages, page, KV, hd)``; the new K/V is appended into the page
+    holding position ``len``.  Either way the write is **in place**
+    (``index_put_``: the returned ``k``/``v`` are the same tensors), and
+    rows with ``active`` False keep their length (the paged engine points
+    them at its dump page with ``len = 0``; a dense row is overwritten
+    when its slot is refilled).  Returns ``(cache', logits)``.
     """
     _require_dense(cfg)
-    if "pages" not in cache:
-        raise NotImplementedError(
-            "dense-KV decode_step is not yet ported (the dense engine is "
-            "left out of the first slice; see ROADMAP.md queue A)")
     x = L.embed(tokens, params["embed"])
     cache_len = cache["len"]
-    k_pool, v_pool = cache["k"], cache["v"]
-    page = k_pool.shape[2]
-    page_table = cache["pages"]
-    slot_idx = torch.clamp(cache_len.long() // page, 0,
-                           page_table.shape[1] - 1)
-    write_page = torch.gather(page_table.long(), 1, slot_idx[:, None])[:, 0]
-    write_off = cache_len.long() % page
+    k_all, v_all = cache["k"], cache["v"]
+    paged = "pages" in cache
+    if paged:
+        page = k_all.shape[2]
+        page_table = cache["pages"]
+        slot_idx = torch.clamp(cache_len.long() // page, 0,
+                               page_table.shape[1] - 1)
+        write_page = torch.gather(page_table.long(), 1,
+                                  slot_idx[:, None])[:, 0]
+        write_off = cache_len.long() % page
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        out, _, _ = B.attn_decode_paged(
-            cfg, lp["attn"], x, k_pool[i], v_pool[i], page_table, cache_len,
-            write_page, write_off)
+        if paged:
+            out, _, _ = B.attn_decode_paged(
+                cfg, lp["attn"], x, k_all[i], v_all[i], page_table,
+                cache_len, write_page, write_off)
+        else:
+            out, _, _ = B.attn_decode(cfg, lp["attn"], x, k_all[i], v_all[i],
+                                      cache_len)
         x = x + out
         x = x + B.mlp_apply(cfg, lp["mlp"], x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(x, _unembed_table(cfg, params))[:, 0]
     step = 1 if active is None else active.to(cache_len.dtype)
-    new_cache = {"len": cache_len + step, "pages": page_table,
-                 "k": k_pool, "v": v_pool}
+    new_cache = dict(cache, len=cache_len + step)
     return new_cache, logits
+
+
+def verify_step(
+    cfg: ModelConfig, params, cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Score a K-token speculative window in one pass.
+
+    ``tokens``: (B, K), each row's window (the greedy token plus up to
+    K - 1 drafted continuations, padded).  Every window token's K/V is
+    written in place at positions ``len .. len + K - 1`` and the logits of
+    every window position come back, ``(B, K, vocab)``: ``logits[:, j]``
+    is the next-token distribution after tokens ``0..j``, attention being
+    causal inside the window.  Positions the cache cannot hold (past
+    ``max_seq`` on the dense cache, past the page table's capacity on the
+    paged one) are not written, as the JAX package drops them.
+
+    ``cache["len"]`` is **not** advanced: the engine commits the accepted
+    prefix on the host (``Engine.commit_spec``); the rejected tail stays
+    as masked garbage that the next write at those positions overwrites.
+    """
+    _require_dense(cfg)
+    x = L.embed(tokens, params["embed"])
+    K = tokens.shape[1]
+    cache_len = cache["len"]
+    k_all, v_all = cache["k"], cache["v"]
+    pos = cache_len.long()[:, None] + torch.arange(K, device=x.device)[None]
+    paged = "pages" in cache
+    if paged:
+        page = k_all.shape[2]
+        page_table = cache["pages"]
+        n_slots = page_table.shape[1]
+        # the window cells the table can hold: one host sync a pass, so
+        # that no layer indexes the pool out of range
+        window_at = torch.nonzero(pos < n_slots * page, as_tuple=True)
+        wpos = pos[window_at]
+        write_at = (page_table.long()[window_at[0], wpos // page],
+                    wpos % page)
+    else:
+        window_at = torch.nonzero(pos < k_all.shape[2], as_tuple=True)
+        write_at = (window_at[0], pos[window_at])
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        if paged:
+            out, _, _ = B.attn_verify_paged(
+                cfg, lp["attn"], x, k_all[i], v_all[i], page_table,
+                cache_len, write_at, window_at)
+        else:
+            out, _, _ = B.attn_verify(cfg, lp["attn"], x, k_all[i], v_all[i],
+                                      cache_len, write_at, window_at)
+        x = x + out
+        x = x + B.mlp_apply(cfg, lp["mlp"], x)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = L.unembed(x, _unembed_table(cfg, params))   # (B, K, vocab)
+    return dict(cache), logits

@@ -36,7 +36,8 @@ from repro_torch.serve.executor import ContinuousBatchingExecutor, ServeHandle
 
 def _usage(r: GenResult) -> Usage:
     return Usage(r.prompt_tokens, r.completion_tokens,
-                 r.cached_prompt_tokens, scored_tokens=r.scored_tokens)
+                 r.cached_prompt_tokens, r.drafted_tokens,
+                 r.accepted_draft_tokens, r.scored_tokens)
 
 
 def _to_response(r: GenResult) -> LLMResponse:

@@ -1,6 +1,7 @@
 """The serving engine on PyTorch: bucketed ragged prefill, the
-incremental slot API for continuous batching, paged KV with a radix
-prefix cache — the default path of ``repro.serve.engine``.
+incremental slot API for continuous batching, paged or dense KV with a
+radix prefix cache, and self-speculative decoding — after
+``repro.serve.engine``.
 
 What carries over unchanged from the JAX engine:
 
@@ -10,10 +11,28 @@ What carries over unchanged from the JAX engine:
 * **Slot-refill continuous batching** — :meth:`init_state` /
   :meth:`prefill_rows` / :meth:`insert_row` / :meth:`decode_active`,
   driven by :class:`repro_torch.serve.executor.ContinuousBatchingExecutor`.
-* **Paged KV** — all KV lives page-granular in one shared refcounted page
-  pool; each slot owns a page table; decode attention reads through the
-  table (the ``paged_decode_attention`` kernel) and appends new tokens
-  into pages in place; prefix-cache hits are zero-copy.
+* **Paged KV** (default, ``REPRO_PAGED_KV=0/1``) — all KV lives
+  page-granular in one shared refcounted page pool; each slot owns a page
+  table; decode attention reads through the table (the
+  ``paged_decode_attention`` kernel) and appends new tokens into pages in
+  place; prefix-cache hits are zero-copy.
+* **Dense KV** (``paged=False``) — each slot owns a ``max_seq`` cache row
+  (:class:`DecodeState`); decode attention reads it (the
+  ``decode_attention`` kernel); prefix-cache hits are copied into the row
+  from the radix cache's own pool.
+* **Self-speculative decoding** (``spec_decode=True`` or
+  ``REPRO_SPEC_DECODE=1``) — a host-side n-gram proposer drafts from each
+  slot's own prompt + generated tokens (:func:`propose_draft`), one model
+  pass verifies every slot's window (:meth:`verify_active`: the
+  ``spec_verify_attention`` kernel on the paged engine, the
+  ``decode_attention`` kernel once per window position on the dense one)
+  and :meth:`commit_spec` keeps the accepted prefix, rolling back the
+  pages of the rejected tail.  Each verify row's attention is the decode
+  kernel's, bit for bit; the dense products run at M = slots x window
+  instead of M = slots, so greedy outputs are token-identical with it on
+  or off wherever those products round a row the same at both M (the CPU
+  at fp32 in the tests), and on the card in bf16 can part where logits
+  are near ties (PERF.md).  Teacher-forced outputs are always equal.
 * **Radix-tree KV prefix cache** — the longest cached page-aligned
   prefix (capped at ``len - 1``) is shared by reference and only the
   uncached suffix is prefilled (the ``chunked_prefill_attention``
@@ -28,10 +47,10 @@ What carries over unchanged from the JAX engine:
 
 PyTorch runs eagerly, so there are no jitted closures: every pass is a
 call into :mod:`repro_torch.models` on the engine's device (the device of
-the weights).  The pool is updated in place where the JAX engine donates
-buffers.  Dense KV (``paged=False``), speculative decoding, int8
-weights and meshes are not yet ported and raise ``NotImplementedError``
-naming their ROADMAP.md item.
+the weights).  The pool and the dense cache rows are updated in place
+where the JAX engine donates buffers.  Int8 weights and meshes are not
+yet ported and raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -45,9 +64,61 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.llm_client import cancel_unfinished
-from repro_torch.models import chunked_prefill, decode_step, encode, prefill
+from repro_torch.models import (chunked_prefill, decode_step, encode, prefill,
+                                verify_step)
 from repro_torch.obs.trace import NULL_TRACE
 from repro_torch.serve.prefix_cache import PagedKVPool, RadixPrefixCache
+
+_ID_BYTES = 4  # int32 token ids in the packed speculative context
+
+
+def pack_ids(ids: Sequence[int]) -> bytearray:
+    """Pack token ids into the byte buffer :func:`propose_draft` scans."""
+    return bytearray(np.asarray(list(ids), np.int32).tobytes())
+
+
+def pack_id(tok: int) -> bytes:
+    """One token id, appended to a packed context per emitted token."""
+    return int(tok).to_bytes(_ID_BYTES, "little", signed=True)
+
+
+def propose_draft(ctx: bytes, k: int, *, max_ngram: int = 3,
+                  min_ngram: int = 1) -> List[int]:
+    """Reference-free n-gram drafting (prompt lookup).
+
+    ``ctx`` is the packed (:func:`pack_ids`) token-id stream of one slot:
+    prompt + everything generated so far.  The longest suffix n-gram
+    (``max_ngram`` down to ``min_ngram`` tokens) that re-occurs earlier
+    in the stream selects a draft: the up-to-``k`` tokens that followed
+    its most recent earlier occurrence.  The block join's answers are
+    near-verbatim copies of prompt substrings (row ids, separators, the
+    ``Finished`` sentinel), which is exactly what this finds.
+
+    The scan is ``bytes.rfind`` over the packed buffer, with an alignment
+    check rejecting matches that straddle id boundaries.  A draft is only
+    a proposal: verification accepts the longest greedy-matching prefix,
+    so a bad draft costs wasted work, never a wrong token.
+    """
+    isz = _ID_BYTES
+    L = len(ctx) // isz
+    if k <= 0 or L < min_ngram + 1:
+        return []
+    buf = bytes(ctx)
+    for n in range(min(max_ngram, L - 1), min_ngram - 1, -1):
+        pat = buf[(L - n) * isz:]
+        # an earlier occurrence must start at token <= L-n-1, i.e. end
+        # by byte (L-1)*isz
+        end = (L - 1) * isz
+        pos = buf.rfind(pat, 0, end)
+        while pos >= 0 and pos % isz:
+            pos = buf.rfind(pat, 0, pos + n * isz - 1)
+        if pos < 0:
+            continue
+        start = pos // isz + n
+        stop = min(start + k, L)
+        return [int(t) for t in
+                np.frombuffer(buf[start * isz:stop * isz], np.int32)]
+    return []
 
 
 @dataclasses.dataclass
@@ -59,6 +130,11 @@ class GenResult:
     #: prompt tokens served from the radix prefix cache (never recomputed);
     #: always <= prompt_tokens, 0 when the cache is off or missed
     cached_prompt_tokens: int = 0
+    #: speculative decoding: draft tokens proposed for / accepted by this
+    #: request.  Accepted drafts are ordinary completion tokens (already
+    #: counted there); rejected drafts cost only verification work
+    drafted_tokens: int = 0
+    accepted_draft_tokens: int = 0
     #: prefill-only scoring: candidate-continuation tokens whose log-probs
     #: were read from prefill logits (subset of prompt_tokens;
     #: completion_tokens stays 0 for score requests)
@@ -107,6 +183,20 @@ class StopMatcher:
         self._pending = buf[len(stripped):][-len(self.stop):]
         self._tail = stripped[-len(self.stop):]
         return self._tail == self.stop
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """State of the ``slots``-wide continuous batch on the dense engine.
+
+    ``cache`` — ``len`` (slots,) int32 and the rows ``k``/``v`` ``(layers,
+    slots, max_seq, KV, hd)`` on the engine device, allocated once; a row
+    is overwritten in place when a new request is inserted into its slot.
+    ``logits`` — (slots, vocab) fp32 next-token logits per row.
+    """
+
+    cache: dict
+    logits: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -182,6 +272,8 @@ class Engine:
         page_size: int = 16,
         pool_pages: Optional[int] = None,
         spec_decode: Optional[bool] = None,
+        spec_k: int = 8,
+        spec_ngram: Tuple[int, int] = (3, 1),
         mesh: Any = None,
         quant: Optional[bool] = None,
     ):
@@ -196,17 +288,15 @@ class Engine:
         if quant:
             raise _not_ported("int8 weight residency (quant=True)",
                               "queue A item 13")
+        # Self-speculative decoding: greedy-parity n-gram drafting and one
+        # verification pass per step; off by default.
         if spec_decode is None:
             spec_decode = os.environ.get("REPRO_SPEC_DECODE", "0") == "1"
-        if spec_decode:
-            raise _not_ported("self-speculative decoding (spec_decode=True)",
-                              "queue A item 7")
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if paged is None:
             paged = os.environ.get("REPRO_PAGED_KV", "1") != "0"
-        if not paged:
-            raise _not_ported("the dense-KV engine (paged=False)",
-                              "queue A item 4, left out of the first slice")
-        if prefix_page_size not in (None, page_size):
+        if paged and prefix_page_size not in (None, page_size):
             raise ValueError(
                 "a paged engine has ONE page granularity: the prefix cache "
                 f"shares the pool's page_size={page_size}; got "
@@ -218,15 +308,20 @@ class Engine:
         self.max_seq = max_seq
         self.slots = slots
         self.device = params["embed"].device
-        self.paged = True
-        self.spec_decode = False
-        self.spec_k = 0
-        self.page_size = pg = page_size
+        self.paged = bool(paged)
+        self.spec_decode = bool(spec_decode)
+        self.spec_k = spec_k
+        self.spec_ngram = spec_ngram
+        # the dense engine's prefix cache may take its own page size
+        self.page_size = pg = (prefix_page_size if not self.paged
+                               and prefix_page_size is not None
+                               else page_size)
 
         buckets = sorted({b for b in prefill_buckets if b <= max_seq} | {max_seq})
-        # page-scatter needs page-aligned buckets
-        buckets = sorted({min(-(-b // pg) * pg, -(-max_seq // pg) * pg)
-                          for b in buckets})
+        if self.paged:
+            # page-scatter needs page-aligned buckets
+            buckets = sorted({min(-(-b // pg) * pg, -(-max_seq // pg) * pg)
+                              for b in buckets})
         self.prefill_buckets = buckets
         self._maxp = -(-max_seq // pg)  # page-table width per row
 
@@ -235,16 +330,26 @@ class Engine:
         #: high-water mark of *distinct* pages referenced by live decode
         #: rows (shared prefix pages count once)
         self._peak_live_pages = 0
-        # ONE pool backs live decode state and the prefix cache; +1 for
-        # the dump page that inactive rows write into
-        n_pages = (pool_pages if pool_pages is not None
-                   else prefix_pool_pages if prefix_pool_pages is not None
-                   else slots * self._maxp)
-        self.pool = PagedKVPool(n_pages + 1, pg)
-        self._dump = self.pool.alloc(1)[0]  # pinned forever
-        self.prefix_cache: Optional[RadixPrefixCache] = (
-            RadixPrefixCache(self.pool.n_pages, pg, pool=self.pool)
-            if prefix_cache else None)
+        self.pool: Optional[PagedKVPool] = None
+        self._dump = -1  # the paged engine's page for inactive rows' writes
+        self.prefix_cache: Optional[RadixPrefixCache] = None
+        if self.paged:
+            # ONE pool backs live decode state and the prefix cache; +1
+            # for the dump page that inactive rows write into
+            n_pages = (pool_pages if pool_pages is not None
+                       else prefix_pool_pages if prefix_pool_pages is not None
+                       else slots * self._maxp)
+            self.pool = PagedKVPool(n_pages + 1, pg)
+            self._dump = self.pool.alloc(1)[0]  # pinned forever
+            if prefix_cache:
+                self.prefix_cache = RadixPrefixCache(
+                    self.pool.n_pages, pg, pool=self.pool)
+        elif prefix_cache:
+            # the dense engine copies hits out of a pool of its own, bound
+            # to the cache's shape at the first prefill
+            n_pages = (prefix_pool_pages if prefix_pool_pages is not None
+                       else 2 * slots * max_seq // pg)
+            self.prefix_cache = RadixPrefixCache(n_pages, pg)
 
         # page-aligned buckets for the gathered-prefix length
         self._prefix_buckets = sorted({
@@ -273,17 +378,23 @@ class Engine:
     # ------------------------------------------------------------------
     @property
     def total_kv_pages(self) -> int:
-        """Pages available to requests (excludes the pinned dump page)."""
-        return self.pool.n_pages - 1
+        """Pages available to requests (excludes the pinned dump page; 0 on
+        the dense engine)."""
+        return self.pool.n_pages - 1 if self.paged else 0
 
     def request_pages(self, prompt_tokens: int, max_tokens: int) -> int:
         """Worst-case page reservation of one request: every position it
-        can ever occupy (prompt + clamped completion), in whole pages."""
+        can ever occupy (prompt + clamped completion), in whole pages (0 on
+        the dense engine, whose rows are reserved at ``max_seq``)."""
+        if not self.paged:
+            return 0
         need = prompt_tokens + min(max_tokens, self.max_seq - prompt_tokens)
         return -(-need // self.page_size)
 
-    def kv_stats(self) -> dict:
-        """Page-pool occupancy counters."""
+    def kv_stats(self) -> Optional[dict]:
+        """Page-pool occupancy counters (None on the dense engine)."""
+        if not self.paged:
+            return None
         return {
             "page_size": self.page_size,
             "pool_pages": self.total_kv_pages,
@@ -333,10 +444,10 @@ class Engine:
                                page=int(page), new=int(new))
         return new
 
-    def release_slot(self, state: Optional[PagedDecodeState],
-                     slot: int) -> None:
-        """Drop a retired slot's page references."""
-        if state is None:
+    def release_slot(self, state: Any, slot: int) -> None:
+        """Drop a retired slot's page references (paged; a dense row is
+        overwritten at the next refill)."""
+        if not self.paged or state is None:
             return
         if state.tables[slot]:
             self.pool.decref(state.tables[slot])
@@ -344,9 +455,9 @@ class Engine:
         state.lens[slot] = 0
         state.table_np[slot, :] = self._dump
 
-    def release_state(self, state: Optional[PagedDecodeState]) -> None:
+    def release_state(self, state: Any) -> None:
         """Release every slot of a decode state about to be dropped."""
-        if state is None:
+        if not self.paged or state is None:
             return
         for slot in range(self.slots):
             self.release_slot(state, slot)
@@ -354,16 +465,32 @@ class Engine:
     # ------------------------------------------------------------------
     # Incremental slot API (driven by the executor)
     # ------------------------------------------------------------------
-    def init_state(self) -> PagedDecodeState:
-        """The ``slots``-wide decode state: empty page tables and a zero
-        logits buffer — no cache rows exist in paged mode."""
-        return PagedDecodeState(
-            logits=torch.zeros((self.slots, self.cfg.padded_vocab),
-                               dtype=torch.float32, device=self.device),
-            lens=np.zeros(self.slots, np.int32),
-            tables=[[] for _ in range(self.slots)],
-            table_np=np.full((self.slots, self._maxp), self._dump, np.int32),
-        )
+    def init_state(self):
+        """The ``slots``-wide decode state and a zero logits buffer.
+
+        Paged: empty page tables, no cache rows.  Dense: zeroed cache rows
+        at ``max_seq`` capacity, which inserts overwrite (the JAX engine
+        runs its prefill on an all-pad batch to get the same shapes)."""
+        logits = torch.zeros((self.slots, self.cfg.padded_vocab),
+                             dtype=torch.float32, device=self.device)
+        if self.paged:
+            return PagedDecodeState(
+                logits=logits,
+                lens=np.zeros(self.slots, np.int32),
+                tables=[[] for _ in range(self.slots)],
+                table_np=np.full((self.slots, self._maxp), self._dump,
+                                 np.int32),
+            )
+        cfg = self.cfg
+        shape = (cfg.n_layers, self.slots, self.max_seq, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        dt = self.params["embed"].dtype
+        return DecodeState(cache={
+            "len": torch.zeros(self.slots, dtype=torch.int32,
+                               device=self.device),
+            "k": torch.zeros(shape, dtype=dt, device=self.device),
+            "v": torch.zeros(shape, dtype=dt, device=self.device),
+        }, logits=logits)
 
     def prefill_rows(
         self, prompts: Sequence[str]
@@ -384,7 +511,10 @@ class Engine:
                 f"prompt of {max(lens)} tokens exceeds engine max_seq {self.max_seq}"
             )
         t0 = self.trace.now() if self.trace else 0.0
-        out = self._prefill_rows_paged(ids, lens)
+        if self.paged:
+            out = self._prefill_rows_paged(ids, lens)
+        else:
+            out = self._prefill_rows_dense(ids, lens)
         if self.trace:
             self.trace.complete(
                 "engine.prefill", "engine", t0, pid=self.trace_pid,
@@ -411,7 +541,8 @@ class Engine:
         pages are allocated, deduplicated and interned exactly as for a
         generation prefill — then **released right after the gather**:
         a score request holds no page past its own batch (the radix tree
-        keeps its interned pages, evictable under pressure).
+        keeps its interned pages, evictable under pressure).  The dense
+        engine prefills the rows into a transient cache of its own.
         """
         if not 0 < len(pairs) <= self.slots:
             raise ValueError(f"score_rows takes 1..{self.slots} pairs")
@@ -427,7 +558,9 @@ class Engine:
                 f"engine max_seq {self.max_seq}")
         limits = [len(p) - 1 for p in prompt_ids]
         t0 = self.trace.now() if self.trace else 0.0
-        (tables, _), logits, _, cached = self._prefill_rows_paged(
+        prefill_rows = (self._prefill_rows_paged if self.paged
+                        else self._prefill_rows_dense)
+        cache, logits, _, cached = prefill_rows(
             seqs, lens, limits=limits, all_logits=True)
         # logits: (slots, L, vocab) over each row's *computed* suffix —
         # continuation token i lives at suffix-relative position
@@ -442,11 +575,13 @@ class Engine:
                 tgt[r, i] = t
         lp = _score_gather(logits, self._tensor(idx),
                            self._tensor(tgt)).cpu().numpy()
-        # release right away: score rows never own pages past their batch
-        # — only the radix tree's own (evictable) refs remain
-        for t in tables:
-            if t:
-                self.pool.decref(t)
+        if self.paged:
+            # release right away: score rows never own pages past their
+            # batch — only the radix tree's own (evictable) refs remain
+            tables, _ = cache
+            for t in tables:
+                if t:
+                    self.pool.decref(t)
         rows = []
         for r, (pi, ci) in enumerate(zip(prompt_ids, cont_ids)):
             token_lps = [float(lp[r, i]) for i in range(len(ci))]
@@ -499,11 +634,70 @@ class Engine:
                                 bucket=int(L))
         return vecs[:len(texts)], lens
 
+    def _prefill_rows_dense(self, ids: List[List[int]], lens: List[int],
+                            limits: Optional[List[int]] = None,
+                            all_logits: bool = False):
+        """Prefill into a ``(layers, slots, max_seq, KV, hd)`` cache of
+        rows for :meth:`insert_row` to copy into slots.
+
+        A prefix-cache hit (page-aligned, capped at ``len - 1`` or at
+        ``limits``) is gathered from the radix cache's own pool and copied
+        into the row; only the suffix is computed.  Afterwards each row's
+        full pages are copied into that pool (``pc.insert``), which is
+        bound to the cache's shape at the first prefill.  ``all_logits``
+        returns the ``(slots, L, vocab)`` logits of every computed
+        position, over a bucket-length cache."""
+        pc = self.prefix_cache
+        matches: List[Any] = []
+        cached = [0] * len(ids)
+        if pc is not None and pc.pool.bound:
+            caps = limits or [len(seq) - 1 for seq in ids]
+            matches = [pc.match(seq, limit=cap)
+                       for seq, cap in zip(ids, caps)]
+            cached = [m.length for m in matches]
+            if self.trace:
+                self.trace.instant(
+                    "radix_lookup", "engine", pid=self.trace_pid,
+                    rows=len(ids), hit_tokens=int(sum(cached)),
+                    total_tokens=int(sum(lens)))
+        try:
+            if any(cached):
+                cache, logits = self._prefill_over_cache(
+                    ids, matches, all_logits=all_logits)
+            else:
+                L = _bucket(max(lens), self.prefill_buckets)
+                toks = np.zeros((self.slots, L), np.int64)
+                vlen = np.ones((self.slots,), np.int32)  # pad rows: 1 dummy
+                for r, seq in enumerate(ids):
+                    toks[r, : len(seq)] = seq
+                    vlen[r] = len(seq)
+                cache, logits = prefill(
+                    self.cfg, self.params, {"tokens": self._tensor(toks)},
+                    max_seq=L if all_logits else self.max_seq,
+                    valid_len=self._tensor(vlen), all_logits=all_logits)
+            if pc is not None:
+                if not pc.pool.bound:
+                    pc.pool.bind(cache["k"], cache["v"])
+                for r, seq in enumerate(ids):
+                    pc.insert(
+                        seq,
+                        lambda start, stop, r=r: cache["k"][:, r, start:stop],
+                        lambda start, stop, r=r: cache["v"][:, r, start:stop],
+                    )
+        finally:
+            # locks held through the gather AND the insert: the insert's
+            # eviction must never free the pages a match is using
+            for m in matches:
+                m.release()
+        return cache, logits, lens, cached
+
     def _prefill_over_cache(self, ids: List[List[int]], matches: List[Any],
                             all_logits: bool = False):
         """Gather cached pages + chunked-prefill the uncached suffixes.
-        Returns the suffix-only K/V for page-scattering; the gathered
-        prefix is a transient input, never per-row storage."""
+        The paged engine gets the suffix-only K/V for page-scattering (the
+        gathered prefix is a transient input, never per-row storage); the
+        dense engine gets ``max_seq`` slot rows with the prefix copied
+        in."""
         pc = self.prefix_cache
         page = pc.page_size
         suffix_lens = [len(s) - m.length for s, m in zip(ids, matches)]
@@ -524,7 +718,7 @@ class Engine:
             self.cfg, self.params, {"tokens": self._tensor(toks)},
             max_seq=self.max_seq, valid_len=self._tensor(vlen),
             prefix_k=kp, prefix_v=vp, prefix_len=self._tensor(plen),
-            paged=True, all_logits=all_logits)
+            paged=self.paged, all_logits=all_logits)
 
     def _prefill_rows_paged(self, ids: List[List[int]], lens: List[int],
                             limits: Optional[List[int]] = None,
@@ -663,11 +857,17 @@ class Engine:
         )
 
     # ------------------------------------------------------------------
-    def insert_row(self, state: PagedDecodeState, cache: Any,
-                   logits: torch.Tensor, row: int, slot: int) -> None:
-        """Install row ``row`` of a prefill result into ``slot``: the slot
-        takes ownership of the row's page table (allocated and refcounted
-        by ``prefill_rows``); only the logits move on the device."""
+    def insert_row(self, state: Any, cache: Any, logits: torch.Tensor,
+                   row: int, slot: int) -> None:
+        """Install row ``row`` of a prefill result into ``slot``.
+
+        Paged: the slot takes ownership of the row's page table (allocated
+        and refcounted by ``prefill_rows``); only the logits move on the
+        device.  Dense: the row's cache and logits are copied into the
+        slot, in place."""
+        if not self.paged:
+            self._insert_impl(state, cache, logits, row, slot)
+            return
         tables, lens = cache
         state.tables[slot] = tables[row]
         state.lens[slot] = lens[row]
@@ -676,28 +876,51 @@ class Engine:
         self._note_live_pages(state)
         state.logits[slot] = logits[row]
 
-    def decode_active(self, state: PagedDecodeState, tokens: np.ndarray,
-                      active: np.ndarray) -> None:
-        """One decode step over the batch; inactive rows are frozen.
+    def _insert_impl(self, state: DecodeState, cache: dict,
+                     logits: torch.Tensor, row: int, slot: int) -> None:
+        """Copy one prefilled dense row (cache ``(layers, B, max_seq, KV,
+        hd)``, ``len`` and logits) into ``slot`` of the decode state."""
+        dst = state.cache
+        for name in ("k", "v"):
+            dst[name][:, slot] = cache[name][:, row].to(dst[name].dtype)
+        dst["len"][slot] = cache["len"][row]
+        state.logits[slot] = logits[row]
 
-        Inactive rows' tables point at the dump page with ``len = 0``, so
-        a retired slot never writes a recycled page; a fresh page is
-        allocated host-side whenever an active row's next position
-        crosses a page boundary (copy-on-write should the tail page ever
-        be shared).  The table and lengths are copied to the device for
-        the step; the pool is appended in place."""
-        for s in np.nonzero(active)[0]:
-            self._extend_tail(state, int(s), 1)
-        self._note_live_pages(state)
-        cache = {
+    def _device_table_args(self, state: PagedDecodeState) -> dict:
+        """Paged decode/verify cache arguments from the incremental host
+        state.  ``lens`` and ``table_np`` are **copied** on handoff
+        (:meth:`_tensor`): the host mutates them (append, CoW, rollback,
+        slot release) while the device may still be reading."""
+        return {
             "len": self._tensor(state.lens),
             "pages": self._tensor(state.table_np),
             "k": self.pool.k, "v": self.pool.v,
         }
-        _, logits = decode_step(
-            self.cfg, self.params, cache,
-            self._tensor(np.asarray(tokens, np.int64)[:, None]),
-            active=self._tensor(np.asarray(active, bool)))
+
+    def decode_active(self, state: Any, tokens: np.ndarray,
+                      active: np.ndarray) -> None:
+        """One decode step over the batch; inactive rows are frozen.
+
+        Dense: inactive rows keep a frozen ``len`` (their writes are
+        overwritten at the next refill).  Paged: inactive rows' tables
+        point at the dump page with ``len = 0``, so a retired slot never
+        writes a recycled page; a fresh page is allocated host-side
+        whenever an active row's next position crosses a page boundary
+        (copy-on-write should the tail page ever be shared).  The table
+        and lengths are copied to the device for the step; the pool or
+        the cache rows are written in place."""
+        toks = self._tensor(np.asarray(tokens, np.int64)[:, None])
+        act = self._tensor(np.asarray(active, bool))
+        if not self.paged:
+            state.cache, state.logits = decode_step(
+                self.cfg, self.params, state.cache, toks, active=act)
+            return
+        for s in np.nonzero(active)[0]:
+            self._extend_tail(state, int(s), 1)
+        self._note_live_pages(state)
+        _, logits = decode_step(self.cfg, self.params,
+                                self._device_table_args(state), toks,
+                                active=act)
         state.logits = logits
         state.lens[np.asarray(active, bool)] += 1
 
@@ -717,6 +940,72 @@ class Engine:
         while len(t) < need:
             t.append(self._alloc_pages(1)[0])
             state.table_np[s, len(t) - 1] = t[-1]
+
+    # ------------------------------------------------------------------
+    # Self-speculative decoding
+    # ------------------------------------------------------------------
+    def propose(self, ctx: bytes, k: int) -> List[int]:
+        """N-gram draft for one slot's packed token-id context."""
+        max_n, min_n = self.spec_ngram
+        return propose_draft(ctx, min(k, self.spec_k),
+                             max_ngram=max_n, min_ngram=min_n)
+
+    def verify_active(self, state: Any, tokens: np.ndarray,
+                      n_tokens: np.ndarray,
+                      active: np.ndarray) -> torch.Tensor:
+        """Score each active row's speculative window in ONE model pass.
+
+        ``tokens`` (slots, spec_k+1): the greedy token plus the n-gram
+        draft, padded; ``n_tokens`` (slots,): the real window length per
+        row.  Returns the ``(slots, spec_k+1, vocab)`` logits:
+        ``logits[s, j]`` is the next-token distribution after row ``s``
+        consumed window tokens ``0..j``.  Nothing is committed:
+        :meth:`commit_spec` advances lengths by the accepted counts and
+        rolls back the speculative pages.  On the paged engine each active
+        row's pages are first extended over its window (copy-on-write
+        guard included)."""
+        toks = self._tensor(np.asarray(tokens, np.int64))
+        if not self.paged:
+            state.cache, logits = verify_step(self.cfg, self.params,
+                                              state.cache, toks)
+            return logits
+        for s in np.nonzero(active)[0]:
+            self._extend_tail(state, int(s), int(n_tokens[s]))
+        self._note_live_pages(state)
+        _, logits = verify_step(self.cfg, self.params,
+                                self._device_table_args(state), toks)
+        return logits
+
+    def commit_spec(self, state: Any, logits: torch.Tensor,
+                    counts: np.ndarray, alive: np.ndarray) -> None:
+        """Commit a verification's accepted prefixes.
+
+        ``counts`` (slots,): tokens consumed into each row's context this
+        step (1 + accepted drafts; 0 for rows that were inactive or
+        retired mid-window — their slot release already dropped their
+        pages).  Each row keeps the logits of its last accepted window
+        position, its length advances by its count, and on the paged
+        engine the pages of the rejected tail are **rolled back**
+        (decref'd, their ``table_np`` cells reset to the dump page) so a
+        rejected draft never pins pool capacity."""
+        sel = self._tensor(np.maximum(np.asarray(counts) - 1, 0)
+                           .astype(np.int64))
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        state.logits = logits[rows, sel]
+        if not self.paged:
+            state.cache["len"] = state.cache["len"] + self._tensor(
+                np.asarray(counts, np.int32))
+            return
+        pg = self.page_size
+        for s in np.nonzero(alive)[0]:
+            state.lens[s] += counts[s]
+            t = state.tables[s]
+            keep = -(-int(state.lens[s]) // pg)  # pages holding valid tokens
+            if len(t) > keep:
+                dropped = t[keep:]
+                del t[keep:]
+                state.table_np[s, keep:keep + len(dropped)] = self._dump
+                self.pool.decref(dropped)
 
     # ------------------------------------------------------------------
     # Convenience facade

@@ -30,11 +30,13 @@ The synchronous drive model: every call to :meth:`step` performs one
 refill+decode round; :meth:`as_completed` / :meth:`drain` / :meth:`result`
 loop over :meth:`step` until the requests a caller cares about resolve.
 
-Ported from ``repro.serve.executor`` for the paged engine of
-:mod:`repro_torch.serve.engine`, prefill-only score requests included
-(:meth:`~ContinuousBatchingExecutor.submit_score`).  Left out until their
-engine paths are ported: speculative steps (ROADMAP.md queue A item 7)
-and the fault-injection wrapping of the cluster slice (item 9).
+Ported from ``repro.serve.executor`` for the paged and dense engines of
+:mod:`repro_torch.serve.engine`, with prefill-only score requests
+(:meth:`~ContinuousBatchingExecutor.submit_score`) and self-speculative
+steps (an engine with ``spec_decode`` on drafts, verifies every window
+in one pass, and a verify pass counts as one decode step).  Left out
+until its slice is ported: the fault-injection wrapping of the cluster
+tier (ROADMAP.md queue A item 9).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import random
 from collections import deque
-from typing import Deque, Dict, Iterable, Iterator, List, Optional
+from typing import Any, Deque, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -51,7 +53,7 @@ from repro_torch.core.oracle import SystemClock
 from repro_torch.obs.metrics import COUNT_BOUNDS, MetricsRegistry
 from repro_torch.obs.trace import adopt_clock, recorder_from_env
 from repro_torch.serve.engine import (
-    Engine, GenResult, PagedDecodeState, StopMatcher,
+    Engine, GenResult, StopMatcher, pack_id, pack_ids,
 )
 
 QUEUED, ACTIVE, FINISHED, CANCELLED = "queued", "active", "finished", "cancelled"
@@ -99,6 +101,12 @@ class ServeHandle:
     #: (prefill_rows itself can raise after the handle went ACTIVE)
     _prefill_counted: bool = False
     _out_ids: List[int] = dataclasses.field(default_factory=list)
+    # speculative decoding: packed prompt+generated token ids the n-gram
+    # proposer scans, and per-request draft counters
+    _spec_ctx: Optional[bytearray] = dataclasses.field(
+        default=None, repr=False)
+    _drafted: int = 0
+    _accepted: int = 0
     _matcher: Optional[StopMatcher] = None
     _forced: Optional[List[int]] = None
     # latency observability (DESIGN.md §17): timestamps on the executor's
@@ -126,6 +134,12 @@ class ExecutorStats:
     #: radix prefix cache (the prefix-cache benchmark reads these)
     prefill_tokens_computed: int = 0
     prefill_tokens_cached: int = 0
+    #: speculative decoding: draft tokens submitted to verification vs
+    #: accepted.  Accepted drafts are ordinary generated tokens (counted
+    #: there too); a verify pass counts as ONE decode step — decode_steps
+    #: is the number of model passes either way
+    drafted_tokens: int = 0
+    accepted_draft_tokens: int = 0
     #: robustness counters (DESIGN.md §16): failed steps retried after
     #: backoff, total backoff slept (seconds on the executor's clock —
     #: a float, summed exactly like every other field by merge), and
@@ -220,7 +234,8 @@ class ContinuousBatchingExecutor:
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._queue: Deque[ServeHandle] = deque()
         self._slots: List[Optional[ServeHandle]] = [None] * engine.slots
-        self._state: Optional[PagedDecodeState] = None
+        #: the engine's decode state (paged or dense), built lazily
+        self._state: Optional[Any] = None
         self._used = 0  # Eq. (1): prompt+reserved-completion tokens in flight
         self._used_pages = 0  # paged engine: KV pages reserved in flight
         self._queued_tokens = 0  # same reservation, for still-queued work
@@ -357,6 +372,8 @@ class ContinuousBatchingExecutor:
             self._free_slot(handle)
             # its tokens never reach a result — keep throughput stats exact
             self.stats.generated_tokens -= handle._emitted
+            self.stats.drafted_tokens -= handle._drafted
+            self.stats.accepted_draft_tokens -= handle._accepted
             if handle._prefill_counted:
                 self.stats.prefill_tokens_computed -= (
                     handle.prompt_tokens - handle._cached_prompt)
@@ -479,6 +496,8 @@ class ContinuousBatchingExecutor:
         """Emit one (non-EOS) token: record it, scan the stop matcher,
         enforce the budget.  Returns False iff the request retired."""
         h._out_ids.append(tok)
+        if h._spec_ctx is not None:
+            h._spec_ctx += pack_id(tok)
         h._emitted += 1
         self.stats.generated_tokens += 1
         now = self.clock.now()
@@ -502,6 +521,8 @@ class ContinuousBatchingExecutor:
         occupied = [(s, h) for s, h in enumerate(self._slots) if h is not None]
         if not occupied or self._state is None:
             return finished
+        if self.engine.spec_decode:
+            return self._spec_step(occupied, finished)
         # argmax + device→host sync only when some row actually samples
         # (teacher-forced rows know their next token without the logits)
         nxt = None
@@ -528,6 +549,84 @@ class ContinuousBatchingExecutor:
                 self.trace.complete("decode_step", "executor", t0,
                                     pid=self.trace_pid,
                                     rows=int(active.sum()))
+        return finished
+
+    def _spec_step(self, occupied, finished: List[ServeHandle]
+                   ) -> List[ServeHandle]:
+        """One speculative round: emit each row's greedy token, draft a
+        continuation by prompt n-gram lookup, verify all windows in ONE
+        model pass, then emit the longest accepted prefix per row —
+        scanning stop strings and budgets over accepted tokens only, in
+        order, exactly as sequential decode would."""
+        eng = self.engine
+        Kp = eng.spec_k + 1
+        nxt = None
+        if any(h._forced is None for _, h in occupied):
+            nxt = torch.argmax(self._state.logits, dim=-1).to(
+                torch.int32).cpu().numpy()
+        tokens = np.zeros((eng.slots, Kp), np.int32)
+        n_tok = np.zeros(eng.slots, np.int32)
+        active = np.zeros(eng.slots, bool)
+        eos = eng.tokenizer.eos_id
+        for slot, h in occupied:
+            tok = self._next_token(h, nxt, slot, eos)
+            if tok == eos:
+                self._retire(h, "stop", finished)
+                continue
+            if not self._emit(h, tok, finished):
+                continue
+            # draft at most the remaining budget: tokens past it could
+            # never be emitted, so verifying them is pure waste
+            draft = eng.propose(h._spec_ctx, h._budget - h._emitted)
+            h._drafted += len(draft)
+            self.stats.drafted_tokens += len(draft)
+            tokens[slot, 0] = tok
+            tokens[slot, 1:1 + len(draft)] = draft
+            n_tok[slot] = 1 + len(draft)
+            active[slot] = True
+        if not active.any():
+            return finished
+        t0 = self.trace.now() if self.trace else 0.0
+        vlogits = eng.verify_active(self._state, tokens, n_tok, active)
+        self.stats.decode_steps += 1  # one model pass, however many tokens
+        if self.trace:
+            self.trace.complete("spec_verify", "executor", t0,
+                                pid=self.trace_pid,
+                                rows=int(active.sum()),
+                                drafted=int(n_tok.sum() - active.sum()))
+        nxt2 = None
+        if any(active[s] and h._forced is None for s, h in occupied):
+            nxt2 = torch.argmax(vlogits, dim=-1).to(torch.int32).cpu().numpy()
+        counts = np.zeros(eng.slots, np.int32)
+        alive = np.zeros(eng.slots, bool)
+        for slot, h in occupied:
+            if not active[slot]:
+                continue
+            accepted = 0
+            for j in range(1, int(n_tok[slot])):
+                # the true greedy continuation after window tokens 0..j-1
+                # (for teacher-forced rows, the next forced token)
+                if h._forced is not None:
+                    exp = (h._forced[h._emitted]
+                           if h._emitted < len(h._forced) else eos)
+                else:
+                    exp = int(nxt2[slot, j - 1])
+                if int(tokens[slot, j]) != exp:
+                    break  # first mismatch rejects the rest of the draft
+                if exp == eos:
+                    self._retire(h, "stop", finished)
+                    break
+                accepted += 1
+                h._accepted += 1
+                self.stats.accepted_draft_tokens += 1
+                if not self._emit(h, exp, finished):
+                    break  # stop/budget mid-window: the tail is dropped
+            if h.status == ACTIVE:
+                counts[slot] = 1 + accepted
+                alive[slot] = True
+            # retired rows keep counts == 0: their slot release already
+            # dropped every page, speculative tail included
+        eng.commit_spec(self._state, vlogits, counts, alive)
         return finished
 
     def as_completed(
@@ -624,6 +723,8 @@ class ContinuousBatchingExecutor:
             completion_tokens=len(h._out_ids),
             finish_reason=reason,
             cached_prompt_tokens=h._cached_prompt,
+            drafted_tokens=h._drafted,
+            accepted_draft_tokens=h._accepted,
         )
         h.status = FINISHED
         self._free_slot(h)
@@ -723,6 +824,12 @@ class ContinuousBatchingExecutor:
                 tok.encode(h.expected, bos=False) + [tok.eos_id]
                 if h.expected is not None else None
             )
+            h._drafted = 0
+            h._accepted = 0
+            # the n-gram proposer's lookup corpus: the prompt's token ids
+            # (grown by every emitted token) — spec-decode engines only
+            h._spec_ctx = (pack_ids(tok.encode(h.prompt))
+                           if self.engine.spec_decode else None)
             if h._budget <= 0:  # prompt alone fills the context window
                 self._retire(h, "length", finished)
 
@@ -825,6 +932,8 @@ class ContinuousBatchingExecutor:
             # tokens from the aborted attempt will be re-generated — back
             # them out so throughput stats never double-count
             self.stats.generated_tokens -= h._emitted
+            self.stats.drafted_tokens -= h._drafted
+            self.stats.accepted_draft_tokens -= h._accepted
             if h._prefill_counted:
                 self.stats.prefill_tokens_computed -= (
                     h.prompt_tokens - h._cached_prompt)
@@ -833,6 +942,9 @@ class ContinuousBatchingExecutor:
             h._out_ids = []
             h._emitted = 0
             h._cached_prompt = 0
+            h._drafted = 0
+            h._accepted = 0
+            h._spec_ctx = None
             # latency state is per-attempt, like the token counters it
             # conserves against: the successful attempt defines TTFT/gaps
             h._first_tok_ts = 0.0

@@ -10,7 +10,10 @@ Tolerances are those of ``tests/test_kernels.py``: 2e-5 at fp32 (with
 TF32 off, so the plain versions' matmuls stay IEEE fp32) and 2e-2 at
 bf16, where both sides round one fp32 result to bf16.  The top-k kernel
 and its plain version take the same rounded products and sums in the
-same order, so they agree bit for bit.
+same order, so they agree bit for bit.  Two contracts hold bit for bit
+between kernels: every window row ``j`` of the speculative-verify kernel
+equals the paged decode kernel at ``cache_len + j + 1``, and the dense
+decode kernel equals the paged one on the same data.
 """
 
 import pytest
@@ -114,6 +117,81 @@ def test_paged_decode_kernel_on_card(cuda, dtype, B, H, KV, hd, page,
         ops.paged_decode_attention(q, kp, vp, dead, clen), out, rtol=0, atol=0)
 
 
+def _pool(g, dtype, B, H, KV, hd, page, n_slots):
+    n_pages = B * n_slots + 1
+    kp = _randn(g, dtype, n_pages, page, KV, hd)
+    vp = _randn(g, dtype, n_pages, page, KV, hd)
+    table = torch.randperm(n_pages, generator=g, device=g.device)
+    return kp, vp, table[: B * n_slots].reshape(B, n_slots).to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,H,KV,hd,page,n_slots", [
+    (4, 1, 32, 8, 64, 16, 64), (4, 9, 32, 8, 64, 16, 64),
+    (4, 13, 32, 8, 64, 16, 96), (2, 5, 4, 1, 128, 16, 8),
+    (3, 32, 4, 1, 16, 8, 6)])
+def test_spec_verify_kernel_on_card(cuda, dtype, B, K, H, KV, hd, page,
+                                    n_slots):
+    """Against the plain version; every row ``j`` against the paged decode
+    kernel at ``cache_len + j + 1`` bit for bit; table slots past the
+    window (dump page, out-of-range ids) never read."""
+    g = torch.Generator(cuda).manual_seed(K * n_slots)
+    q = _randn(g, dtype, B, K, H, hd)
+    kp, vp, table = _pool(g, dtype, B, H, KV, hd, page, n_slots)
+    cap = n_slots * page
+    clen = torch.tensor([cap - K, 0, page - 1, cap - 1][:B], device=cuda)
+    before = ops.spec_verify_attention.launches
+    out = ops.spec_verify_attention(q, kp, vp, table, clen)
+    torch.cuda.synchronize()
+    assert ops.spec_verify_attention.launches == before + 1
+    torch.testing.assert_close(
+        out.float(),
+        L.spec_verify_attention_paged(q, kp, vp, table, clen).float(),
+        **_tol(dtype))
+    for j in range(K):
+        dec = ops.paged_decode_attention(q[:, j:j + 1].contiguous(), kp, vp,
+                                         table, clen + j + 1)
+        torch.testing.assert_close(out[:, j:j + 1], dec, rtol=0, atol=0)
+    dead = table.clone()
+    for b, n in enumerate(clen.tolist()):
+        dead[b, -(-(n + K) // page):] = -3 if b % 2 else 10 ** 6
+    torch.testing.assert_close(
+        ops.spec_verify_attention(q, kp, vp, dead, clen), out, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,hd,Skv", [
+    (4, 32, 8, 64, 1024), (2, 4, 1, 128, 128), (3, 8, 2, 16, 96)])
+def test_dense_decode_kernel_on_card(cuda, dtype, B, H, KV, hd, Skv):
+    """Against the plain version, and bit for bit against the paged decode
+    kernel on the same rows laid out as pages."""
+    g = torch.Generator(cuda).manual_seed(Skv)
+    q = _randn(g, dtype, B, 1, H, hd)
+    kp, vp, table = _pool(g, dtype, B, H, KV, hd, 16, Skv // 16)
+    kc, vc = (p[table.long()].reshape(B, Skv, KV, hd).contiguous()
+              for p in (kp, vp))
+    clen = torch.tensor([Skv, 1, Skv // 2 + 3, 17][:B], device=cuda)
+    before = ops.decode_attention.launches
+    out = ops.decode_attention(q, kc, vc, clen)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    torch.testing.assert_close(
+        out.float(), L.decode_attention(q, kc, vc, clen).float(),
+        **_tol(dtype))
+    torch.testing.assert_close(
+        ops.paged_decode_attention(q, kp, vp, table, clen), out, rtol=0,
+        atol=0)
+
+
+def test_spec_verify_kernel_rejects_too_many_rows(cuda):
+    q = torch.zeros(1, 33, 8, 16, device=cuda)      # 33 x 4 = 132 rows
+    pool = torch.zeros(4, 16, 2, 16, device=cuda)
+    table = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="cap of 128"):
+        ops.spec_verify_attention(q, pool, pool, table,
+                                  torch.zeros(1, device=cuda))
+
+
 @pytest.mark.parametrize("M,N,D,k,inputs", [
     (257, 259, 8, 16, "lattice"), (1, 7, 8, 4, "lattice"),
     (33, 25, 8, 25, "ties"), (31, 29, 16, 1000, "lattice"),
@@ -156,10 +234,14 @@ def test_kernels_reject_unsupported_head_dim(cuda):
         ops.flash_attention(q, kv, kv)
 
 
-def test_engine_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("paged,spec", [(True, False), (True, True),
+                                        (False, False), (False, True)],
+                         ids=["paged", "paged-spec", "dense", "dense-spec"])
+def test_engine_on_card_matches_cpu(cuda, paged, spec):
     """The smoke engine on the card (fp32, the CUDA kernels) decodes the
     same greedy tokens as on the CPU (the plain versions), radix-cache
-    hits included, and every attention kernel launched."""
+    hits included, paged and dense, speculation off and on; the kernels
+    of that engine launched."""
     cfg = get_smoke_config("granite-3-2b")
     cpu_params = init_params(model_specs(cfg),
                              torch.Generator("cpu").manual_seed(0),
@@ -169,14 +251,19 @@ def test_engine_on_card_matches_cpu(cuda):
     texts = {}
     for dev in ("cpu", "cuda"):
         eng = Engine(cfg, _to(cpu_params, dev), ByteTokenizer(cfg.vocab_size),
-                     max_seq=256, slots=2)
+                     max_seq=256, slots=2, paged=paged, spec_decode=spec)
         ops.reset_launch_counts()
         texts[dev] = [r.text for r in eng.generate(prompts + prompts,
                                                    max_tokens=12)]
         if dev == "cuda":
             torch.cuda.synchronize()
             counts = ops.launch_counts()
-            assert all(counts[k.name] > 0 for k in ops.KERNELS[:3]), counts
+            attend = ("decode_attention" if not paged
+                      else "spec_verify_attention" if spec
+                      else "paged_decode_attention")
+            assert counts["flash_attention"] > 0, counts
+            assert counts["chunked_prefill_attention"] > 0, counts
+            assert counts[attend] > 0, counts
     assert texts["cuda"] == texts["cpu"]
 
 

@@ -14,7 +14,9 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref
+from repro.models import layers as jlayers
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 
 TOL = {np.float32: dict(rtol=2e-5, atol=2e-5)}   # tests/test_kernels.py:13
 
@@ -138,6 +140,119 @@ def test_paged_decode_clamps_ids_and_skips_dead_slots():
     np.testing.assert_array_equal(
         _np(ops.paged_decode_attention(q, kp, vp, good, clen)),
         _np(ops.paged_decode_attention(q, kp, vp, bad, clen)))
+
+
+@pytest.mark.parametrize("B,Skv,H,KV,hd", [
+    (1, 32, 2, 2, 16), (2, 64, 4, 2, 32), (3, 48, 8, 2, 16),
+    (2, 128, 4, 1, 64)])                  # tests/test_kernels.py:109-112
+def test_decode_plain_matches_ref_and_pallas(B, Skv, H, KV, hd):
+    rng = np.random.default_rng(Skv * H)
+    q = _rand(rng, B, 1, H, hd)
+    kc, vc = _rand(rng, B, Skv, KV, hd), _rand(rng, B, Skv, KV, hd)
+    clen = rng.integers(1, Skv + 1, B).astype(np.int32)
+    before = ops.decode_attention.launches
+    out = _np(ops.decode_attention(
+        *map(torch.from_numpy, (q, kc, vc, clen))))
+    assert ops.decode_attention.launches == before  # CPU: plain version
+    jin = [jnp.asarray(a) for a in (q, kc, vc, clen)]
+    np.testing.assert_allclose(out, _np(ref.decode_attention_ref(*jin)),
+                               **TOL[np.float32])
+    np.testing.assert_allclose(out, _np(jops.decode_attention(*jin)),
+                               **TOL[np.float32])
+
+
+def _verify_inputs(B, K, H, KV, hd, page, n_slots):
+    """The sweep inputs of tests/test_kernels.py:184-230: a permuted page
+    table and three sets of lengths (windows across a page boundary,
+    ragged including 0, the table fully valid)."""
+    n_pages = B * n_slots + 3
+    rng = np.random.default_rng(B * page + K)
+    q = _rand(rng, B, K, H, hd)
+    kp, vp = _rand(rng, n_pages, page, KV, hd), _rand(rng, n_pages, page,
+                                                      KV, hd)
+    table = rng.permutation(n_pages)[: B * n_slots].reshape(B, n_slots)
+    hi = n_slots * page - K
+    straddle = [max(page - 1, 0), max(page - K // 2, 1), 2 * page - 1][:B]
+    lens = [(straddle * B)[:B], list(rng.integers(0, hi + 1, B)), [hi] * B]
+    return (q, kp, vp, table.astype(np.int32),
+            [np.asarray(n, np.int32) for n in lens])
+
+
+VERIFY_SWEEP = pytest.mark.parametrize("B,K,H,KV,hd,page,n_slots", [
+    (2, 4, 4, 2, 16, 8, 6),    # GQA 2:1
+    (1, 6, 2, 2, 16, 4, 8),    # MHA, window longer than a page
+    (3, 3, 8, 2, 16, 8, 6),    # GQA 4:1
+    (2, 5, 4, 1, 64, 16, 4),   # MQA, big head_dim
+])
+
+
+@VERIFY_SWEEP
+def test_spec_verify_plain_matches_ref_and_jax(B, K, H, KV, hd, page,
+                                               n_slots):
+    """The plain paged verify against ``ref.spec_verify_attention_ref``,
+    the JAX package's XLA loop and its Pallas kernel (interpret mode);
+    the plain dense verify against the JAX dense loop on the same rows
+    laid out contiguously."""
+    q, kp, vp, table, lens = _verify_inputs(B, K, H, KV, hd, page, n_slots)
+    for clen in lens:
+        before = ops.spec_verify_attention.launches
+        out = _np(ops.spec_verify_attention(
+            *map(torch.from_numpy, (q, kp, vp, table, clen))))
+        assert ops.spec_verify_attention.launches == before
+        jin = [jnp.asarray(a) for a in (q, kp, vp, table, clen)]
+        np.testing.assert_allclose(
+            out, _np(ref.spec_verify_attention_ref(*jin)), **TOL[np.float32])
+        np.testing.assert_allclose(
+            out, _np(jlayers.spec_verify_attention_paged(*jin)),
+            **TOL[np.float32])
+        np.testing.assert_allclose(
+            out, _np(jops.spec_verify_attention(*jin)), **TOL[np.float32])
+        kc = kp[table].reshape(B, n_slots * page, KV, hd)
+        vc = vp[table].reshape(B, n_slots * page, KV, hd)
+        dense = _np(L.spec_verify_attention(
+            *map(torch.from_numpy, (q, kc, vc, clen))))
+        np.testing.assert_allclose(
+            dense, _np(jlayers.spec_verify_attention(
+                jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                jnp.asarray(clen))), **TOL[np.float32])
+        np.testing.assert_array_equal(dense, out)   # paged == dense, bits
+
+
+@VERIFY_SWEEP
+def test_spec_verify_rows_equal_paged_decode_bitwise(B, K, H, KV, hd, page,
+                                                     n_slots):
+    """Every window row ``j`` of the plain verify is the plain paged
+    decode at ``cache_len + j + 1`` bit for bit (the greedy-parity
+    contract the kernel is held to on the card), and K = 1 is paged
+    decode at ``cache_len + 1``."""
+    q, kp, vp, table, lens = _verify_inputs(B, K, H, KV, hd, page, n_slots)
+    q, kp, vp, table = map(torch.from_numpy, (q, kp, vp, table))
+    for clen in map(torch.from_numpy, lens):
+        out = ops.spec_verify_attention(q, kp, vp, table, clen)
+        for j in range(K):
+            dec = ops.paged_decode_attention(q[:, j:j + 1].contiguous(), kp,
+                                             vp, table, clen + j + 1)
+            assert torch.equal(out[:, j:j + 1], dec), j
+        one = ops.spec_verify_attention(q[:, :1].contiguous(), kp, vp, table,
+                                        clen)
+        assert torch.equal(one, ops.paged_decode_attention(
+            q[:, :1].contiguous(), kp, vp, table, clen + 1))
+
+
+def test_dense_decode_equals_paged_decode_bitwise():
+    """On a page table laid out contiguously the plain dense decode gives
+    the plain paged decode's bits (the REPRO_PAGED_KV=0/1 contract)."""
+    rng = np.random.default_rng(11)
+    B, H, KV, hd, page, n_slots = 3, 8, 2, 16, 8, 5
+    Skv = page * n_slots
+    q = torch.from_numpy(_rand(rng, B, 1, H, hd))
+    kc, vc = (torch.from_numpy(_rand(rng, B, Skv, KV, hd)) for _ in range(2))
+    clen = torch.tensor([page + 3, Skv, 1], dtype=torch.int32)
+    table = torch.arange(B * n_slots, dtype=torch.int32).reshape(B, n_slots)
+    paged = ops.paged_decode_attention(
+        q, kc.reshape(B * n_slots, page, KV, hd),
+        vc.reshape(B * n_slots, page, KV, hd), table, clen)
+    assert torch.equal(ops.decode_attention(q, kc, vc, clen), paged)
 
 
 def test_wrappers_reject_mixed_devices():
