@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
 
-The port has six CUDA kernels on four paths: the three attention kernels
-of the paged engine (flash, chunked prefill, paged decode) carry the
-block and adaptive joins; flash, chunked prefill and the top-k
-similarity kernel carry the prefilter path (embedding, candidates,
-scored verification); speculative decoding verifies its windows with
-``spec_verify_attention``; the dense-KV engine decodes (and verifies)
-with ``decode_attention``.
+The port has eight CUDA kernels, seven of them on five paths: the three
+attention kernels of the paged engine (flash, chunked prefill, paged
+decode) carry the block and adaptive joins; flash, chunked prefill and
+the top-k similarity kernel carry the prefilter path (embedding,
+candidates, scored verification); speculative decoding verifies its
+windows with ``spec_verify_attention``; the dense-KV engine decodes (and
+verifies) with ``decode_attention``; the ssm family (mamba2-130m) runs
+``ssd_scan`` in every prefill, scoring and encode pass.  ``rmsnorm`` is
+on no model path (nor is its Pallas twin in the JAX package): it is held
+against its plain version and timed at the port's norm shapes.
 
 Phases, in order; any failure ends the run with a non-zero exit code and
 no result line:
@@ -24,11 +27,16 @@ no result line:
    the paged decode kernel at its length, and dense decode against paged
    decode on the same data, bit for bit; top-k in fp32 over the sweep of
    ``tests/test_kernels.py`` (lattice inputs bit for bit, ties, k >= N,
-   Gaussian inputs to 1e-6, k up to 2048);
-3. small inputs against a reference: the smoke engine (paged and dense,
-   speculation off and on) decodes the same greedy tokens on the card as
-   on the CPU, and the full-width model cut to two layers gives the same
-   logits through the kernels as through the plain versions (fp32);
+   Gaussian inputs to 1e-6, k up to 2048); ``ssd_scan`` at mamba2-130m's
+   main shape (B 4, S 1024, H 24, P 64, N 128, chunk 256), at a bucket of
+   128 and over the sweep of ``tests/test_kernels.py`` (2e-4 fp32, 5e-2
+   bf16, its tolerances); ``rmsnorm`` at the port's norm shapes (2e-5
+   fp32, 2e-2 bf16);
+3. small inputs against a reference: the granite smoke engine (paged and
+   dense, speculation off and on) and the mamba2 smoke engine decode the
+   same greedy tokens on the card as on the CPU, and the full-width
+   models cut to two layers give the same logits through the kernels as
+   through the plain versions (fp32);
 4. the block + adaptive path: full-width granite-3-2b in bf16 (random
    weights from ``--seed``) behind ``Engine(max_seq=1024, slots=4)``, the
    block join (4 x 4) and the adaptive join on the ads scenario through
@@ -50,8 +58,8 @@ no result line:
    fresh engine with ``spec_decode=True``: phase 4's pairs, F1 1.00,
    fewer decode steps, the JAX engine's counts, the verify kernel
    launched; (ii) the match-dense block join of
-   ``benchmarks/spec_decode.py`` spec off then on: the same pairs and
-   token ids, the JAX engine's 553 and 228 decode steps; (iii) a K = 9
+   ``benchmarks/spec_decode.py`` spec off then on, on the first
+   ``MATCH_DENSE_LAYERS`` layers: the same pairs and token ids, the JAX engine's 553 and 228 decode steps; (iii) a K = 9
    verify pass against 9 decode steps at full width (fp32 held to 2e-2;
    bf16 printed beside the floor of GEMM-row rounding), and greedy tokens
    spec on against off (printed);
@@ -59,12 +67,24 @@ no result line:
    and on: the paged engine's pairs, calls, prompt and completion tokens
    and decode steps, the JAX dense engine's counts, ``decode_attention``
    launched and no paged kernel;
-8. every kernel against its plain version again at each shape the paths
+8. the ssm path: full-width mamba2-130m in bf16 (random weights from
+   ``--seed``) behind ``Engine(max_seq=1024, slots=4)``, which gates
+   paging, the prefix cache and speculation off: (a) the ads block and
+   adaptive joins (F1 1.00, no cached tokens, the JAX engine's counts);
+   (b) the scored ads tuple join (F1 1.00, zero decode steps); (c) the
+   cross-engine cascade of ``benchmarks/logit_score.py`` part C (12 x 12
+   rows, threshold 0.5, ``max_seq`` 128, 4 slots; mamba2 with a noisy
+   oracle as the small tier, phase 4's granite weights behind a fresh
+   engine as the large one), held to the JAX engines' F1, escalations,
+   passes and scored tokens.  ``ssd_scan`` must launch 24 times per
+   mamba2 pass and no attention kernel on the mamba2 engine;
+9. every kernel against its plain version again at each shape the paths
    gave it; then each kernel's time (CUDA events, inputs rotated past the
    50 MB L2) at its path's most frequent shape, beside its plain version,
    one PyTorch call as a yardstick (timed here, never called by the
-   port: ``scaled_dot_product_attention``, with a mask where needed, or
-   ``torch.topk(e1 @ e2.T, k)``) and its bound from bytes and operations.
+   port: ``scaled_dot_product_attention``, with a mask where needed,
+   ``torch.topk(e1 @ e2.T, k)``, ``torch.nn.functional.rms_norm``; none
+   for the scan) and its bound from bytes and operations.
    ``--profile`` adds one block join and prefilter leg (b) under
    ``torch.profiler`` (device busy share, device time by kernel).
 
@@ -106,11 +126,28 @@ ATTENTION = ("flash_attention", "chunked_prefill_attention",
              "paged_decode_attention")
 #: the path each kernel's launches and time are reported for
 HOME_PATH = {"topk_similarity": "prefilter", "spec_verify_attention": "spec",
-             "decode_attention": "dense"}
+             "decode_attention": "dense", "ssd_scan": "ssm", "rmsnorm": "ssm"}
+#: mamba2-130m at full width at the largest bucket: the scan's main shape
+SSD_MAIN = dict(B=4, S=1024, H=24, P=64, N=128, chunk=256)
+SSD_TOL = {torch.float32: (2e-4, 2e-4),             # tests/test_kernels.py
+           torch.bfloat16: (5e-2, 5e-2)}            # :285-286
+SSD_SWEEP = [(1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16),
+             (1, 48, 4, 8, 16, 12)]                 # tests/test_kernels.py:277
+#: the port's norm shapes: mamba2 prefill (4 x 1024 rows) and decode, its
+#: gate norm at decode, granite at decode
+NORM_SHAPES = [(4096, 768), (4, 768), (4, 1536), (4, 2048)]
+#: benchmarks/logit_score.py part C: the cross-engine cascade
+CASCADE = dict(rows=12, threshold=0.5, max_seq=128, slots=4, fn_rate=0.2,
+               fp_rate=0.2, noise_seed=17)
 #: the match-dense block join of benchmarks/spec_decode.py, rebuilt here
 #: from its parameters: every left row matches half of the right rows
 MATCH_DENSE = dict(left_rows=24, right_rows=32, b1=12, b2=16, max_seq=1536,
                    slots=4, spec_k=12)
+#: granite layers the match-dense join runs on.  At all 40 it took 47.0 s
+#: of a 371.9 s script on one H100 host, over the 6 minutes the script
+#: keeps to; its counts are teacher-forced, so depth does not move them,
+#: and its walls are per depth.  No other leg is cut.
+MATCH_DENSE_LAYERS = 20
 
 # Counts of the teacher-forced workloads.  With the rule oracle forcing
 # every answer, decode steps, drafted and accepted tokens and the Ledger's
@@ -167,13 +204,43 @@ EXPECTED = {
                                   generated_tokens=2216, decode_steps=228,
                                   drafted_tokens=8432,
                                   accepted_draft_tokens=1304),
+    # the ssm path (phase 8, mamba2-130m smoke config): no prefix cache, so
+    # no cached tokens, and the adaptive join plans its batches for an
+    # engine without one (its ``prefix_cached`` objective off): 28 calls
+    # where granite's takes 60
+    ("ssm", "base"): dict(
+        block=dict(calls=16, prompt_tokens=14016, cached_prompt_tokens=0,
+                   completion_tokens=208, decode_steps=54, drafted_tokens=0,
+                   accepted_draft_tokens=0, prefill_batches=9),
+        adaptive=dict(calls=28, prompt_tokens=26136, cached_prompt_tokens=0,
+                      completion_tokens=361, decode_steps=90,
+                      drafted_tokens=0, accepted_draft_tokens=0,
+                      prefill_batches=12)),
+    # (b) the scored ads tuple join: 256 calls, 512 score rows, 4 a pass
+    ("ssm", "tuple"): dict(calls=256, prompt_tokens=126720,
+                           cached_prompt_tokens=0, scored_tokens=1280,
+                           completion_tokens=0, decode_steps=0,
+                           prefill_batches=128),
+    # (c) the cross-engine cascade (benchmarks/BENCH_logit_score.json's
+    # cross_engine records the same)
+    ("ssm", "cascade"): dict(f1=1.0, escalated=28, pairs=144,
+                             small_model_passes=72, large_model_passes=14,
+                             small_scored_tokens=720, large_scored_tokens=140,
+                             small_decode_steps=0, large_decode_steps=0),
 }
 TOPK_SHAPES = [(16, 16, 8), (32, 48, 16), (64, 30, 32), (17, 13, 8),
                (31, 29, 16), (97, 101, 24), (257, 259, 8), (5, 3, 4),
                (1, 7, 8)]                  # tests/test_kernels.py:345-349
 
 
+_T_PHASE = [time.perf_counter()]
+
+
 def log(msg: str = "") -> None:
+    if msg.startswith("== phase"):   # the seconds of the phase that ended
+        now = time.perf_counter()
+        print(f"  ({now - _T_PHASE[0]:.1f} s)", flush=True)
+        _T_PHASE[0] = now
     print(msg, flush=True)
 
 
@@ -197,9 +264,9 @@ class Checks:
         self.max_err = {}    # kernel name -> worst bf16 error at main shapes
 
     def compare(self, name, label, out, ref, dtype, main=False,
-                exact=False):
+                exact=False, tol=TOL):
         err = (out.float() - ref.float()).abs()
-        rtol, atol = (0.0, 0.0) if exact else TOL[dtype]
+        rtol, atol = (0.0, 0.0) if exact else tol[dtype]
         bad = ~(err <= atol + rtol * ref.float().abs())
         max_err = float(err.max()) if err.numel() else 0.0
         ok = bool(torch.isfinite(out.float()).all()) and not bool(bad.any())
@@ -370,9 +437,42 @@ def check_kernels(ops, L, dev) -> Checks:
                       ops.paged_decode_attention(q, kp, vp, dead, clen), out,
                       dtype, exact=True)
         check_verify_and_dense(ops, L, g, dtype, c)
+        check_ssd_and_norm(ops, L, g, dtype, c)
     check_topk(ops, L, dev, c)
     torch.cuda.synchronize()
     return c
+
+
+def ssd_inputs(g, dtype, B, S, H, P, N):
+    """tests/test_kernels.py::test_ssd_scan's distributions: x, b, c
+    normal in ``dtype``; dt = softplus(normal), A = -exp(normal / 2)."""
+    x = _randn(g, dtype, B, S, H, P)
+    dt = torch.nn.functional.softplus(_randn(g, torch.float32, B, S, H))
+    A = -torch.exp(_randn(g, torch.float32, H) * 0.5)
+    return x, dt, A, _randn(g, dtype, B, S, N), _randn(g, dtype, B, S, N)
+
+
+def check_ssd_and_norm(ops, L, g, dtype, c: "Checks") -> None:
+    """The scan at mamba2-130m's main shape, at a bucket of 128, over the
+    CPU sweep and at ragged 64-row tiles; RMSNorm at the port's norm
+    shapes and the widest row it takes."""
+    m = SSD_MAIN
+    for (B, S, H, P, N, chunk), main in (
+            [((m["B"], S, m["H"], m["P"], m["N"], m["chunk"]), True)
+             for S in (m["S"], 128)]
+            + [(shape, False) for shape in SSD_SWEEP]
+            + [((1, 200, 3, 40, 100, 100), False)]):
+        x = ssd_inputs(g, dtype, B, S, H, P, N)
+        chunk = L.pick_chunk(S, chunk)
+        c.compare("ssd_scan", f"B,S,H,P,N,chunk={(B, S, H, P, N, chunk)}",
+                  ops.ssd_scan(*x, chunk=chunk), L.ssd_chunk_scan(*x, chunk),
+                  dtype, main, tol=SSD_TOL)
+    for shape, main in ([(s, True) for s in NORM_SHAPES]
+                        + [((2, 5, 7, 128), False), ((3, 8192), False)]):
+        x = _randn(g, dtype, *shape)
+        w = _randn(g, dtype, shape[-1])
+        c.compare("rmsnorm", f"x={shape}", ops.rmsnorm(x, w),
+                  L.rms_norm(x, w), dtype, main)
 
 
 def check_verify_and_dense(ops, L, g, dtype, c: "Checks") -> None:
@@ -557,6 +657,69 @@ def check_full_width_depth_cut(rt, ops, dev) -> None:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name}: kernel path differs from plain")
+
+
+def check_ssm_reference(rt, ops, dev) -> None:
+    """mamba2: the smoke engine decodes the same greedy tokens on the card
+    as on the CPU (fp32); full-width mamba2-130m cut to two layers gives
+    the same prefill logits (every position), SSM states and embeddings
+    through the scan kernel as through its plain version (fp32).  The two
+    scans sum in other orders (~1e-6 of a value); logits and embeddings
+    (of size ~1) are held to 1e-4, the states to 1e-4 of their largest
+    element (a state sums the whole row's ``dt B x`` terms)."""
+    cfg = rt.get_smoke_config("mamba2-130m")
+    params = rt.init_params(rt.model_specs(cfg),
+                            torch.Generator("cpu").manual_seed(0),
+                            device="cpu")
+    head = "Compare these two listings carefully and answer yes or no: "
+    prompts = [head + "red bike / red bike", "x", head + "blue car"]
+    texts = {}
+    for d in ("cpu", dev):
+        eng = rt.Engine(cfg, _to(params, d), rt.ByteTokenizer(cfg.vocab_size),
+                        max_seq=256, slots=2)
+        texts[str(d)] = [r.text for r in eng.generate(prompts + prompts,
+                                                      max_tokens=12)]
+    torch.cuda.synchronize()
+    same = texts["cpu"] == texts[str(dev)]
+    log(f"  mamba2 smoke engine greedy tokens, card vs CPU: "
+        f"{'same' if same else 'DIFFER'} ({2 * len(prompts)} requests)")
+    if not same:
+        raise AssertionError(f"card {texts[str(dev)]} != cpu {texts['cpu']}")
+
+    cfg = dataclasses.replace(rt.get_config("mamba2-130m"), n_layers=2)
+    g = torch.Generator(dev).manual_seed(1)
+    params = rt.init_params(rt.model_specs(cfg), g, torch.float32, dev)
+    B, S = 4, 512
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    vlen = torch.tensor([512, 300, 2, 1], dtype=torch.int32, device=dev)
+
+    def run():
+        cache, logits = rt.prefill(cfg, params, {"tokens": toks}, max_seq=S,
+                                   valid_len=vlen, all_logits=True)
+        emb = rt.encode(cfg, params, {"tokens": toks}, valid_len=vlen)
+        return logits, cache["ssm"], emb
+
+    n0 = ops.ssd_scan.launches
+    got = run()
+    launched = ops.ssd_scan.launches - n0
+    with plain_kernels(ops):
+        want = run()
+    for name, a, b, state in zip(("prefill logits", "ssm state", "encode"),
+                                 got, want, (False, True, False)):
+        err = float((a - b).abs().max())
+        atol = 1e-4 * (float(b.abs().max()) if state else 1.0)
+        ok = bool(torch.isfinite(a).all()) and torch.allclose(
+            a, b, rtol=1e-4, atol=atol)
+        log(f"  mamba2 full width x 2 layers fp32 {name:14s} "
+            f"{tuple(a.shape)} kernel vs plain max_abs_err={err:.3e} "
+            f"tol={atol:.1e}+1e-4*|ref| (max |ref| {float(b.abs().max()):.2f})"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"mamba2 {name}: kernel path differs from "
+                                 "plain")
+    if launched != 2 * cfg.n_layers:   # one a layer, prefill and encode
+        raise AssertionError(f"ssd_scan launched {launched} times for two "
+                             f"passes of {cfg.n_layers} layers")
 
 
 # ---------------------------------------------------------------------------
@@ -869,16 +1032,22 @@ def run_spec_path(rt, ops, dev, engine, base: dict,
 
 def run_match_dense(rt, ops, engine) -> dict:
     """The match-dense block join of benchmarks/spec_decode.py, spec off
-    then on, each on a fresh engine: the same pairs and the same
-    generated token ids, the counts of the JAX engine."""
+    then on, each on a fresh engine over the first ``MATCH_DENSE_LAYERS``
+    of phase 4's layers (views: nothing is copied): the same pairs and
+    the same generated token ids, the counts of the JAX engine."""
     md = MATCH_DENSE
     colours = ["red", "blue"]
     left = [f"item {i} in {colours[i % 2]}" for i in range(md["left_rows"])]
     right = [f"want {k} {colours[k % 2]}" for k in range(md["right_rows"])]
     pred = lambda a, b: a.split()[-1] == b.split()[-1]  # noqa: E731
+    n = MATCH_DENSE_LAYERS
+    cfg = dataclasses.replace(engine.cfg, n_layers=n)
+    params = dict(engine.params, blocks={
+        blk: {k: w[:n] for k, w in leaves.items()}
+        for blk, leaves in engine.params["blocks"].items()})
     legs, ids, pairs = {}, {}, {}
     for mode in ("base", "spec"):
-        eng = rt.Engine(engine.cfg, engine.params, engine.tokenizer,
+        eng = rt.Engine(cfg, params, engine.tokenizer,
                         max_seq=md["max_seq"], slots=md["slots"],
                         spec_decode=mode == "spec", spec_k=md["spec_k"])
         client = rt.EngineClient(eng, oracle=rt.OracleLLM(
@@ -916,10 +1085,11 @@ def run_match_dense(rt, ops, engine) -> dict:
     log(f"  match-dense: pairs and generated token ids spec on == off: "
         f"{'yes' if same else 'NO'}; decode steps {ratio:.3f}x fewer; wall "
         f"{legs['base']['wall_s']:.3f} s off, {legs['spec']['wall_s']:.3f} "
-        f"s on ({legs['base']['wall_s'] / legs['spec']['wall_s']:.3f}x)")
+        f"s on ({legs['base']['wall_s'] / legs['spec']['wall_s']:.3f}x) at "
+        f"{n} of {engine.cfg.n_layers} layers")
     if not same:
         raise AssertionError("match-dense: speculation changed the output")
-    return dict(legs=legs, decode_step_ratio=ratio)
+    return dict(legs=legs, decode_step_ratio=ratio, n_layers=n)
 
 
 def check_verify_vs_decode(rt, engine) -> dict:
@@ -1066,6 +1236,135 @@ def run_dense_path(rt, ops, dev, engine, base: dict, base_pairs: dict,
     return dict(legs=legs, launches=counts, shapes=shapes)
 
 
+def run_ssm_path(rt, ops, dev, seed: int, granite) -> dict:
+    """Phase 8: full-width mamba2-130m in bf16 behind ``Engine(max_seq=
+    1024, slots=4)`` (paging, prefix cache and speculation gated off):
+    (a) the ads block and adaptive joins, (b) the scored ads tuple join,
+    (c) the cross-engine cascade of benchmarks/logit_score.py part C with
+    ``granite``'s weights behind a fresh engine as the large tier.  The
+    launch counts are zeroed just before (a) (by ``run_joins``) and read
+    after (c): every mamba2 pass launches ``ssd_scan`` once a layer, and
+    every attention launch of the path is the large tier's."""
+    t0 = time.perf_counter()
+    engine = rt.build_engine("mamba2-130m", device=dev, seed=seed,
+                             max_seq=1024, slots=4)   # bf16 on the card
+    torch.cuda.synchronize()
+    cfg, nl = engine.cfg, engine.cfg.n_layers
+    n_params = sum(t.numel() for _, t in rt.tree_items(engine.params))
+    log(f"  mamba2-130m full width: {n_params:,} parameters in bf16 drawn on "
+        f"the card in {time.perf_counter() - t0:.1f} s; paged="
+        f"{engine.paged} prefix_cache={engine.prefix_cache is not None} "
+        f"spec_decode={engine.spec_decode}")
+    if engine.paged or engine.prefix_cache is not None or engine.spec_decode:
+        raise AssertionError("the ssm engine must gate paging, the prefix "
+                             "cache and speculation off")
+    t_path = time.perf_counter()
+    joins, _ = run_joins(rt, ops, engine, "ssm")   # zeroes the counts
+    hold_counts("ssm", joins["joins"], EXPECTED[("ssm", "base")])
+    legs = {"a": dict(joins, model_passes=joins["decode_steps"]
+                      + joins["prefill_batches"],
+                      peak_memory_gib=joins["max_memory_allocated_gib"])}
+
+    def check_mamba_launches(label, launches, passes):
+        bad = {k: n for k, n in launches.items()
+               if k in ATTENTION + ("spec_verify_attention",
+                                    "decode_attention") and n}
+        if launches["ssd_scan"] != nl * passes or bad:
+            raise AssertionError(
+                f"ssm {label}: ssd_scan {launches['ssd_scan']} launches for "
+                f"{passes} passes of {nl} layers; attention {bad}")
+
+    check_mamba_launches("joins", joins["launches"], joins["prefill_batches"])
+
+    # (b) the scored tuple join on ads: 256 pairs, 512 score rows
+    ads = rt.ads_scenario()
+    cb = rt.EngineClient(engine, oracle=rt.OracleLLM(ads.predicate,
+                                                     context_limit=1024))
+    launches0 = ops.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = rt.tuple_join(ads.r1, ads.r2, ads.condition, cb, scoring=True)
+    torch.cuda.synchronize()
+    lg, st = res.ledger, cb.executor.stats    # a fresh client: its own counts
+    lb = legs["b"] = dict(
+        calls=lg.calls, prompt_tokens=lg.prompt_tokens,
+        cached_prompt_tokens=lg.cached_prompt_tokens,
+        scored_tokens=lg.scored_tokens, completion_tokens=lg.completion_tokens,
+        decode_steps=st.decode_steps, prefill_batches=st.prefill_batches,
+        model_passes=st.model_passes, f1=res.f1(ads.truth),
+        wall_s=time.perf_counter() - t,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches={k: n - launches0[k] for k, n in ops.launch_counts().items()})
+    log(f"  ssm leg b, scored ads tuple join: {lb}")
+    hold_counts("ssm leg b", {"tuple": lb}, {"tuple": EXPECTED[("ssm",
+                                                                "tuple")]})
+    if lb["f1"] != 1.0:
+        raise AssertionError(f"ssm leg b: F1 {lb['f1']} != 1.00")
+    check_mamba_launches("leg b", lb["launches"], lb["prefill_batches"])
+
+    # (c) the cross-engine cascade: mamba2 small, granite large
+    cc = CASCADE
+    left = [f"item {i} tone {i % 4}" for i in range(cc["rows"])]
+    right = [f"want {k} tone {k % 4}" for k in range(cc["rows"])]
+    pred = lambda a, b: a.split()[-1] == b.split()[-1]  # noqa: E731
+    truth = {(i, k) for i, a in enumerate(left) for k, b in enumerate(right)
+             if pred(a, b)}
+
+    def tier(eng, **noise):
+        return rt.EngineClient(
+            rt.Engine(eng.cfg, eng.params, eng.tokenizer,
+                      max_seq=cc["max_seq"], slots=cc["slots"]),
+            oracle=rt.OracleLLM(pred, context_limit=cc["max_seq"], **noise))
+    small = tier(engine, fn_rate=cc["fn_rate"], fp_rate=cc["fp_rate"],
+                 noise_seed=cc["noise_seed"])
+    large = tier(granite)
+    launches0 = ops.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = rt.cascade_tuple_join(left, right, "the tones match", small, large,
+                                threshold=cc["threshold"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    ss, sl = small.executor.stats, large.executor.stats
+    tp = len(res.pairs & truth)
+    lc = dict(
+        f1=2 * tp / (len(res.pairs) + len(truth)),
+        escalated=res.meta["escalated"], pairs=res.meta["pairs_total"],
+        small_model_passes=ss.model_passes, large_model_passes=sl.model_passes,
+        small_scored_tokens=res.meta["tiers"]["small"]["scored_tokens"],
+        large_scored_tokens=res.meta["tiers"]["large"]["scored_tokens"],
+        small_decode_steps=ss.decode_steps, large_decode_steps=sl.decode_steps,
+        model_passes=ss.model_passes + sl.model_passes, wall_s=wall,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches={k: n - launches0[k] for k, n in ops.launch_counts().items()})
+    legs["c"] = lc
+    log(f"  ssm leg c, cross-engine cascade (mamba2-130m -> granite-3-2b): "
+        f"{lc}")
+    hold_counts("ssm leg c", {"cascade": lc},
+                {"cascade": EXPECTED[("ssm", "cascade")]})
+    la = lc["launches"]
+    attn = la["flash_attention"] + la["chunked_prefill_attention"]
+    if (la["ssd_scan"] != nl * ss.prefill_batches
+            or attn != granite.cfg.n_layers * sl.prefill_batches
+            or la["paged_decode_attention"]):
+        raise AssertionError(f"ssm leg c launches {la}: expected ssd_scan "
+                             f"{nl} x {ss.prefill_batches} small passes, "
+                             f"attention {granite.cfg.n_layers} x "
+                             f"{sl.prefill_batches} large passes")
+
+    wall = time.perf_counter() - t_path
+    counts = ops.launch_counts()          # read right after the path
+    shapes = {k.name: k.shapes.most_common() for k in ops.KERNELS}
+    for name, leg in legs.items():
+        log(f"  ssm leg {name}: wall={leg['wall_s']:.3f} s model passes="
+            f"{leg['model_passes']} peak_memory_allocated="
+            f"{leg['peak_memory_gib']:.2f} GiB")
+    log(f"  ssm path: wall={wall:.3f} s launches={counts}")
+    log(f"    ssd_scan launches by integer arguments: {shapes['ssd_scan']}")
+    return dict(wall_s=wall, launches=counts, shapes=shapes, legs=legs,
+                n_params=n_params)
+
+
 def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
     """Every kernel against its plain version again, in bf16, at each
     shape the main path gave it (ragged lengths; these launches come after
@@ -1115,6 +1414,13 @@ def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
                        f"dense path B,H,KV,hd,Skv={(B, H, KV, hd, Skv)}",
                        ops.decode_attention(*x), L.decode_attention(*x), dt,
                        main=True)
+    for (B, S, H, P, N, chunk, _), _ in shapes["ssd_scan"]:
+        x = ssd_inputs(g, dt, B, S, H, P, N)
+        checks.compare("ssd_scan",
+                       f"ssm path B,S,H,P,N,chunk={(B, S, H, P, N, chunk)}",
+                       ops.ssd_scan(*x, chunk=chunk),
+                       L.ssd_chunk_scan(*x, chunk), dt, main=True,
+                       tol=SSD_TOL)
     torch.cuda.synchronize()
     if checks.failed:
         raise AssertionError(f"kernel checks failed: {checks.failed}")
@@ -1174,7 +1480,7 @@ def profile_one(label: str, name: str, out: Path, run) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: timing
+# Phase 9: timing
 # ---------------------------------------------------------------------------
 
 
@@ -1390,6 +1696,60 @@ def time_topk(ops, L, g, M, N, D, k):
         max_abs_err=float((got[1] - want[1]).abs().max()))
 
 
+def ssd_flops(B, S, H, P, N, chunk) -> int:
+    """The scan's multiply-adds, x 2.  B and C form one group shared by
+    every head, so the causal pairs' C.B (c(c+1)/2 x N) is needed once per
+    (row, chunk), though the kernel recomputes it in each head's block;
+    per (row, head, chunk) come the pairs' W.x (c(c+1)/2 x P), the state's
+    read C.h and its update (c x N x P each).  The masked upper triangle
+    is not counted: the least work, not the kernel's."""
+    c = chunk
+    pairs = c * (c + 1) // 2
+    per_row_chunk = pairs * N + H * (pairs * P + 2 * c * N * P)
+    return 2 * B * (S // c) * per_row_chunk
+
+
+def time_ssd(ops, L, g, dtype, B, S, H, P, N, chunk):
+    """The scan in the model's types (x, b, c in ``dtype``; dt, A fp32),
+    its plain version, and its bound at the fp32 rate (its arithmetic is
+    fp32).  No single PyTorch call computes the scan: no yardstick."""
+    x0 = ssd_inputs(g, dtype, B, S, H, P, N)
+    sets = [x0] + [ssd_inputs(g, dtype, B, S, H, P, N)
+                   for _ in range(n_sets(_nbytes(*x0)) - 1)]
+    b_ms, b_by = bound(_nbytes(*x0) + _nbytes(x0[0]),
+                       ssd_flops(B, S, H, P, N, chunk), torch.float32)
+    return dict(
+        shape=dict(B=B, S=S, H=H, P=P, N=N, chunk=chunk),
+        ms=time_ms(lambda *x: ops.ssd_scan(*x, chunk=chunk), sets, 20),
+        plain_ms=time_ms(lambda *x: L.ssd_chunk_scan(*x, chunk), sets[:2], 3),
+        library_ms=None, library="none: no single PyTorch call",
+        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=float((ops.ssd_scan(*x0, chunk=chunk).float()
+                           - L.ssd_chunk_scan(*x0, chunk).float())
+                          .abs().max()))
+
+
+def time_rmsnorm(ops, L, g, dtype, rows, D):
+    """RMSNorm with x and w in ``dtype``; the yardstick is
+    ``torch.nn.functional.rms_norm``."""
+    mk = lambda: (_randn(g, dtype, rows, D), _randn(g, dtype, D))  # noqa
+    x0 = mk()
+    sets = [x0] + [mk() for _ in range(n_sets(2 * _nbytes(*x0)) - 1)]
+    F = torch.nn.functional
+    b_ms, b_by = bound(2 * _nbytes(x0[0]) + _nbytes(x0[1]), 4 * rows * D,
+                       torch.float32)
+    return dict(
+        shape=dict(rows=rows, D=D),
+        ms=time_ms(ops.rmsnorm, sets, 50),
+        plain_ms=time_ms(L.rms_norm, sets[:2], 20),
+        library_ms=time_ms(lambda x, w: F.rms_norm(x, (D,), w, eps=1e-5),
+                           sets, 50),
+        library="torch.nn.functional.rms_norm",
+        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=float((ops.rmsnorm(*x0).float()
+                           - L.rms_norm(*x0).float()).abs().max()))
+
+
 def time_kernels(ops, L, dev, shapes) -> dict:
     """Time each kernel at its path's most frequent shape (bf16), and
     flash / chunked prefill at the other prefill buckets.  ``shapes``
@@ -1419,6 +1779,10 @@ def time_kernels(ops, L, dev, shapes) -> dict:
             [vslots * vpg - vK] * vB),
         "decode_attention": time_dense_decode(
             ops, L, g, dt, eB, eH, eKV, ehd, eSkv, [eSkv] * eB),
+        # mamba2-130m at the largest bucket; its norms at 4 x 1024 rows
+        "ssd_scan": time_ssd(ops, L, g, dt, *(SSD_MAIN[k] for k in (
+            "B", "S", "H", "P", "N", "chunk"))),
+        "rmsnorm": time_rmsnorm(ops, L, g, dt, *NORM_SHAPES[0]),
     }
     sweep = []
     for S in (128, 512, 1024):
@@ -1448,13 +1812,24 @@ def time_kernels(ops, L, dev, shapes) -> dict:
                   time_topk(ops, L, g, 1_000, 10_000, 256, 8)))
     sweep.append(("topk_similarity",
                   time_topk(ops, L, g, 10_000, 1_000, 2048, 8)))
+    # the ssm path's other buckets, by their launches there (the scored
+    # tuple join's 512, the cascade's 128), and the other norm shapes
+    for (B, S, H, P, N, chunk, _), _ in shapes["ssd_scan"][:3]:
+        if S != SSD_MAIN["S"]:
+            sweep.append(("ssd_scan", time_ssd(ops, L, g, dt, B, S, H, P, N,
+                                               chunk)))
+    for rows, D in NORM_SHAPES[1:]:
+        sweep.append(("rmsnorm", time_rmsnorm(ops, L, g, dt, rows, D)))
     torch.cuda.synchronize()
     for name, r in [(k, v) for k, v in main.items()] + sweep:
-        lib = "topk" if name == "topk_similarity" else "sdpa"
+        lib = {"topk_similarity": "topk", "ssd_scan": "none",
+               "rmsnorm": "rms_norm"}.get(name, "sdpa")
+        lib_ms = ("-" if r["library_ms"] is None
+                  else f"{r['library_ms']:.4f} ms")
         dt_name = "fp32" if name == "topk_similarity" else "bf16"
         log(f"  {name:26s} {dt_name} {json.dumps(r['shape']):100s} "
             f"kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
-            f"{lib}={r['library_ms']:.4f} ms bound={r['bound_ms']:.4f} ms "
+            f"{lib}={lib_ms} bound={r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) kernel/bound={r['ms'] / r['bound_ms']:.1f}x")
         if name == "topk_similarity" and (not r["indices_equal"]
                                           or r["max_abs_err"] > 1e-6):
@@ -1470,14 +1845,14 @@ def port() -> types.SimpleNamespace:
     """The port's entry points this script drives, in one namespace."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import (HashEmbedder, adaptive_join, block_join,
-                                  prefilter_join, topk_candidates,
-                                  tuple_join)
+                                  cascade_tuple_join, prefilter_join,
+                                  topk_candidates, tuple_join)
     from repro_torch.core.oracle import OracleLLM
     from repro_torch.data import ads_scenario
     from repro_torch.data.scenarios import marketplace_scenario
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.launch.serve import build_engine
-    from repro_torch.models import (chunked_prefill, decode_step,
+    from repro_torch.models import (chunked_prefill, decode_step, encode,
                                     init_params, model_specs, prefill,
                                     verify_step)
     from repro_torch.models.params import tree_items
@@ -1544,6 +1919,7 @@ def main() -> int:
     log("== phase 3: small inputs against a reference")
     check_small_engine(rt, dev)
     check_full_width_depth_cut(rt, ops, dev)
+    check_ssm_reference(rt, ops, dev)
 
     log("== phase 4: main path, full-width granite-3-2b bf16, block + "
         "adaptive joins")
@@ -1559,13 +1935,18 @@ def main() -> int:
     dense = run_dense_path(rt, ops, dev, engine, summary, pairs, spec,
                            spec_pairs)
 
+    log("== phase 8: the ssm path, full-width mamba2-130m bf16: joins, the "
+        "scored tuple join, the cross-engine cascade")
+    ssm = run_ssm_path(rt, ops, dev, args.seed, engine)
+
     paths = dict(block_adaptive=summary, prefilter=prefilter, spec=spec,
-                 dense=dense)
+                 dense=dense, ssm=ssm)
     every = {name: merge_shapes(paths.values(), name)
              for name in summary["shapes"]}
+    log("== phase 9: every kernel at each shape its paths gave it, then "
+        "kernel times (CUDA events; attention, scan and norm bf16, top-k "
+        "fp32)")
     check_main_shapes(ops, L, dev, every, checks)
-
-    log("== phase 8: kernel times (CUDA events; attention bf16, top-k fp32)")
     home = {k.name: paths[HOME_PATH.get(k.name, "block_adaptive")]["shapes"][
         k.name] for k in ops.KERNELS}
     timing = time_kernels(ops, L, dev, home)
@@ -1575,6 +1956,7 @@ def main() -> int:
         log("== profile: block join and prefilter leg (b) under "
             "torch.profiler")
         profile_joins(rt, engine, out)
+    log(f"  ({time.perf_counter() - _T_PHASE[0]:.1f} s)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -1582,7 +1964,8 @@ def main() -> int:
         r = timing["main"][k.name]
         # each kernel with the launches of the path it was timed for: the
         # paged attention kernels on block + adaptive, top-k on the
-        # prefilter, the verify kernel on spec, dense decode on dense
+        # prefilter, the verify kernel on spec, dense decode on dense, the
+        # scan (and RMSNorm, on no path: 0) on ssm
         path = paths[HOME_PATH.get(k.name, "block_adaptive")]
         kernels.append(dict(
             name=k.name, route="cuda",
@@ -1596,6 +1979,7 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, build_s=times, main_path=summary,
         prefilter_path=prefilter, spec_path=spec, dense_path=dense,
+        ssm_path=ssm,
         timing=timing, kernels=kernels), indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())

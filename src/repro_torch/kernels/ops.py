@@ -1,4 +1,4 @@
-"""Wrappers of the port's six hand-written CUDA kernels.
+"""Wrappers of the port's eight hand-written CUDA kernels.
 
 Three attention kernels carry the serving path (block and adaptive
 joins): ``flash_attention``, ``chunked_prefill_attention`` and
@@ -7,12 +7,16 @@ candidates, scored verification) runs the first two for its prefill
 passes and ``topk_similarity`` for its candidates.  Speculative decoding
 on the paged engine verifies its draft windows with
 ``spec_verify_attention``; the dense-KV engine decodes with
-``decode_attention`` and verifies by looping it over the window.
+``decode_attention`` and verifies by looping it over the window.  The
+ssm family (mamba2) runs ``ssd_scan`` in every prefill, scoring and
+encode pass, once a layer.  ``rmsnorm`` is on no model path (the JAX
+package's model never calls its Pallas twin either); it is held against
+its plain version at the port's norm shapes.
 
 Each wrapper takes the layouts of the JAX package's kernels (q
 ``(B, S, H, hd)``, K/V unrepeated with ``KV`` heads, pools ``(n_pages,
-page, KV, hd)``, embeddings ``(M, D)``) and dispatches on the device of
-its tensors:
+page, KV, hd)``, embeddings ``(M, D)``, the scan's ``(B, S, H, P)``) and
+dispatches on the device of its tensors:
 
 * CPU tensors go to the plain PyTorch version in
   :mod:`repro_torch.models.layers` — the only case it is used;
@@ -30,7 +34,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -45,6 +49,9 @@ SPEC_MAX_ROWS = 128
 #: csrc/topk_sim.cu): 4 query rows a block keep two 2048-long lists in
 #: 128 KB of shared memory
 TOPK_MAX_K = 2048
+#: the largest head width P and state width N the scan kernel stages
+#: (csrc/ssd_scan.cu), and its longest chunk
+SSD_MAX_P, SSD_MAX_N, SSD_MAX_CHUNK = 64, 128, 2048
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -53,7 +60,8 @@ class CudaKernel:
     version, and its launch count."""
 
     def __init__(self, name: str, source: str, symbol: str, n_ptrs: int,
-                 n_ints: int, plain: Callable, replaces: str):
+                 n_ints: int, plain: Callable, replaces: str,
+                 n_floats: int = 0):
         self.name = name
         self.source = source          # csrc/<source>.cu
         self.symbol = symbol
@@ -63,10 +71,11 @@ class CudaKernel:
         #: launches by their integer arguments (the shapes), beside the count
         self.shapes: collections.Counter = collections.Counter()
         self._argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                          + [ctypes.c_void_p])
+                          + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         self._fn = None
 
-    def _launch(self, ptrs: Sequence[torch.Tensor], ints: Sequence[int]):
+    def _launch(self, ptrs: Sequence[torch.Tensor], ints: Sequence[int],
+                floats: Sequence[float] = ()):
         if self._fn is None:
             fn = getattr(build.load(self.source), self.symbol)
             fn.argtypes = self._argtypes
@@ -74,7 +83,7 @@ class CudaKernel:
             self._fn = fn
         stream = torch.cuda.current_stream(ptrs[0].device).cuda_stream
         rc = self._fn(*[t.data_ptr() for t in ptrs], *[int(i) for i in ints],
-                      stream)
+                      *[float(f) for f in floats], stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {rc}")
@@ -95,7 +104,10 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
                      "all on the CPU")
 
 
-def _check(name: str, tensors: Sequence[torch.Tensor], hd: int) -> int:
+def _check(name: str, tensors: Sequence[torch.Tensor],
+           hd: Optional[int] = None) -> int:
+    """The kernel's dtype code for ``tensors`` (one dtype, fp32 or bf16,
+    all contiguous), and, for attention, a head dim it takes."""
     dtype = tensors[0].dtype
     if dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {dtype} not supported "
@@ -105,7 +117,7 @@ def _check(name: str, tensors: Sequence[torch.Tensor], hd: int) -> int:
             raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if hd not in HEAD_DIMS:
+    if hd is not None and hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
     return _DTYPES[dtype]
 
@@ -275,6 +287,62 @@ class _TopkSimilarity(CudaKernel):
         return idx, sim
 
 
+class _SsdScan(CudaKernel):
+    def __call__(self, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, *,
+                 chunk: int = 256) -> torch.Tensor:
+        """The SSD chunked scan: x ``(B,S,H,P)``, dt ``(B,S,H)`` fp32, A
+        ``(H,)`` fp32, b/c ``(B,S,N)`` → y ``(B,S,H,P)`` in x's dtype,
+        over chunks of ``pick_chunk(S, chunk)`` positions."""
+        if _on_cpu(x, dt, A, b, c):
+            return self.plain(x, dt, A, b, c, chunk)
+        B, S, H, P = x.shape
+        N = b.shape[-1]
+        if (dt.shape != (B, S, H) or A.shape != (H,)
+                or b.shape != (B, S, N) or c.shape != b.shape):
+            raise ValueError(f"ssd_scan: x {tuple(x.shape)}, dt "
+                             f"{tuple(dt.shape)}, A {tuple(A.shape)}, b/c "
+                             f"{tuple(b.shape)}/{tuple(c.shape)} do not fit")
+        if P > SSD_MAX_P or N > SSD_MAX_N:
+            raise ValueError(f"ssd_scan: P {P} / N {N} above the kernel's "
+                             f"caps of {SSD_MAX_P} / {SSD_MAX_N}")
+        if dt.dtype != torch.float32 or A.dtype != torch.float32:
+            raise TypeError("ssd_scan: dt and A must be float32")
+        dtype = _check(self.name, (x, b, c))
+        for t in (dt, A):
+            if not t.is_contiguous():
+                raise ValueError("ssd_scan: inputs must be contiguous")
+        chunk = L.pick_chunk(S, chunk) if S else chunk
+        if chunk > SSD_MAX_CHUNK:
+            raise ValueError(f"ssd_scan: chunk {chunk} above the kernel's "
+                             f"cap of {SSD_MAX_CHUNK}")
+        y = torch.empty_like(x)
+        if y.numel():
+            self._launch((x, dt, A, b, c, y), (B, S, H, P, N, chunk, dtype))
+        return y
+
+
+class _RmsNorm(CudaKernel):
+    def __call__(self, x: torch.Tensor, weight: torch.Tensor,
+                 eps: float = 1e-5) -> torch.Tensor:
+        """``x * rsqrt(mean(x^2) + eps) * weight`` over the last axis in
+        fp32, in x's dtype; x ``(..., D)``, weight ``(D,)``, each fp32 or
+        bf16 and contiguous."""
+        if _on_cpu(x, weight):
+            return self.plain(x, weight, eps)
+        D = x.shape[-1]
+        if weight.shape != (D,):
+            raise ValueError(f"rmsnorm: weight {tuple(weight.shape)} does "
+                             f"not fit x {tuple(x.shape)}")
+        dtype = _check(self.name, (x,))
+        wdtype = _check(self.name, (weight,))
+        out = torch.empty_like(x)
+        if out.numel():
+            self._launch((x, weight, out), (x.numel() // D, D, dtype, wdtype),
+                         (eps,))
+        return out
+
+
 flash_attention = _FlashAttention(
     "flash_attention", "flash_attention", "repro_flash_attention",
     n_ptrs=4, n_ints=6, plain=L.flash_attention,
@@ -302,12 +370,20 @@ decode_attention = _DecodeAttention(
     "decode_attention", "decode_attention", "repro_decode_attention",
     n_ptrs=5, n_ints=6, plain=L.decode_attention,
     replaces="src/repro/kernels/decode_attention.py:65")
+ssd_scan = _SsdScan(
+    "ssd_scan", "ssd_scan", "repro_ssd_scan", n_ptrs=6, n_ints=7,
+    plain=L.ssd_chunk_scan, replaces="src/repro/kernels/ssd_scan.py:65")
+rmsnorm = _RmsNorm(
+    "rmsnorm", "rmsnorm", "repro_rmsnorm", n_ptrs=3, n_ints=4, n_floats=1,
+    plain=L.rms_norm, replaces="src/repro/kernels/rmsnorm.py:26")
 
 #: every kernel of the port: the three attention kernels of the paged
-#: engine in the order the model reaches them, the prefilter's top-k, then
-#: the speculative verify and the dense engine's decode
+#: engine in the order the model reaches them, the prefilter's top-k, the
+#: speculative verify and the dense engine's decode, then the mamba2 scan
+#: and RMSNorm
 KERNELS = (flash_attention, chunked_prefill_attention, paged_decode_attention,
-           topk_similarity, spec_verify_attention, decode_attention)
+           topk_similarity, spec_verify_attention, decode_attention,
+           ssd_scan, rmsnorm)
 
 
 def top1_similarity(e1: torch.Tensor, e2: torch.Tensor) -> tuple:

@@ -1,6 +1,9 @@
-"""The dense GQA decoder (granite-3-2b family) in PyTorch."""
+"""The dense GQA decoder (granite-3-2b) and the Mamba2 SSM (mamba2-130m)
+in PyTorch."""
 
 from repro_torch.models.model import (
+    KV_ONLY_FAMILIES,
+    cache_dtype,
     cache_specs,
     chunked_prefill,
     decode_step,
@@ -17,7 +20,7 @@ from repro_torch.models.params import (
 )
 
 __all__ = [
-    "cache_specs", "chunked_prefill", "decode_step", "encode",
-    "model_specs", "prefill", "Spec", "from_numpy", "init_params",
-    "param_count", "verify_step",
+    "KV_ONLY_FAMILIES", "cache_dtype", "cache_specs", "chunked_prefill",
+    "decode_step", "encode", "model_specs", "prefill", "Spec", "from_numpy",
+    "init_params", "param_count", "verify_step",
 ]

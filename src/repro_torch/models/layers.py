@@ -1,5 +1,6 @@
-"""Shared layers in plain PyTorch, and the plain versions of the six
-kernels (five attention kernels and the prefilter's top-k).
+"""Shared layers in plain PyTorch, and the plain versions of the eight
+kernels (five attention kernels, the prefilter's top-k, the mamba2 SSD
+scan and RMSNorm).
 
 Conventions follow ``repro.models.layers``:
 
@@ -16,7 +17,9 @@ only; ``chip_smoke.py`` holds each kernel against them on the card.  They
 mirror ``repro.models.layers`` (``blockwise_causal_attention``,
 ``chunked_prefill_attention``, ``decode_attention``,
 ``paged_decode_attention``, ``spec_verify_attention(_paged)``,
-``topk_similarity``) and ``repro.kernels.ref``.
+``topk_similarity``) and ``repro.kernels.ref``.  :func:`rms_norm` is the
+plain version of the RMSNorm kernel, and :func:`ssd_chunk_scan` (after
+``repro.models.mamba2._ssd_chunk_scan``) that of the SSD scan kernel.
 """
 
 from __future__ import annotations
@@ -201,6 +204,71 @@ def spec_verify_attention_paged(
         [paged_decode_attention(q[:, j:j + 1], k_pool, v_pool, page_table,
                                 cache_len + j + 1)
          for j in range(q.shape[1])], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Plain version of the SSD scan kernel (mamba2)
+# ---------------------------------------------------------------------------
+
+
+def pick_chunk(seq_len: int, target: int = 512) -> int:
+    """Largest divisor of ``seq_len`` that is <= target (>= 1)."""
+    c = min(target, seq_len)
+    while seq_len % c != 0:
+        c -= 1
+    return c
+
+
+def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor,
+                   chunk: int = 256) -> torch.Tensor:
+    """The Mamba2 SSD chunked scan, after ``mamba2._ssd_chunk_scan``: a
+    loop over chunks of ``pick_chunk(S, chunk)`` positions, each with its
+    intra-chunk quadratic term and the inter-chunk term of the ``(N, P)``
+    state carried in fp32.
+
+    x ``(B,S,H,P)``; dt ``(B,S,H)`` fp32 (post-softplus); A ``(H,)`` fp32
+    (negative); b/c ``(B,S,N)``, one group shared by every head; y
+    ``(B,S,H,P)`` in ``x.dtype``, as the XLA path returns it.
+
+    Arithmetic in fp32, but for the log-decays: their running sum ``cum``
+    reaches hundreds within a chunk of 256, and in fp32 each
+    ``cum_i - cum_j`` would carry the rounding of two large sums (at
+    mamba2-130m's widths that alone moves y by ~1.5e-3 against fp64
+    arithmetic), so the sum and its differences are taken in fp64 and
+    rounded to fp32 once, before the exp — as the kernel takes them.
+    """
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    chunk = pick_chunk(S, chunk)
+    xf, bf, cf = x.float(), b.float(), c.float()
+    dt, A = dt.float(), A.float()
+    ii = torch.arange(chunk, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, :, :, None]   # (1,c,c,1)
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for s0 in range(0, S, chunk):
+        xk = xf[:, s0:s0 + chunk]                 # (B,c,H,P)
+        dtk = dt[:, s0:s0 + chunk]                # (B,c,H)
+        bk, ck = bf[:, s0:s0 + chunk], cf[:, s0:s0 + chunk]   # (B,c,N)
+        cum = torch.cumsum((dtk * A[None, None, :]).double(), dim=1)
+        # L[i,j] = exp(cum_i - cum_j) for i >= j, else 0.  Mask BEFORE
+        # exp: the upper triangle's positive differences overflow, and
+        # inf * 0 is NaN
+        diff = (cum[:, :, None, :] - cum[:, None, :, :]).float()  # (B,c,c,H)
+        Lm = torch.exp(diff.masked_fill(~causal, float("-inf")))
+        cb = torch.einsum("bin,bjn->bij", ck, bk)             # (B,c,c)
+        w = cb[..., None] * Lm * dtk[:, None, :, :]           # (B,c,c,H)
+        y = torch.einsum("bijh,bjhp->bihp", w, xk)
+        y = y + (torch.einsum("bin,bhnp->bihp", ck, h)
+                 * torch.exp(cum.float())[..., None])
+        # h' = exp(cum_last) h + sum_j exp(cum_last - cum_j) dt_j B_j x_j
+        w_state = torch.exp((cum[:, -1:, :] - cum).float()) * dtk  # (B,c,H)
+        h = (h * torch.exp(cum[:, -1, :].float())[:, :, None, None]
+             + torch.einsum("bjn,bjhp->bhnp", bk,
+                            xk * w_state[..., None]))
+        ys.append(y.to(x.dtype))
+    return torch.cat(ys, dim=1)
 
 
 # ---------------------------------------------------------------------------

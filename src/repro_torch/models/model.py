@@ -1,23 +1,28 @@
-"""Decoder assembly of the dense family, after ``repro.models.model``.
+"""Decoder assembly of the dense and ssm families, after
+``repro.models.model``.
 
 Public surface (plain functions of ``(cfg, params, ...)``):
 
 * :func:`model_specs`     — parameter spec tree (scan-stacked layers)
-* :func:`cache_specs`     — cache tree, dense or paged
+* :func:`cache_specs`     — cache tree: K/V (dense or paged), or the
+  ssm family's conv and SSM states
 * :func:`prefill`         — ragged bucketed prefill → (cache, logits)
 * :func:`encode`          — mean-pooled final-norm hidden states, no cache
 * :func:`chunked_prefill` — the uncached suffix over a gathered prefix;
   dense slot rows with the prefix copied in, or with ``paged=True`` the
   suffix K/V only
-* :func:`decode_step`     — one decode step, dense or paged, with the
-  ``active`` mask
+* :func:`decode_step`     — one decode step, dense, paged or SSM, with
+  the ``active`` mask
 * :func:`verify_step`     — one pass over a K-token speculative window,
   dense or paged
 
 The JAX package scans the stacked layer weights with ``lax.scan``; here a
-Python loop takes layer ``i``'s views ``leaf[i]``.  Only the KV-only
-dense family is ported; the others wait for later slices (ROADMAP.md
-queue A items 10–12).
+Python loop takes layer ``i``'s views ``leaf[i]``.  Two families are
+ported: ``dense`` (granite-3-2b; attention layers over a KV cache) and
+``ssm`` (mamba2-130m; Mamba2 layers over a conv and an SSM state, which
+``chunked_prefill`` and ``verify_step`` refuse as the JAX package does).
+MoE, hybrid and embedding-input families wait for later slices
+(ROADMAP.md queue A items 10, 11 and 12).
 """
 
 from __future__ import annotations
@@ -29,14 +34,35 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models.params import Spec, stack_specs
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"family {cfg.family!r} (input_mode {cfg.input_mode!r}) is not "
-            "yet ported to repro_torch: MoE is ROADMAP.md queue A item 10, "
-            "SSM/hybrid item 11, embedding inputs item 12")
+#: Families whose per-request state is a pure KV cache — the only ones the
+#: engine pages, prefix-caches and speculates for.  An SSM state
+#: summarizes the whole prefix into a fixed-size vector that cannot be
+#: re-anchored mid-sequence or rolled back (``repro.models.model``).  Of
+#: the reference's KV-only families the port runs ``dense`` alone; a slice
+#: that ports ``moe``, ``audio`` or ``vlm`` adds it here.
+KV_ONLY_FAMILIES = ("dense",)
+
+
+def _family(cfg: ModelConfig) -> str:
+    """``cfg.family`` if the port runs it (``dense`` or ``ssm`` on token
+    inputs); raises ``NotImplementedError`` naming the ROADMAP.md item
+    otherwise."""
+    if cfg.family in ("dense", "ssm") and cfg.input_mode == "tokens":
+        return cfg.family
+    raise NotImplementedError(
+        f"family {cfg.family!r} (input_mode {cfg.input_mode!r}) is not "
+        "yet ported to repro_torch: MoE is ROADMAP.md queue A item 10, "
+        "hybrid item 11, embedding inputs item 12")
+
+
+def _require_kv(cfg: ModelConfig, what: str) -> None:
+    if _family(cfg) not in KV_ONLY_FAMILIES:
+        raise ValueError(
+            f"{what} needs a KV-only cache; family {cfg.family!r} carries "
+            "SSM state")
 
 
 # ---------------------------------------------------------------------------
@@ -45,13 +71,15 @@ def _require_dense(cfg: ModelConfig) -> None:
 
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    _require_dense(cfg)
     D, V = cfg.d_model, cfg.padded_vocab
+    if _family(cfg) == "ssm":
+        block = {"mamba": M.mamba_specs(cfg)}
+    else:
+        block = {"attn": B.attn_specs(cfg), "mlp": B.mlp_specs(cfg)}
     specs: Dict[str, Any] = {
         "embed": Spec((V, D), ("vocab", "embed"), scale=0.02),
         "final_norm": Spec((D,), ("embed",), init="ones"),
-        "blocks": stack_specs({"attn": B.attn_specs(cfg),
-                               "mlp": B.mlp_specs(cfg)}, cfg.n_layers),
+        "blocks": stack_specs(block, cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         specs["unembed"] = Spec((V, D), ("vocab", "embed"), scale=0.02)
@@ -62,12 +90,15 @@ def cache_specs(
     cfg: ModelConfig, batch: int, max_seq: int,
     *, page_size: Optional[int] = None, n_pages: Optional[int] = None,
 ) -> Dict[str, Any]:
-    """Cache tree (Spec leaves).  With ``page_size``/``n_pages`` K/V live
-    in one shared page pool ``(layers, n_pages, page, KV, hd)`` and each
-    row carries a page table; otherwise rows are ``max_seq`` long."""
-    _require_dense(cfg)
+    """Cache tree (Spec leaves; :func:`cache_dtype` gives each leaf's
+    dtype).  With ``page_size``/``n_pages`` K/V live in one shared page
+    pool ``(layers, n_pages, page, KV, hd)`` and each row carries a page
+    table; otherwise K/V rows are ``max_seq`` long.  The ssm family keeps
+    ``conv (layers, batch, W-1, DI+2N)`` and ``ssm (layers, batch, H, N,
+    P)`` per row instead, and cannot be paged."""
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     if page_size is not None:
+        _require_kv(cfg, "a paged cache")
         if n_pages is None:
             raise ValueError("paged cache_specs needs n_pages")
         kv = Spec((cfg.n_layers, n_pages, page_size, KV, hd),
@@ -81,10 +112,36 @@ def cache_specs(
                           init="zeros"),
             "k": kv, "v": kv,
         }
+    out = {"len": Spec((batch,), (None,), init="zeros")}
+    if _family(cfg) == "ssm":
+        cs, ss = M.mamba_cache_shape(cfg, batch)
+        out.update(
+            conv=Spec((cfg.n_layers,) + cs,
+                      ("layers", "batch", None, "inner"), init="zeros"),
+            ssm=Spec((cfg.n_layers,) + ss,
+                     ("layers", "batch", "ssm_heads", None, None),
+                     init="zeros"))
+        return out
     kv = Spec((cfg.n_layers, batch, max_seq, KV, hd),
               ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
               init="zeros")
-    return {"len": Spec((batch,), (None,), init="zeros"), "k": kv, "v": kv}
+    out.update(k=kv, v=kv)
+    return out
+
+
+def cache_dtype(cfg: ModelConfig, name: str, dtype) -> torch.dtype:
+    """The dtype of cache leaf ``name`` for activations in ``dtype``, as
+    the JAX package's prefill produces them: lengths int32, the SSM
+    state fp32 (a recurrence is never rounded to bf16), K/V and the conv
+    state in the activation dtype."""
+    if name == "len":
+        return torch.int32
+    if name == "ssm":
+        return torch.float32
+    if name in ("k", "v") and cfg.kv_cache_dtype != "auto":
+        raise NotImplementedError(
+            f"kv_cache_dtype={cfg.kv_cache_dtype!r} is not yet ported")
+    return dtype
 
 
 # ---------------------------------------------------------------------------
@@ -114,22 +171,19 @@ def _last_logits(cfg: ModelConfig, params, x: torch.Tensor,
     return L.unembed(x_last, _unembed_table(cfg, params))
 
 
-def _cache_dtype(cfg: ModelConfig, x: torch.Tensor):
-    if cfg.kv_cache_dtype != "auto":
-        raise NotImplementedError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r} is not yet ported")
-    return x.dtype
-
-
 def _backbone(cfg: ModelConfig, params, x: torch.Tensor,
               positions: torch.Tensor, ks: Optional[torch.Tensor] = None,
               vs: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The layers over full sequences (causal, flash attention), then the
-    final norm.  With ``ks``/``vs`` ``(layers, B, >= S, KV, hd)`` each
-    layer's K/V land at ``[i, :, :S]``; without them nothing is kept."""
+    """The layers over full sequences (causal: flash attention, or the
+    SSD scan), then the final norm.  With ``ks``/``vs`` ``(layers, B, >=
+    S, KV, hd)`` each layer's K/V land at ``[i, :, :S]``; without them
+    nothing is kept."""
     S = x.shape[1]
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
+        if _family(cfg) == "ssm":
+            x = x + M.mamba_apply(cfg, lp["mamba"], x)
+            continue
         out, (k, v) = B.attn_apply(cfg, lp["attn"], x, positions,
                                    return_kv=True)
         x = x + out
@@ -151,30 +205,111 @@ def prefill(
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Process right-padded prompts; return ``(cache, logits)``.
 
-    ``cache["k"/"v"]`` are ``(layers, B, max_seq, KV, hd)`` with the
-    prompt's K/V at ``[0, S)``; ``valid_len`` (B,) makes ragged rows
-    exact (causality keeps padding out of every valid position) and
-    selects each row's last valid position for the logits.
+    Dense: ``cache["k"/"v"]`` are ``(layers, B, max_seq, KV, hd)`` with
+    the prompt's K/V at ``[0, S)``; causality keeps padding out of every
+    valid position.  SSM: ``cache["conv"/"ssm"]`` hold each layer's state
+    after the row's last valid position (:func:`_mamba_prefill`;
+    ``max_seq`` is not used).  ``valid_len`` (B,) makes ragged rows exact
+    and selects each row's last valid position for the logits;
     ``all_logits=True`` returns ``(B, S, vocab)`` instead.
     """
-    _require_dense(cfg)
     tokens = batch["tokens"]
     x = L.embed(tokens, params["embed"])
     Bsz, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(Bsz, S)
-    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    dt = _cache_dtype(cfg, x)
-    shape = (cfg.n_layers, Bsz, max_seq, KV, hd)
-    ks = torch.zeros(shape, dtype=dt, device=x.device)
-    vs = torch.zeros(shape, dtype=dt, device=x.device)
-    x = _backbone(cfg, params, x, positions, ks, vs)
+    if _family(cfg) == "ssm":
+        cache, x = _mamba_layers(cfg, params, x, positions, valid_len)
+    else:
+        KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        dt = cache_dtype(cfg, "k", x.dtype)
+        shape = (cfg.n_layers, Bsz, max_seq, KV, hd)
+        cache = {"k": torch.zeros(shape, dtype=dt, device=x.device),
+                 "v": torch.zeros(shape, dtype=dt, device=x.device)}
+        x = _backbone(cfg, params, x, positions, cache["k"], cache["v"])
     if all_logits:
         logits = L.unembed(x, _unembed_table(cfg, params))
     else:
         logits = _last_logits(cfg, params, x, valid_len)
-    lens = (torch.full((Bsz,), S, dtype=torch.int32, device=x.device)
-            if valid_len is None else valid_len.to(torch.int32))
-    return {"k": ks, "v": vs, "len": lens}, logits
+    cache["len"] = (torch.full((Bsz,), S, dtype=torch.int32, device=x.device)
+                    if valid_len is None else valid_len.to(torch.int32))
+    return cache, logits
+
+
+def _mamba_layers(cfg: ModelConfig, params, x: torch.Tensor,
+                  positions: torch.Tensor,
+                  valid_len: Optional[torch.Tensor]):
+    """The ssm family's prefill layers → ``({"conv", "ssm"}, final-norm
+    hidden states)``; conv in the activation dtype, SSM state fp32."""
+    seq_valid = (None if valid_len is None
+                 else positions < valid_len.to(x.device)[:, None])
+    Bsz = x.shape[0]
+    cs, ss = M.mamba_cache_shape(cfg, Bsz)
+    conv = torch.empty((cfg.n_layers,) + cs,
+                       dtype=cache_dtype(cfg, "conv", x.dtype),
+                       device=x.device)
+    ssm = torch.empty((cfg.n_layers,) + ss,
+                      dtype=cache_dtype(cfg, "ssm", x.dtype), device=x.device)
+    for i in range(cfg.n_layers):
+        x, conv[i], ssm[i] = _mamba_prefill(cfg, _layer(params, i)["mamba"],
+                                            x, seq_valid)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return {"conv": conv, "ssm": ssm}, x
+
+
+def _mamba_prefill(cfg: ModelConfig, p, x: torch.Tensor,
+                   seq_valid: Optional[torch.Tensor] = None):
+    """The mamba mixer over the full sequence AND the layer's final
+    states.  ``seq_valid`` (B,S) masks right padding: the mixer output is
+    zeroed past each row's valid prefix, and the state-only pass sees
+    masked inputs, so the states stop exactly at ``valid_len``."""
+    out = M.mamba_apply(cfg, p, x)
+    if seq_valid is not None:
+        out = out * seq_valid[..., None].to(out.dtype)
+    conv_s, ssm_s = _mamba_final_state(cfg, p, x, seq_valid)
+    return x + out, conv_s, ssm_s
+
+
+def _mamba_final_state(cfg: ModelConfig, p, x: torch.Tensor,
+                       seq_valid: Optional[torch.Tensor] = None):
+    """State-only SSD pass → ``(conv_state, ssm_state)`` after ``x``.
+
+    The conv state is the last W-1 (masked) raw inputs of each row,
+    sliced from ``clip(valid_len - (W-1), 0, S - (W-1))`` as the JAX
+    package's ``dynamic_slice`` takes it: a row shorter than W-1 tokens
+    keeps its tokens left-aligned (``[x0, 0, 0]``), a property of the
+    reference that the port reproduces (ROADMAP.md §C).  The SSM state is
+    one fp32 contraction over the whole sequence with ``dt`` masked."""
+    Bsz, S, _ = x.shape
+    DI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    W = cfg.conv_width
+    xn = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    _, xi, b, c, dt = M._split_proj(cfg, xn @ p["w_in"])
+    xbc_raw = torch.cat([xi, b, c], dim=-1)
+    if seq_valid is not None:
+        xbc_raw = xbc_raw * seq_valid[..., None].to(xbc_raw.dtype)
+    if seq_valid is None:
+        conv_state = xbc_raw[:, -(W - 1):]
+        if S < W - 1:
+            conv_state = torch.nn.functional.pad(xbc_raw,
+                                                 (0, 0, W - 1 - S, 0))
+    else:
+        valid_len = seq_valid.sum(dim=1)                      # (B,)
+        start = torch.clamp(valid_len - (W - 1), 0, max(S - (W - 1), 0))
+        rows = start[:, None] + torch.arange(W - 1, device=x.device)
+        conv_state = torch.gather(
+            xbc_raw, 1, rows[..., None].expand(-1, -1, xbc_raw.shape[-1]))
+    xbc = M._causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+    xi2 = xbc[..., :DI].reshape(Bsz, S, H, P)
+    b2 = xbc[..., DI:DI + N]
+    dt_bias, A = M._ssm_params(p)
+    dtp = torch.nn.functional.softplus(dt.float() + dt_bias)
+    if seq_valid is not None:
+        dtp = dtp * seq_valid[..., None].float()
+    cum = torch.cumsum(dtp * A[None, None, :], dim=1)
+    w_state = torch.exp(cum[:, -1:, :] - cum) * dtp          # (B,S,H)
+    ssm_state = torch.einsum("bsn,bshp->bhnp", b2.float(),
+                             xi2.float() * w_state[..., None])
+    return conv_state, ssm_state
 
 
 def encode(
@@ -184,13 +319,13 @@ def encode(
     """Sequence embeddings: final-norm hidden states mean-pooled in fp32
     over each row's valid positions → ``(B, d_model)`` fp32.
 
-    The same backbone as :func:`prefill` (so flash attention on the
-    card), but no KV cache is allocated and nothing is unembedded: the
-    serving tier's embedding surface (``Engine.embed_rows``).  Causality
-    keeps right-padding out of every position ``< valid_len``, and only
-    those are pooled.
+    The same backbone as :func:`prefill` (so flash attention, or the SSD
+    scan, on the card), but no cache is allocated and nothing is
+    unembedded: the serving tier's embedding surface
+    (``Engine.embed_rows``).  Both families are causal, so right-padding
+    stays out of every position ``< valid_len``, and only those are
+    pooled.
     """
-    _require_dense(cfg)
     tokens = batch["tokens"]
     x = L.embed(tokens, params["embed"])
     Bsz, S = tokens.shape
@@ -217,16 +352,18 @@ def chunked_prefill(
     prefix at ``[0, P)``, each row's suffix written over it from its own
     ``prefix_len``.  With ``paged=True`` the cache holds the suffix K/V
     only, ``(layers, B, S, KV, hd)``, for the engine to page-scatter.
-    Either way ``len = prefix_len + valid_len``.
+    Either way ``len = prefix_len + valid_len``.  KV-only families only:
+    an SSM state cannot be re-anchored mid-sequence (the engine gates the
+    prefix cache off for them).
     """
-    _require_dense(cfg)
+    _require_kv(cfg, "chunked prefill")
     tokens = batch["tokens"]
     x = L.embed(tokens, params["embed"])
     Bsz, S = tokens.shape
     positions = (prefix_len.long()[:, None]
                  + torch.arange(S, device=x.device)[None])
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    dt = _cache_dtype(cfg, x)
+    dt = cache_dtype(cfg, "k", x.dtype)
     shape = (cfg.n_layers, Bsz, S if paged else max_seq, KV, hd)
     ks = torch.empty(shape, dtype=dt, device=x.device)
     vs = torch.empty(shape, dtype=dt, device=x.device)
@@ -285,11 +422,26 @@ def decode_step(
     (``index_put_``: the returned ``k``/``v`` are the same tensors), and
     rows with ``active`` False keep their length (the paged engine points
     them at its dump page with ``len = 0``; a dense row is overwritten
-    when its slot is refilled).  Returns ``(cache', logits)``.
+    when its slot is refilled).  SSM cache: ``len`` and the states
+    ``conv``/``ssm``, each layer's updated **in place**; as in the JAX
+    package only ``len`` is frozen for inactive rows, whose states
+    advance on their dummy tokens until the next insert overwrites them.
+    Returns ``(cache', logits)``.
     """
-    _require_dense(cfg)
     x = L.embed(tokens, params["embed"])
     cache_len = cache["len"]
+    step = 1 if active is None else active.to(cache_len.dtype)
+    if _family(cfg) == "ssm":
+        conv, ssm = cache["conv"], cache["ssm"]
+        for i in range(cfg.n_layers):
+            out, conv_s, ssm_s = M.mamba_decode(
+                cfg, _layer(params, i)["mamba"], x, conv[i], ssm[i])
+            conv[i] = conv_s
+            ssm[i] = ssm_s
+            x = x + out
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = L.unembed(x, _unembed_table(cfg, params))[:, 0]
+        return dict(cache, len=cache_len + step), logits
     k_all, v_all = cache["k"], cache["v"]
     paged = "pages" in cache
     if paged:
@@ -313,9 +465,7 @@ def decode_step(
         x = x + B.mlp_apply(cfg, lp["mlp"], x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(x, _unembed_table(cfg, params))[:, 0]
-    step = 1 if active is None else active.to(cache_len.dtype)
-    new_cache = dict(cache, len=cache_len + step)
-    return new_cache, logits
+    return dict(cache, len=cache_len + step), logits
 
 
 def verify_step(
@@ -336,8 +486,10 @@ def verify_step(
     ``cache["len"]`` is **not** advanced: the engine commits the accepted
     prefix on the host (``Engine.commit_spec``); the rejected tail stays
     as masked garbage that the next write at those positions overwrites.
+    KV-only families only: an SSM state advances irreversibly per token
+    and cannot roll back (the engine gates speculation off for them).
     """
-    _require_dense(cfg)
+    _require_kv(cfg, "speculative verification")
     x = L.embed(tokens, params["embed"])
     K = tokens.shape[1]
     cache_len = cache["len"]

@@ -29,7 +29,7 @@ import torch
 class Spec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"       # normal | zeros | ones
+    init: str = "normal"       # normal | zeros | ones | small_a
     scale: Optional[float] = None  # stddev override for normal init
 
     def __post_init__(self):
@@ -81,6 +81,11 @@ def _init_one(spec: Spec, generator: torch.Generator, dtype,
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init == "small_a":
+        # mamba A_log init: log of Uniform[1, 16]
+        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32,
+                       device=device) * 15.0 + 1.0
+        return torch.log(u).to(dtype)
     if spec.init == "normal":
         fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
         std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)

@@ -44,6 +44,11 @@ What carries over unchanged from the JAX engine:
   per-position logits, zero decode steps, pages released right after.
 * **The embedding surface** (:meth:`Engine.embed_rows`) — a bucketed,
   cache-free encode pass returning mean-pooled fp32 hidden states.
+* **The ssm family** (mamba2) — the same slot API over per-slot conv and
+  SSM states (:class:`DecodeState`, every leaf at its own batch axis and
+  dtype); paging, the prefix cache and speculation are gated off, as the
+  JAX engine gates them, and every prefill, scoring and encode pass runs
+  the ``ssd_scan`` kernel once a layer.
 
 PyTorch runs eagerly, so there are no jitted closures: every pass is a
 call into :mod:`repro_torch.models` on the engine's device (the device of
@@ -64,7 +69,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.llm_client import cancel_unfinished
-from repro_torch.models import (chunked_prefill, decode_step, encode, prefill,
+from repro_torch.models import (KV_ONLY_FAMILIES, cache_dtype, cache_specs,
+                                chunked_prefill, decode_step, encode, prefill,
                                 verify_step)
 from repro_torch.obs.trace import NULL_TRACE
 from repro_torch.serve.prefix_cache import PagedKVPool, RadixPrefixCache
@@ -190,8 +196,9 @@ class DecodeState:
     """State of the ``slots``-wide continuous batch on the dense engine.
 
     ``cache`` — ``len`` (slots,) int32 and the rows ``k``/``v`` ``(layers,
-    slots, max_seq, KV, hd)`` on the engine device, allocated once; a row
-    is overwritten in place when a new request is inserted into its slot.
+    slots, max_seq, KV, hd)`` (the ssm family: ``conv``/``ssm`` states) on
+    the engine device, allocated once; a row is overwritten in place when
+    a new request is inserted into its slot.
     ``logits`` — (slots, vocab) fp32 next-token logits per row.
     """
 
@@ -277,7 +284,7 @@ class Engine:
         mesh: Any = None,
         quant: Optional[bool] = None,
     ):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise _not_ported(f"serving the {cfg.family!r} family",
                               "queue A items 10-12")
         if mesh is not None:
@@ -289,13 +296,19 @@ class Engine:
             raise _not_ported("int8 weight residency (quant=True)",
                               "queue A item 13")
         # Self-speculative decoding: greedy-parity n-gram drafting and one
-        # verification pass per step; off by default.
+        # verification pass per step; off by default.  Paging, the prefix
+        # cache and speculation are for KV-only families: an SSM state
+        # cannot be paged, re-anchored mid-sequence or rolled back, so the
+        # ssm family gets dense rows and none of the three.
+        kv_only = cfg.family in KV_ONLY_FAMILIES
         if spec_decode is None:
             spec_decode = os.environ.get("REPRO_SPEC_DECODE", "0") == "1"
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if paged is None:
             paged = os.environ.get("REPRO_PAGED_KV", "1") != "0"
+        paged = bool(paged) and kv_only
+        spec_decode = bool(spec_decode) and kv_only
         if paged and prefix_page_size not in (None, page_size):
             raise ValueError(
                 "a paged engine has ONE page granularity: the prefix cache "
@@ -327,6 +340,7 @@ class Engine:
 
         if prefix_cache is None:
             prefix_cache = os.environ.get("REPRO_PREFIX_CACHE", "1") != "0"
+        prefix_cache = bool(prefix_cache) and kv_only
         #: high-water mark of *distinct* pages referenced by live decode
         #: rows (shared prefix pages count once)
         self._peak_live_pages = 0
@@ -356,6 +370,11 @@ class Engine:
             b for b in [4 * pg, *self.prefill_buckets, max_seq // pg * pg]
             if 0 < b <= max_seq and b % pg == 0
         }) or [max_seq]
+        # each cache leaf's batch axis, from the logical axis names of
+        # cache_specs (K/V and the SSM states at axis 1, "len" at 0)
+        self._batch_axes = {
+            name: spec.axes.index("batch") if "batch" in spec.axes else 0
+            for name, spec in cache_specs(cfg, slots, max_seq).items()}
         self._default_executor = None  # lazy, for the generate() facade
 
     # ------------------------------------------------------------------
@@ -468,9 +487,12 @@ class Engine:
     def init_state(self):
         """The ``slots``-wide decode state and a zero logits buffer.
 
-        Paged: empty page tables, no cache rows.  Dense: zeroed cache rows
-        at ``max_seq`` capacity, which inserts overwrite (the JAX engine
-        runs its prefill on an all-pad batch to get the same shapes)."""
+        Paged: empty page tables, no cache rows.  Dense: every leaf of
+        :func:`cache_specs` (K/V rows at ``max_seq`` capacity, or the
+        ssm family's conv and SSM states) zeroed in its own dtype
+        (:func:`cache_dtype`: the SSM state fp32), which inserts
+        overwrite; the JAX engine runs its prefill on an all-pad batch to
+        get the same shapes and dtypes."""
         logits = torch.zeros((self.slots, self.cfg.padded_vocab),
                              dtype=torch.float32, device=self.device)
         if self.paged:
@@ -481,15 +503,13 @@ class Engine:
                 table_np=np.full((self.slots, self._maxp), self._dump,
                                  np.int32),
             )
-        cfg = self.cfg
-        shape = (cfg.n_layers, self.slots, self.max_seq, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
         dt = self.params["embed"].dtype
         return DecodeState(cache={
-            "len": torch.zeros(self.slots, dtype=torch.int32,
-                               device=self.device),
-            "k": torch.zeros(shape, dtype=dt, device=self.device),
-            "v": torch.zeros(shape, dtype=dt, device=self.device),
+            name: torch.zeros(spec.shape,
+                              dtype=cache_dtype(self.cfg, name, dt),
+                              device=self.device)
+            for name, spec in cache_specs(self.cfg, self.slots,
+                                          self.max_seq).items()
         }, logits=logits)
 
     def prefill_rows(
@@ -878,12 +898,12 @@ class Engine:
 
     def _insert_impl(self, state: DecodeState, cache: dict,
                      logits: torch.Tensor, row: int, slot: int) -> None:
-        """Copy one prefilled dense row (cache ``(layers, B, max_seq, KV,
-        hd)``, ``len`` and logits) into ``slot`` of the decode state."""
-        dst = state.cache
-        for name in ("k", "v"):
-            dst[name][:, slot] = cache[name][:, row].to(dst[name].dtype)
-        dst["len"][slot] = cache["len"][row]
+        """Copy one prefilled row (every cache leaf at its own batch axis,
+        in the state's dtype) and its logits into ``slot`` of the dense
+        decode state."""
+        for name, dst in state.cache.items():
+            ax = self._batch_axes[name]
+            dst.narrow(ax, slot, 1).copy_(cache[name].narrow(ax, row, 1))
         state.logits[slot] = logits[row]
 
     def _device_table_args(self, state: PagedDecodeState) -> dict:

@@ -227,6 +227,69 @@ def test_topk_kernel_rejects_what_it_does_not_take(cuda):
         ops.topk_similarity(e, big, k=ops.TOPK_MAX_K + 1)
 
 
+def _ssd_inputs(g, dtype, B, S, H, P, N):
+    """The inputs of tests/test_kernels.py::test_ssd_scan: x, b, c normal,
+    dt = softplus(normal) and A = -exp(normal / 2) in fp32."""
+    x = _randn(g, dtype, B, S, H, P)
+    dt = torch.nn.functional.softplus(_randn(g, torch.float32, B, S, H))
+    A = -torch.exp(_randn(g, torch.float32, H) * 0.5)
+    return x, dt, A, _randn(g, dtype, B, S, N), _randn(g, dtype, B, S, N)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16), (1, 48, 4, 8, 16, 12),
+    (4, 128, 24, 64, 128, 256), (2, 1024, 24, 64, 128, 256),
+    (1, 200, 3, 40, 100, 100)])
+def test_ssd_scan_kernel_on_card(cuda, dtype, B, S, H, P, N, chunk):
+    """Against the plain chunked scan at the tolerances of
+    tests/test_kernels.py::test_ssd_scan (2e-4 fp32, 5e-2 bf16): the CPU
+    sweep, mamba2-130m's widths at a bucket of 128 and of 1024, and ragged
+    64-row tiles (chunk 100, P 40, N 100)."""
+    g = torch.Generator(cuda).manual_seed(S + P)
+    x = _ssd_inputs(g, dtype, B, S, H, P, N)
+    before = ops.ssd_scan.launches
+    out = ops.ssd_scan(*x, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, S, H, P)
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(out.float(),
+                               L.ssd_chunk_scan(*x, chunk).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_ssd_scan_kernel_rejects_what_it_does_not_take(cuda):
+    g = torch.Generator(cuda).manual_seed(0)
+    x, dt, A, b, c = _ssd_inputs(g, torch.float32, 1, 16, 2, 80, 8)
+    with pytest.raises(ValueError, match="caps"):
+        ops.ssd_scan(x, dt, A, b, c)                       # P 80 > 64
+    x, dt, A, b, c = _ssd_inputs(g, torch.float32, 1, 16, 2, 8, 8)
+    with pytest.raises(TypeError, match="float32"):
+        ops.ssd_scan(x, dt.bfloat16(), A, b, c)
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.ssd_scan(x, dt[:, :8], A, b, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 32), (4, 33, 64), (2, 5, 7, 128),
+                                   (4096, 768), (4, 768), (4, 1536),
+                                   (4, 2048), (3, 8192)])
+def test_rmsnorm_kernel_on_card(cuda, dtype, shape):
+    """Against the plain version at tests/test_kernels.py:13 tolerances
+    (2e-5 fp32, 2e-2 bf16): the sweep of tests/test_kernels.py, the port's
+    norm shapes and the widest row taken (8192)."""
+    g = torch.Generator(cuda).manual_seed(shape[-1])
+    x = _randn(g, dtype, *shape)
+    w = _randn(g, torch.float32, shape[-1])
+    before = ops.rmsnorm.launches
+    out = ops.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert ops.rmsnorm.launches == before + 1 and out.dtype == dtype
+    torch.testing.assert_close(out.float(), L.rms_norm(x, w).float(),
+                               **_tol(dtype))
+
+
 def test_kernels_reject_unsupported_head_dim(cuda):
     q = torch.zeros(1, 8, 2, 8, device=cuda)
     kv = torch.zeros(1, 8, 1, 8, device=cuda)
@@ -304,3 +367,39 @@ def test_scoring_and_embedding_on_card_match_cpu(cuda):
     torch.testing.assert_close(torch.from_numpy(out["cuda"][2]),
                                torch.from_numpy(out["cpu"][2]),
                                rtol=0, atol=2e-5)
+
+
+def test_ssm_engine_on_card_matches_cpu(cuda):
+    """The mamba2 smoke engine (fp32) on the card decodes the CPU's greedy
+    tokens and gives its log-probs (1e-4) and vectors (1e-4); every
+    prefill, scoring and encode pass launched the scan kernel once a
+    layer, and no attention kernel launched."""
+    cfg = get_smoke_config("mamba2-130m")
+    cpu_params = init_params(model_specs(cfg),
+                             torch.Generator("cpu").manual_seed(0),
+                             device="cpu")
+    prompts = ["Compare these two listings: red bike / red bike", "x"]
+    pairs = [("state space", " Yes"), ("state space", " No")]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, _to(cpu_params, dev), ByteTokenizer(cfg.vocab_size),
+                     max_seq=256, slots=2)
+        ops.reset_launch_counts()
+        texts = [r.text for r in eng.generate(prompts * 2, max_tokens=12)]
+        rows = eng.score_rows(pairs)
+        vecs, _ = eng.embed_rows(["hello world", "x"])
+        out[dev] = (texts, [lp for r in rows for lp in r.token_logprobs],
+                    vecs)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            passes = eng._default_executor.stats.prefill_batches + 2
+            assert counts["ssd_scan"] == cfg.n_layers * passes, counts
+            assert not any(n for k, n in counts.items()
+                           if k != "ssd_scan"), counts
+    assert out["cuda"][0] == out["cpu"][0]
+    torch.testing.assert_close(torch.tensor(out["cuda"][1]),
+                               torch.tensor(out["cpu"][1]), rtol=0, atol=1e-4)
+    torch.testing.assert_close(torch.from_numpy(out["cuda"][2]),
+                               torch.from_numpy(out["cpu"][2]),
+                               rtol=1e-4, atol=1e-4)

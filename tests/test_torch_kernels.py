@@ -255,6 +255,30 @@ def test_dense_decode_equals_paged_decode_bitwise():
     assert torch.equal(ops.decode_attention(q, kc, vc, clen), paged)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 32), (4, 33, 64), (2, 5, 7, 128),
+                                   (4, 768), (4, 1536)])
+def test_rmsnorm_plain_matches_ref_and_pallas(shape, dtype):
+    """``ops.rmsnorm`` on CPU tensors (its plain version, ``layers.rms_norm``)
+    against ``ref.rmsnorm_ref`` and the Pallas kernel in interpret mode,
+    over the sweep of tests/test_kernels.py:291-300 and two of the port's
+    norm widths; x in ``dtype``, w fp32, the same rounding on both sides;
+    tolerances of tests/test_kernels.py:13 (2e-5 fp32, 2e-2 bf16)."""
+    rng = np.random.default_rng(shape[-1])
+    x, w = _rand(rng, *shape), _rand(rng, shape[-1])
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    launches = dict(ops.launch_counts())
+    out = ops.rmsnorm(tx, torch.from_numpy(w))
+    assert ops.launch_counts() == launches      # CPU tensors: no kernel
+    assert out.dtype == tx.dtype and out.shape == tx.shape
+    tol = (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+           else TOL[np.float32])
+    for want in (ref.rmsnorm_ref(jx, jnp.asarray(w)),
+                 jops.rmsnorm(jx, jnp.asarray(w))):
+        np.testing.assert_allclose(_np(out.float()), _np(want), **tol)
+
+
 def test_wrappers_reject_mixed_devices():
     q = torch.zeros(1, 4, 2, 16)
     with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
