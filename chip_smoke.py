@@ -23,9 +23,12 @@ no result line:
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at edge cases: the attention kernels in fp32
    (TF32 off) and bf16 with the tolerances of ``tests/test_kernels.py``
-   (2e-5 fp32, 2e-2 bf16); every window row of the verify kernel against
-   the paged decode kernel at its length, and dense decode against paged
-   decode on the same data, bit for bit; top-k in fp32 over the sweep of
+   (2e-5 fp32, 2e-2 bf16), flash and chunked prefill also at the 64-row
+   tile edges of their body (``FLASH_EDGES``, ``CHUNKED_EDGES``); every
+   chunked row without a prefix against the flash kernel, every window
+   row of the verify kernel against the paged decode kernel at its
+   length, and dense decode against paged decode on the same data, bit
+   for bit; top-k in fp32 over the sweep of
    ``tests/test_kernels.py`` (lattice inputs bit for bit, ties, k >= N,
    Gaussian inputs to 1e-6, k up to 2048); ``ssd_scan`` at mamba2-130m's
    main shape (B 4, S 1024, H 24, P 64, N 128, chunk 256), at a bucket of
@@ -84,7 +87,10 @@ no result line:
    one PyTorch call as a yardstick (timed here, never called by the
    port: ``scaled_dot_product_attention``, with a mask where needed,
    ``torch.topk(e1 @ e2.T, k)``, ``torch.nn.functional.rms_norm``; none
-   for the scan) and its bound from bytes and operations.
+   for the scan) and its bound from bytes and operations.  Flash and
+   chunked prefill are timed at every shape any path launched them at,
+   beside the CUDA-core body they ran on before the tensor-core one, and
+   each path's launches x ms of the two is printed under both bodies.
    ``--profile`` adds one block join and prefilter leg (b) under
    ``torch.profiler`` (device busy share, device time by kernel).
 
@@ -101,6 +107,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -133,6 +140,19 @@ SSD_TOL = {torch.float32: (2e-4, 2e-4),             # tests/test_kernels.py
            torch.bfloat16: (5e-2, 5e-2)}            # :285-286
 SSD_SWEEP = [(1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16),
              (1, 48, 4, 8, 16, 12)]                 # tests/test_kernels.py:277
+#: flash (B, S, H, KV, hd) at the 64-row tile edges of the prefill body:
+#: S 1, 63, 64, 65, 127, 129; hd 16, 32, 64, 128; G = H / KV 1, 2, 4
+FLASH_EDGES = [(2, 1, 8, 2, 64), (2, 63, 8, 8, 32), (1, 64, 8, 4, 128),
+               (3, 65, 8, 2, 16), (2, 127, 32, 8, 64), (2, 129, 4, 4, 128),
+               (1, 129, 6, 3, 32)]
+#: chunked prefill (B, S, P, H, KV, hd, prefix_len) at the same edges:
+#: prefix_len 0, 1, 63, 64, 65 and P, with P 16, 64 and 1000
+CHUNKED_EDGES = [(4, 63, 16, 8, 2, 32, [16, 0, 1, 15]),
+                 (4, 65, 64, 8, 4, 64, [63, 64, 0, 1]),
+                 (4, 129, 1000, 8, 2, 128, [65, 1000, 0, 64]),
+                 (3, 1, 1000, 4, 4, 16, [1000, 0, 63]),
+                 (2, 127, 1000, 32, 8, 64, [999, 0]),
+                 (3, 64, 64, 6, 3, 32, [0, 64, 65])]
 #: the port's norm shapes: mamba2 prefill (4 x 1024 rows) and decode, its
 #: gate norm at decode, granite at decode
 NORM_SHAPES = [(4096, 768), (4, 768), (4, 1536), (4, 2048)]
@@ -385,13 +405,16 @@ def check_kernels(ops, L, dev) -> Checks:
     H, KV, hd, page, B = (MAIN[k] for k in ("H", "KV", "hd", "page", "B"))
     for dtype in (torch.float32, torch.bfloat16):
         g = torch.Generator(dev).manual_seed(0)
-        # flash: main-path buckets, then S = 96, odd heads, hd 16/128, S = 1
+        # flash: main-path buckets, then S = 96, odd heads, hd 16/128, S = 1,
+        # then the 64-row tile edges (S 63..129) at hd 16/32/64/128 and
+        # G = H / KV of 1, 2 and 4
         for shape, main in ([((B, S, H, KV, hd), True) for S in (128, 512, 1024)]
                             + [((2, 96, H, KV, hd), False),
                                ((2, 64, 6, 3, 32), False),
                                ((4, 77, 4, 2, 16), False),
                                ((1, 128, 4, 1, 128), False),
-                               ((1, 1, H, KV, hd), False)]):
+                               ((1, 1, H, KV, hd), False)]
+                            + [(x, False) for x in FLASH_EDGES]):
             x = flash_inputs(g, dtype, *shape)
             c.compare("flash_attention", f"B,S,H,KV,hd={shape}",
                       ops.flash_attention(*x), L.flash_attention(*x), dtype,
@@ -404,7 +427,8 @@ def check_kernels(ops, L, dev) -> Checks:
                 + [((3, 1, 64, H, KV, hd, [64, 17, 0]), False),
                    ((2, 96, 1024, H, KV, hd, [1024, 1024]), False),
                    ((2, 48, 32, 6, 3, 32, [20, 32]), False),
-                   ((4, 40, 64, 4, 2, 16, [64, 0, 33, 16]), False)]):
+                   ((4, 40, 64, 4, 2, 16, [64, 0, 33, 16]), False)]
+                + [(x, False) for x in CHUNKED_EDGES]):
             x = chunked_inputs(g, dtype, Bc, S, P, Hc, KVc, hdc, plens)
             out = ops.chunked_prefill_attention(*x)
             label = f"B,S,P,H,KV,hd={(Bc, S, P, Hc, KVc, hdc)} plen={plens}"
@@ -965,8 +989,9 @@ def run_prefilter_path(rt, ops, dev, engine) -> dict:
     counts = ops.launch_counts()          # read right after the path
     shapes = {k.name: k.shapes.most_common() for k in ops.KERNELS}
     log(f"  prefilter path: wall={wall:.3f} s launches={counts}")
-    log(f"    topk_similarity launches by integer arguments: "
-        f"{shapes['topk_similarity']}")
+    for name in ("flash_attention", "chunked_prefill_attention",
+                 "topk_similarity"):
+        log(f"    {name} launches by integer arguments: {shapes[name]}")
     needed = ("flash_attention", "chunked_prefill_attention",
               "topk_similarity")
     if [k for k in needed if counts[k] == 0] or counts["paged_decode_attention"]:
@@ -1532,7 +1557,33 @@ def sdpa():
     return call
 
 
-def time_flash(ops, L, g, dtype, B, S, H, KV, hd):
+def cuda_core_prefill(build):
+    """The CUDA-core body of the two prefill kernels, run in bf16 at hd
+    64: the design before the tensor-core one, kept callable as a
+    yardstick (``csrc/chunked_prefill.cu``'s
+    ``repro_prefill_attention_cuda_cores``; on no model path, counted
+    nowhere).  ``call(q, k, v[, kp, vp, plen])`` takes the wrappers'
+    layouts; without a prefix it is flash."""
+    fn = build.load("chunked_prefill").repro_prefill_attention_cuda_cores
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call(q, k, v, kp=None, vp=None, plen=None):
+        B, S, H, hd = q.shape
+        out = torch.empty_like(q)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        rc = fn(ptr(q), ptr(k), ptr(v), ptr(kp), ptr(vp), ptr(plen), ptr(out),
+                B, S, 0 if kp is None else kp.shape[1], H, k.shape[2], hd,
+                int(q.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"CUDA-core prefill body: CUDA error {rc}")
+        return out
+    return call
+
+
+def time_flash(ops, L, g, dtype, B, S, H, KV, hd, cores=None):
     x0 = flash_inputs(g, dtype, B, S, H, KV, hd)
     sets = [x0] + [flash_inputs(g, dtype, B, S, H, KV, hd)
                    for _ in range(n_sets(2 * _nbytes(*x0)) - 1)]
@@ -1546,12 +1597,13 @@ def time_flash(ops, L, g, dtype, B, S, H, KV, hd):
         plain_ms=time_ms(L.flash_attention, sets[:2], 3),
         library_ms=time_ms(lambda q, k, v: call(q, k, v, is_causal=True),
                            sets, 20),
+        cuda_cores_ms=time_ms(cores, sets, 20) if cores else None,
         bound_ms=b_ms, bound_by=b_by,
         max_abs_err=float((ops.flash_attention(*x0).float()
                            - L.flash_attention(*x0).float()).abs().max()))
 
 
-def time_chunked(ops, L, g, dtype, B, S, P, H, KV, hd, plens):
+def time_chunked(ops, L, g, dtype, B, S, P, H, KV, hd, plens, cores=None):
     mk = lambda: chunked_inputs(g, dtype, B, S, P, H, KV, hd, plens)  # noqa
     x0 = mk()
     q, k, v, kp, vp, plen = x0
@@ -1578,6 +1630,7 @@ def time_chunked(ops, L, g, dtype, B, S, P, H, KV, hd, plens):
         library_ms=time_ms(
             lambda q, k, v: call(q, k, v, attn_mask=mask[:, None]),
             lib_sets, 20),
+        cuda_cores_ms=time_ms(cores, sets, 20) if cores else None,
         bound_ms=b_ms, bound_by=b_by,
         max_abs_err=float((ops.chunked_prefill_attention(*x0).float()
                            - L.chunked_prefill_attention(*x0).float())
@@ -1750,10 +1803,55 @@ def time_rmsnorm(ops, L, g, dtype, rows, D):
                            - L.rms_norm(*x0).float()).abs().max()))
 
 
-def time_kernels(ops, L, dev, shapes) -> dict:
-    """Time each kernel at its path's most frequent shape (bf16), and
-    flash / chunked prefill at the other prefill buckets.  ``shapes``
-    holds each kernel's launches by shape on its own path."""
+PREFILL = ("flash_attention", "chunked_prefill_attention")
+
+
+def time_prefill_paths(ops, L, g, paths, cores) -> tuple:
+    """Flash and chunked prefill at every shape any path launched them at
+    (in the shape's dtype; chunked with a full prefix, the most work its
+    shape holds), the CUDA-core body beside each; then, per path, the sum
+    over shapes of launches x ms under each body.  Returns ``(timed,
+    sums)``: timed as ``(name, result)`` in the order timed."""
+    timed = {}
+    for name in PREFILL:
+        for shape, _ in merge_shapes(paths.values(), name):
+            *dims, dt = shape
+            dtype = torch.bfloat16 if dt == 1 else torch.float32
+            if name == "flash_attention":
+                r = time_flash(ops, L, g, dtype, *dims, cores=cores)
+            else:
+                r = time_chunked(ops, L, g, dtype, *dims, [dims[2]] * dims[0],
+                                 cores=cores)
+            timed[(name, shape)] = r
+    sums = {}
+    log("  the two prefill kernels on each path: sum of launches x ms at each"
+        " shape's time above (tensor-core kernel; CUDA-core body before it)")
+    for pname, path in paths.items():
+        row = {}
+        for name in PREFILL:
+            by_shape = path["shapes"][name]
+            row[name] = dict(
+                launches=sum(n for _, n in by_shape),
+                ms=sum(n * timed[(name, sh)]["ms"] for sh, n in by_shape),
+                cuda_cores_ms=sum(n * timed[(name, sh)]["cuda_cores_ms"]
+                                  for sh, n in by_shape))
+        sums[pname] = row
+        total = sum(r["ms"] for r in row.values())
+        before = sum(r["cuda_cores_ms"] for r in row.values())
+        log(f"    {pname:15s} " + " ".join(
+            f"{n}: {r['launches']} launches {r['ms']:.1f} ms "
+            f"(CUDA cores {r['cuda_cores_ms']:.1f} ms);"
+            for n, r in row.items())
+            + f" both {total:.1f} ms (CUDA cores {before:.1f} ms)")
+    return [(name, r) for (name, _), r in timed.items()], sums
+
+
+def time_kernels(ops, L, dev, shapes, paths, cores) -> dict:
+    """Time each kernel at its path's most frequent shape (bf16), flash
+    and chunked prefill at every shape any path gave them (beside their
+    CUDA-core body, ``cores``), and the other kernels at further shapes
+    of their paths.  ``shapes`` holds each kernel's launches by shape on
+    its own path; ``paths`` every path's record."""
     g = torch.Generator(dev).manual_seed(2)
     dt = torch.bfloat16
     (fB, fS, fH, fKV, fhd, _), _ = shapes["flash_attention"][0]
@@ -1765,9 +1863,10 @@ def time_kernels(ops, L, dev, shapes) -> dict:
     (eB, eH, eKV, eSkv, ehd, _), _ = shapes["decode_attention"][0]
     full = [cP] * cB
     main = {
-        "flash_attention": time_flash(ops, L, g, dt, fB, fS, fH, fKV, fhd),
+        "flash_attention": time_flash(ops, L, g, dt, fB, fS, fH, fKV, fhd,
+                                      cores=cores),
         "chunked_prefill_attention": time_chunked(
-            ops, L, g, dt, cB, cS, cP, cH, cKV, chd, full),
+            ops, L, g, dt, cB, cS, cP, cH, cKV, chd, full, cores=cores),
         "paged_decode_attention": time_decode(
             ops, L, g, dt, dB, dH, dKV, dhd, dpg, dslots,
             [dslots * dpg] * dB),
@@ -1784,13 +1883,7 @@ def time_kernels(ops, L, dev, shapes) -> dict:
             "B", "S", "H", "P", "N", "chunk"))),
         "rmsnorm": time_rmsnorm(ops, L, g, dt, *NORM_SHAPES[0]),
     }
-    sweep = []
-    for S in (128, 512, 1024):
-        sweep.append(("flash_attention",
-                      time_flash(ops, L, g, dt, 4, S, 32, 8, 64)))
-        sweep.append(("chunked_prefill_attention",
-                      time_chunked(ops, L, g, dt, 4, S, 1024, 32, 8, 64,
-                                   [1024] * 4)))
+    sweep, prefill_sums = time_prefill_paths(ops, L, g, paths, cores)
     for n in (256, 1024):
         sweep.append(("paged_decode_attention",
                       time_decode(ops, L, g, dt, 4, 32, 8, 64, 16, 64,
@@ -1827,15 +1920,17 @@ def time_kernels(ops, L, dev, shapes) -> dict:
         lib_ms = ("-" if r["library_ms"] is None
                   else f"{r['library_ms']:.4f} ms")
         dt_name = "fp32" if name == "topk_similarity" else "bf16"
+        cores_ms = (f" cuda_cores={r['cuda_cores_ms']:.4f} ms"
+                    if r.get("cuda_cores_ms") is not None else "")
         log(f"  {name:26s} {dt_name} {json.dumps(r['shape']):100s} "
             f"kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
-            f"{lib}={lib_ms} bound={r['bound_ms']:.4f} ms "
+            f"{lib}={lib_ms}{cores_ms} bound={r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) kernel/bound={r['ms'] / r['bound_ms']:.1f}x")
         if name == "topk_similarity" and (not r["indices_equal"]
                                           or r["max_abs_err"] > 1e-6):
             raise AssertionError(f"topk_similarity timed inputs: kernel "
                                  f"differs from plain ({r})")
-    return dict(main=main, sweep=sweep)
+    return dict(main=main, sweep=sweep, prefill_sums=prefill_sums)
 
 
 # ---------------------------------------------------------------------------
@@ -1949,7 +2044,7 @@ def main() -> int:
     check_main_shapes(ops, L, dev, every, checks)
     home = {k.name: paths[HOME_PATH.get(k.name, "block_adaptive")]["shapes"][
         k.name] for k in ops.KERNELS}
-    timing = time_kernels(ops, L, dev, home)
+    timing = time_kernels(ops, L, dev, home, paths, cuda_core_prefill(build))
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     if args.profile:

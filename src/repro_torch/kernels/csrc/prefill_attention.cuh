@@ -1,9 +1,8 @@
 // Prefill attention over a cached prefix and a causal suffix, the body of
 // both flash_attention.cu (no prefix) and chunked_prefill.cu.
 //
-// Grid (ceil(S / kRows), H, B); 128 threads.  A block owns kRows query
-// rows of one (row b, head h) and walks key tiles in two phases with ONE
-// running softmax:
+// A block owns kRows query rows of one (row b, head h) and walks key
+// tiles in two phases with ONE running softmax:
 //   1. the cached prefix, keys [0, prefix_len[b]) -- tiles past the valid
 //      prefix are never loaded;
 //   2. the suffix, causal in suffix-local coordinates -- key tiles past
@@ -11,9 +10,25 @@
 // K/V are NOT repeated to H heads: head h reads KV head h / (H / KV).
 // With no prefix (prefix_len null or 0) phase 1 is empty and the result
 // is the flash result bit for bit.
+//
+// Two bodies, chosen by dtype in launch_prefill_t:
+//   * bf16: prefill_mma.cuh, on the tensor cores (mma.sync bf16 tiles fed
+//     by cp.async).  The work is ~4 * hd multiply-adds per (query, key)
+//     pair, far above the H100's ~295 operations per byte, so the tensor
+//     cores' 989 TFLOP/s bf16 rate, not HBM, is the ceiling.
+//   * fp32: prefill_attention_kernel below, fp32 FMAs on the CUDA cores
+//     through attention_common.cuh (grid (ceil(S / kRows), H, B), 128
+//     threads, fp32 tiles in shared memory).  TF32 tensor cores would keep
+//     ~3 decimal digits and miss the 2e-5 fp32 tolerance; fp32 runs only
+//     in the small-model checks, never at full width.  The same body is
+//     reachable in bf16 (kCudaCores) as the yardstick that chip_smoke.py
+//     times the tensor-core body against.
 #pragma once
 
+#include <type_traits>
+
 #include "attention_common.cuh"
+#include "prefill_mma.cuh"
 
 namespace repro_attn {
 
@@ -114,23 +129,34 @@ prefill_attention_kernel(const T* __restrict__ q,     // (B, S, H, HD)
   }
 }
 
-template <typename T, int HD>
+// kCudaCores runs bf16 on the CUDA-core body as well: only the yardstick
+// entry of chunked_prefill.cu instantiates it.
+template <typename T, int HD, bool kCudaCores = false>
 int launch_prefill_t(const void* q, const void* ks, const void* vs,
                      const void* kp, const void* vp, const int* prefix_len,
                      void* out, int B, int S, int P, int H, int KV,
                      cudaStream_t stream) {
-  const size_t smem = prefill_smem_bytes<HD>();
-  auto kernel = prefill_attention_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kRows - 1) / kRows, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ks),
-      static_cast<const T*>(vs), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), prefix_len, static_cast<T*>(out), S, P, H,
-      KV, 1.0f / sqrtf((float)HD));
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && !kCudaCores) {
+    return mma::launch_prefill_mma<HD>(q, ks, vs, kp, vp, prefix_len, out, B,
+                                       S, P, H, KV, stream);
+  } else {
+    const size_t smem = prefill_smem_bytes<HD>();
+    auto kernel = prefill_attention_kernel<T, HD>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((S + kRows - 1) / kRows, H, B);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(ks),
+        static_cast<const T*>(vs), static_cast<const T*>(kp),
+        static_cast<const T*>(vp), prefix_len, static_cast<T*>(out), S, P, H,
+        KV, 1.0f / sqrtf((float)HD));
+    return (int)cudaGetLastError();
+  }
+}
+
+inline bool prefill_shape_ok(int B, int S, int P, int H, int KV) {
+  return B > 0 && S > 0 && H > 0 && KV > 0 && H % KV == 0 && P >= 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t code.
@@ -139,8 +165,7 @@ inline int launch_prefill(const void* q, const void* ks, const void* vs,
                           const int* prefix_len, void* out, int B, int S,
                           int P, int H, int KV, int hd, int dtype,
                           cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || P < 0 ||
-      (dtype != 0 && dtype != 1))
+  if (!prefill_shape_ok(B, S, P, H, KV) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
 #define REPRO_PREFILL_CASE(HD)                                              \
   case HD:                                                                  \

@@ -57,7 +57,12 @@ def _randn(g, dtype, *shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,KV,hd", [
     (2, 96, 8, 2, 16), (1, 128, 4, 1, 128), (4, 130, 32, 8, 64),
-    (2, 64, 6, 3, 32)])
+    (2, 64, 6, 3, 32),
+    # the 64-row tile edges: S 1, 63, 64, 65, 127, 129; hd 16, 32, 64,
+    # 128; G = H / KV 1, 2, 4
+    (2, 1, 8, 2, 64), (2, 63, 8, 8, 32), (1, 64, 8, 4, 128),
+    (3, 65, 8, 2, 16), (2, 127, 8, 4, 64), (2, 129, 4, 4, 128),
+    (1, 129, 6, 3, 32)])
 def test_flash_kernel_on_card(cuda, dtype, B, S, H, KV, hd):
     g = torch.Generator(cuda).manual_seed(S)
     q = _randn(g, dtype, B, S, H, hd)
@@ -71,24 +76,36 @@ def test_flash_kernel_on_card(cuda, dtype, B, S, H, KV, hd):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,P,H,KV,hd", [
-    (3, 1, 16, 4, 1, 32), (4, 128, 1024, 32, 8, 64), (2, 48, 32, 6, 3, 16)])
-def test_chunked_prefill_kernel_on_card(cuda, dtype, B, S, P, H, KV, hd):
+@pytest.mark.parametrize("B,S,P,H,KV,hd,plens", [
+    (3, 1, 16, 4, 1, 32, None), (4, 128, 1024, 32, 8, 64, None),
+    (2, 48, 32, 6, 3, 16, None),
+    # the tile edges: prefix_len 0, 1, 63, 64, 65 and P with P 16, 64 and
+    # 1000; S 1, 63, 64, 65, 127, 129; hd 16-128; G 1, 2, 4
+    (4, 63, 16, 8, 2, 32, [16, 0, 1, 15]),
+    (4, 65, 64, 8, 4, 64, [63, 64, 0, 1]),
+    (4, 129, 1000, 8, 2, 128, [65, 1000, 0, 64]),
+    (3, 1, 1000, 4, 4, 16, [1000, 0, 63]),
+    (2, 127, 1000, 8, 2, 64, [999, 0]),
+    (3, 64, 64, 6, 3, 32, [0, 64, 65])])
+def test_chunked_prefill_kernel_on_card(cuda, dtype, B, S, P, H, KV, hd,
+                                        plens):
     g = torch.Generator(cuda).manual_seed(P)
     q = _randn(g, dtype, B, S, H, hd)
     k, v = _randn(g, dtype, B, S, KV, hd), _randn(g, dtype, B, S, KV, hd)
     kp, vp = _randn(g, dtype, B, P, KV, hd), _randn(g, dtype, B, P, KV, hd)
-    plen = torch.tensor([P, 0, P // 2 + 3, 1][:B], device=cuda)
+    plens = plens or [P, 0, P // 2 + 3, 1][:B]
+    plen = torch.tensor(plens, device=cuda)
     out = ops.chunked_prefill_attention(q, k, v, kp, vp, plen)
     torch.cuda.synchronize()
     torch.testing.assert_close(
         out.float(),
         L.chunked_prefill_attention(q, k, v, kp, vp, plen).float(),
         **_tol(dtype))
-    # a row without a prefix is the flash result for its suffix
-    if B > 1:
-        torch.testing.assert_close(out[1], ops.flash_attention(q, k, v)[1],
-                                   rtol=0, atol=0)
+    # a row without a prefix is the flash result for its suffix, exactly
+    zero = [b for b, n in enumerate(plens) if n == 0]
+    if zero:
+        torch.testing.assert_close(
+            out[zero], ops.flash_attention(q, k, v)[zero], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -42,6 +42,8 @@ def _np(t):
     (2, 64, 4, 2, 16),     # GQA 2:1
     (1, 96, 8, 2, 16),     # GQA 4:1, S = 96 (not a power of two)
     (2, 64, 6, 3, 8),      # odd head count, hd = 8
+    (1, 65, 4, 2, 16),     # one row past a 64-row tile
+    (1, 129, 4, 1, 16),    # one row past two tiles; GQA 4:1
 ])
 def test_flash_plain_matches_ref_and_pallas(B, S, H, KV, hd):
     rng = np.random.default_rng(S * H)
@@ -64,6 +66,7 @@ def test_flash_plain_matches_ref_and_pallas(B, S, H, KV, hd):
     (2, 32, 64, 4, 2, 16, [64, 37]),     # full prefix; ragged unaligned
     (3, 1, 16, 4, 1, 32, [16, 3, 0]),    # 1-token suffix; a pad row (0)
     (1, 48, 32, 6, 3, 8, [20]),          # odd heads, hd = 8
+    (3, 40, 65, 4, 2, 16, [65, 64, 1]),  # P one key past a 64-key tile
 ])
 def test_chunked_prefill_plain_matches_ref_and_pallas(B, S, P, H, KV, hd,
                                                       plens):
