@@ -42,6 +42,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "attention_common.cuh"   // smem_addr, cp_async16, aligned16
+
 namespace repro_attn {
 namespace mma {
 
@@ -61,26 +63,6 @@ constexpr int kLdOf = HD + 8;
 // two stages of a K tile and a V tile
 template <int HD>
 constexpr size_t kSmemBytes = sizeof(bf16) * 4 * kKeys * kLdOf<HD>;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
@@ -349,10 +331,6 @@ prefill_mma_kernel(const bf16* __restrict__ q,     // (B, S, H, HD)
                                 part * 8) =
           *reinterpret_cast<const uint4*>(Os + r * kLd + part * 8);
   }
-}
-
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // The bf16 launch.  Every tensor is read and written in 16-byte vectors,

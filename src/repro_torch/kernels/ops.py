@@ -1,4 +1,4 @@
-"""Wrappers of the port's eight hand-written CUDA kernels.
+"""Wrappers of the port's nine hand-written CUDA kernels.
 
 Three attention kernels carry the serving path (block and adaptive
 joins): ``flash_attention``, ``chunked_prefill_attention`` and
@@ -9,9 +9,14 @@ on the paged engine verifies its draft windows with
 ``spec_verify_attention``; the dense-KV engine decodes with
 ``decode_attention`` and verifies by looping it over the window.  The
 ssm family (mamba2) runs ``ssd_scan`` in every prefill, scoring and
-encode pass, once a layer.  ``rmsnorm`` is on no model path (the JAX
-package's model never calls its Pallas twin either); it is held against
-its plain version at the port's norm shapes.
+encode pass, once a layer.  The dense family's decode and verify
+passes take every norm through ``rmsnorm`` (one warp a row) and every
+product -- the attention projections, the MLP and the unembed --
+through ``decode_gemm`` (by :func:`decode_linear`): results per row that
+do not depend on how many rows came with it, so a verify pass gives
+each window row the bits of the decode step it stands for.  (The JAX
+package's model calls its RMSNorm kernel nowhere; the port needs the
+row-blocked norm for this.)
 
 Each wrapper takes the layouts of the JAX package's kernels (q
 ``(B, S, H, hd)``, K/V unrepeated with ``KV`` heads, pools ``(n_pages,
@@ -52,6 +57,14 @@ TOPK_MAX_K = 2048
 #: the largest head width P and state width N the scan kernel stages
 #: (csrc/ssd_scan.cu), and its longest chunk
 SSD_MAX_P, SSD_MAX_N, SSD_MAX_CHUNK = 64, 128, 2048
+#: the most rows of x one launch of the decode GEMM takes (kMaxRows in
+#: csrc/decode_gemm.cu); the wrapper walks more rows in blocks of it.  One
+#: launch covers slots x (spec_k + 1) on the match-dense join (52) and at
+#: the engine's defaults (8 slots, spec_k 8: 72)
+DECODE_MAX_ROWS = 128
+#: the decode GEMM's counters: one per column tile of a split product,
+#: at most 256 (kTargetBlocks / 2 in csrc/decode_gemm.cu)
+_GEMM_COUNTERS = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -74,21 +87,53 @@ class CudaKernel:
                           + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         self._fn = None
 
-    def _launch(self, ptrs: Sequence[torch.Tensor], ints: Sequence[int],
-                floats: Sequence[float] = ()):
+    def _lib(self) -> ctypes.CDLL:
+        return build.load(self.source)
+
+    def _launch(self, ptrs: Sequence[Optional[torch.Tensor]],
+                ints: Sequence[int], floats: Sequence[float] = (),
+                key: Optional[Sequence[int]] = None):
+        """Launch on the current stream and count it, under ``key`` in
+        :attr:`shapes` (the integer arguments unless given)."""
         if self._fn is None:
-            fn = getattr(build.load(self.source), self.symbol)
+            fn = getattr(self._lib(), self.symbol)
             fn.argtypes = self._argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        stream = torch.cuda.current_stream(ptrs[0].device).cuda_stream
-        rc = self._fn(*[t.data_ptr() for t in ptrs], *[int(i) for i in ints],
-                      *[float(f) for f in floats], stream)
+        # the raw handle of the current stream: the cheapest way to it, as
+        # a decode pass makes ~400 launches
+        stream = torch._C._cuda_getCurrentRawStream(ptrs[0].device.index)
+        rc = self._fn(*[None if t is None else t.data_ptr() for t in ptrs],
+                      *map(int, ints), *map(float, floats), stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {rc}")
         self.launches += 1
-        self.shapes[tuple(int(i) for i in ints)] += 1
+        self.shapes[tuple(map(int, ints if key is None else key))] += 1
+
+
+class _SplitDecode(CudaKernel):
+    """A decode-side attention kernel on the split-context body of
+    csrc/attention_common.cuh: every row's context is cut into chunks of
+    ``chunk()`` positions from position 0, one block folds each chunk, and
+    a combine folds the chunks' fp32 partials in order, in the same C call
+    (one launch counted)."""
+
+    def chunk(self) -> int:
+        """Positions per chunk (kChunk in csrc/attention_common.cuh)."""
+        if getattr(self, "_chunk", None) is None:
+            fn = self._lib().repro_attn_chunk
+            fn.argtypes, fn.restype = [], ctypes.c_int
+            self._chunk = int(fn())
+        return self._chunk
+
+    def partials(self, B: int, KV: int, cap: int, rows: int, hd: int,
+                 device) -> torch.Tensor:
+        """Scratch for the (m, l, o) partials of ``rows`` query rows per
+        (row, KV head) over a context of up to ``cap`` positions."""
+        n_chunks = -(-cap // self.chunk())
+        return torch.empty(B * KV * n_chunks * rows * (hd + 2),
+                           dtype=torch.float32, device=device)
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -173,7 +218,7 @@ class _ChunkedPrefillAttention(CudaKernel):
         return out
 
 
-class _PagedDecodeAttention(CudaKernel):
+class _PagedDecodeAttention(_SplitDecode):
     def __call__(self, q: torch.Tensor, k_pool: torch.Tensor,
                  v_pool: torch.Tensor, page_table: torch.Tensor,
                  cache_len: torch.Tensor) -> torch.Tensor:
@@ -194,12 +239,14 @@ class _PagedDecodeAttention(CudaKernel):
         lens = _int32(cache_len, q.device)
         out = torch.empty_like(q)
         if out.numel() and n_slots:
-            self._launch((q, k_pool, v_pool, table, lens, out),
-                         (B, H, KV, page, n_pages, n_slots, hd, dt))
+            part = self.partials(B, KV, n_slots * page, H // KV, hd, q.device)
+            ints = (B, H, KV, page, n_pages, n_slots, hd, dt)
+            self._launch((q, k_pool, v_pool, table, lens, out, part),
+                         ints + (part.numel(),), key=ints)
         return out
 
 
-class _SpecVerifyAttention(CudaKernel):
+class _SpecVerifyAttention(_SplitDecode):
     def __call__(self, q: torch.Tensor, k_pool: torch.Tensor,
                  v_pool: torch.Tensor, page_table: torch.Tensor,
                  cache_len: torch.Tensor) -> torch.Tensor:
@@ -225,12 +272,15 @@ class _SpecVerifyAttention(CudaKernel):
         lens = _int32(cache_len, q.device)
         out = torch.empty_like(q)
         if out.numel() and n_slots:
-            self._launch((q, k_pool, v_pool, table, lens, out),
-                         (B, K, H, KV, page, n_pages, n_slots, hd, dt))
+            part = self.partials(B, KV, n_slots * page, K * (H // KV), hd,
+                                 q.device)
+            ints = (B, K, H, KV, page, n_pages, n_slots, hd, dt)
+            self._launch((q, k_pool, v_pool, table, lens, out, part),
+                         ints + (part.numel(),), key=ints)
         return out
 
 
-class _DecodeAttention(CudaKernel):
+class _DecodeAttention(_SplitDecode):
     def __call__(self, q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor,
                  cache_len: torch.Tensor) -> torch.Tensor:
@@ -249,8 +299,10 @@ class _DecodeAttention(CudaKernel):
         lens = _int32(cache_len, q.device)
         out = torch.empty_like(q)
         if out.numel() and Skv:
-            self._launch((q, k_cache, v_cache, lens, out),
-                         (B, H, KV, Skv, hd, dt))
+            part = self.partials(B, KV, Skv, H // KV, hd, q.device)
+            ints = (B, H, KV, Skv, hd, dt)
+            self._launch((q, k_cache, v_cache, lens, out, part),
+                         ints + (part.numel(),), key=ints)
         return out
 
 
@@ -343,6 +395,92 @@ class _RmsNorm(CudaKernel):
         return out
 
 
+class _DecodeGemm(CudaKernel):
+    """``x @ w`` with a result per row of x that does not depend on the
+    other rows or their number (csrc/decode_gemm.cu).  A granite pass
+    calls it 281 times, so the wrapper keeps its host work small: the
+    splits per (K, N) are cached, and the partials' scratch and the
+    counters are one buffer per device, reused by every call (calls run
+    in order on one stream)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self._splits = {}     # (K, N) -> the kernel's K splits
+        self._scratch = {}    # device -> (fp32 partials, int32 counters)
+
+    def splits(self, K: int, N: int) -> int:
+        n = self._splits.get((K, N))
+        if n is None:
+            fn = self._lib().repro_decode_gemm_splits
+            fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+            n = self._splits[(K, N)] = int(fn(K, N))
+        return n
+
+    def _buffers(self, device, n_part: int):
+        part, counters = self._scratch.get(device, (None, None))
+        if counters is None:   # zeroed once; the kernel resets its counters
+            counters = torch.zeros(_GEMM_COUNTERS, dtype=torch.int32,
+                                   device=device)
+        if part is None or part.numel() < n_part:
+            part = torch.empty(n_part, dtype=torch.float32, device=device)
+        self._scratch[device] = (part, counters)
+        return part, counters
+
+    def __call__(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """x ``(..., K)`` @ w ``(K, N)`` → ``(..., N)`` in x's dtype, fp32
+        accumulation.  ``w`` is a contiguous ``(K, N)`` matrix or the
+        transpose of a contiguous ``(N, K)`` one (``table.t()``).  On the
+        card the rows go in blocks of :data:`DECODE_MAX_ROWS`, one launch
+        each: a row's bits depend only on that row and on w, so the blocks
+        change none."""
+        dev = x.device
+        if dev.type != "cuda" or w.device != dev:
+            if _on_cpu(x, w):
+                return self.plain(x, w)
+        if w.dim() != 2 or x.shape[-1] != w.shape[0]:
+            raise ValueError(f"decode_gemm: x {tuple(x.shape)} and w "
+                             f"{tuple(w.shape)} do not fit")
+        K, N = w.shape
+        if w.is_contiguous():
+            w_nk = 0
+        elif w.stride() == (1, K):
+            w_nk = 1
+        else:
+            raise ValueError("decode_gemm: w must be a contiguous (K, N) "
+                             "matrix or the transpose of a contiguous one")
+        M = x.numel() // K if K else 0
+        dt = _DTYPES.get(x.dtype)
+        if dt is None or w.dtype != x.dtype:
+            raise TypeError(f"decode_gemm: mixed or unsupported dtypes "
+                            f"{x.dtype} and {w.dtype} (both float32 or both "
+                            "bfloat16)")
+        if K % 8 or N % 8:
+            raise ValueError(f"decode_gemm: K {K} and N {N} must be "
+                             "multiples of 8")
+        if not x.is_contiguous():
+            raise ValueError("decode_gemm: x must be contiguous")
+        y = torch.empty(x.shape[:-1] + (N,), dtype=x.dtype, device=dev)
+        if M == 0:
+            return y
+        n = self._splits.get((K, N)) or self.splits(K, N)
+        rows = min(M, DECODE_MAX_ROWS)
+        part, counters = self._scratch.get(dev, (None, None))
+        if part is None or part.numel() < n * rows * N:
+            part, counters = self._buffers(dev, n * rows * N)
+        if M <= DECODE_MAX_ROWS:
+            key = (M, K, N, w_nk, dt)
+            self._launch((x, w, y, part, counters),
+                         key + (part.numel(), _GEMM_COUNTERS), key=key)
+            return y
+        x2, y2 = x.view(M, K), y.view(M, N)
+        for r0 in range(0, M, DECODE_MAX_ROWS):
+            xb, yb = x2[r0:r0 + DECODE_MAX_ROWS], y2[r0:r0 + DECODE_MAX_ROWS]
+            key = (xb.shape[0], K, N, w_nk, dt)
+            self._launch((xb, w, yb, part, counters),
+                         key + (part.numel(), _GEMM_COUNTERS), key=key)
+        return y
+
+
 flash_attention = _FlashAttention(
     "flash_attention", "flash_attention", "repro_flash_attention",
     n_ptrs=4, n_ints=6, plain=L.flash_attention,
@@ -354,7 +492,7 @@ chunked_prefill_attention = _ChunkedPrefillAttention(
     replaces="src/repro/kernels/chunked_prefill.py:110")
 paged_decode_attention = _PagedDecodeAttention(
     "paged_decode_attention", "paged_decode_attention",
-    "repro_paged_decode_attention", n_ptrs=6, n_ints=8,
+    "repro_paged_decode_attention", n_ptrs=7, n_ints=9,
     plain=L.paged_decode_attention,
     replaces="src/repro/kernels/paged_decode_attention.py:75")
 topk_similarity = _TopkSimilarity(
@@ -363,12 +501,12 @@ topk_similarity = _TopkSimilarity(
     replaces="src/repro/kernels/topk_sim.py:75")
 spec_verify_attention = _SpecVerifyAttention(
     "spec_verify_attention", "spec_verify_attention",
-    "repro_spec_verify_attention", n_ptrs=6, n_ints=9,
+    "repro_spec_verify_attention", n_ptrs=7, n_ints=10,
     plain=L.spec_verify_attention_paged,
     replaces="src/repro/kernels/spec_verify_attention.py:84")
 decode_attention = _DecodeAttention(
     "decode_attention", "decode_attention", "repro_decode_attention",
-    n_ptrs=5, n_ints=6, plain=L.decode_attention,
+    n_ptrs=6, n_ints=7, plain=L.decode_attention,
     replaces="src/repro/kernels/decode_attention.py:65")
 ssd_scan = _SsdScan(
     "ssd_scan", "ssd_scan", "repro_ssd_scan", n_ptrs=6, n_ints=7,
@@ -376,14 +514,28 @@ ssd_scan = _SsdScan(
 rmsnorm = _RmsNorm(
     "rmsnorm", "rmsnorm", "repro_rmsnorm", n_ptrs=3, n_ints=4, n_floats=1,
     plain=L.rms_norm, replaces="src/repro/kernels/rmsnorm.py:26")
+decode_gemm = _DecodeGemm(
+    "decode_gemm", "decode_gemm", "repro_decode_gemm", n_ptrs=5, n_ints=7,
+    plain=L.matmul,
+    replaces="none (the JAX package leaves these products to XLA): the "
+             "repair of ROADMAP.md C1, greedy parity of speculative "
+             "decoding on the card")
 
 #: every kernel of the port: the three attention kernels of the paged
 #: engine in the order the model reaches them, the prefilter's top-k, the
-#: speculative verify and the dense engine's decode, then the mamba2 scan
-#: and RMSNorm
+#: speculative verify and the dense engine's decode, the mamba2 scan,
+#: RMSNorm, and the decode and verify passes' GEMM
 KERNELS = (flash_attention, chunked_prefill_attention, paged_decode_attention,
            topk_similarity, spec_verify_attention, decode_attention,
-           ssd_scan, rmsnorm)
+           ssd_scan, rmsnorm, decode_gemm)
+
+
+def decode_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` on the decode and verify passes: :data:`decode_gemm`
+    (looked up at each call, so a run that swaps the module's kernels for
+    their plain versions swaps this one too).  On the CPU exactly ``x @
+    w``."""
+    return decode_gemm(x, w)
 
 
 def top1_similarity(e1: torch.Tensor, e2: torch.Tensor) -> tuple:

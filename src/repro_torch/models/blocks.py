@@ -4,9 +4,15 @@ RoPE and a pre-norm SwiGLU FFN (specs + apply), after
 
 Attention goes through the kernel wrappers of
 :mod:`repro_torch.kernels.ops` with K/V unrepeated: on the card that is
-the CUDA kernel, on the CPU its plain version.  The dense projections,
-the MLP and the unembed are ``torch.matmul``, as the JAX package leaves
-them to XLA.  ``cfg.use_pallas`` has no meaning here.
+the CUDA kernel, on the CPU its plain version.  The dense projections
+and the MLP of prefill are ``torch.matmul``, as the JAX package leaves
+them to XLA.  The decode and verify blocks (``decode=True``) take their
+norms through ``ops.rmsnorm`` and their products through
+``ops.decode_linear``, whose result per row does not depend on the
+number of rows: a verify pass over slots x K rows then gives each row
+the bits of the decode step over slots rows that it replaces (on the
+CPU both are the plain ``rms_norm`` and ``x @ w``).  ``cfg.use_pallas``
+has no meaning here.
 """
 
 from __future__ import annotations
@@ -46,27 +52,39 @@ def _head_mask(cfg: ModelConfig, dtype, device) -> Optional[torch.Tensor]:
             < cfg.n_heads).to(dtype)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def row_ops(decode: bool):
+    """``(norm, matmul)`` of a pass: the row-invariant kernels on the
+    decode and verify passes, the plain ops on prefill."""
+    if decode:
+        return ops.rmsnorm, ops.decode_linear
+    return L.rms_norm, torch.matmul
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` as one matmul."""
     B, S, D = x.shape
-    return (x @ w.reshape(D, -1)).view(B, S, w.shape[1], w.shape[2])
+    return mm(x, w.reshape(D, -1)).view(B, S, w.shape[1], w.shape[2])
 
 
-def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
-    xn = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    q = L.apply_rope(_proj(xn, p["wq"]), positions, cfg.rope_theta)
-    k = L.apply_rope(_proj(xn, p["wk"]), positions, cfg.rope_theta)
-    v = _proj(xn, p["wv"])
+def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
+         decode: bool = False):
+    norm, mm = row_ops(decode)
+    xn = norm(x, p["norm"], cfg.norm_eps)
+    q = L.apply_rope(_proj(xn, p["wq"], mm), positions, cfg.rope_theta)
+    k = L.apply_rope(_proj(xn, p["wk"], mm), positions, cfg.rope_theta)
+    v = _proj(xn, p["wv"], mm)
     return q, k, v
 
 
-def _out_proj(cfg: ModelConfig, p, o: torch.Tensor) -> torch.Tensor:
+def _out_proj(cfg: ModelConfig, p, o: torch.Tensor,
+              decode: bool = False) -> torch.Tensor:
     """Dead-head mask, then ``einsum("bshk,hkd->bsd")``."""
     mask = _head_mask(cfg, o.dtype, o.device)
     if mask is not None:
         o = o * mask[None, None, :, None]
     B, S, H, hd = o.shape
-    return o.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, -1)
+    return row_ops(decode)[1](o.reshape(B, S, H * hd),
+                              p["wo"].reshape(H * hd, -1))
 
 
 def attn_apply(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
@@ -105,13 +123,13 @@ def attn_decode(cfg: ModelConfig, p, x: torch.Tensor, k_cache: torch.Tensor,
     ``(out, k_cache, v_cache)``.
     """
     positions = cache_len[:, None]
-    q, k, v = _qkv(cfg, p, x, positions)
+    q, k, v = _qkv(cfg, p, x, positions, decode=True)
     rows = torch.arange(x.shape[0], device=x.device)
     at = (rows, cache_len.long().clamp(0, k_cache.shape[1] - 1))
     k_cache.index_put_(at, k[:, 0].to(k_cache.dtype))
     v_cache.index_put_(at, v[:, 0].to(v_cache.dtype))
     o = ops.decode_attention(q, k_cache, v_cache, cache_len + 1)
-    return _out_proj(cfg, p, o), k_cache, v_cache
+    return _out_proj(cfg, p, o, decode=True), k_cache, v_cache
 
 
 def attn_verify(cfg: ModelConfig, p, x: torch.Tensor, k_cache: torch.Tensor,
@@ -133,13 +151,13 @@ def attn_verify(cfg: ModelConfig, p, x: torch.Tensor, k_cache: torch.Tensor,
     K = x.shape[1]
     positions = (cache_len[:, None]
                  + torch.arange(K, device=x.device, dtype=cache_len.dtype))
-    q, k, v = _qkv(cfg, p, x, positions)
+    q, k, v = _qkv(cfg, p, x, positions, decode=True)
     k_cache.index_put_(write_at, k[window_at].to(k_cache.dtype))
     v_cache.index_put_(write_at, v[window_at].to(v_cache.dtype))
     o = torch.cat(
         [ops.decode_attention(q[:, j:j + 1].contiguous(), k_cache, v_cache,
                               cache_len + j + 1) for j in range(K)], dim=1)
-    return _out_proj(cfg, p, o), k_cache, v_cache
+    return _out_proj(cfg, p, o, decode=True), k_cache, v_cache
 
 
 def attn_decode_paged(cfg: ModelConfig, p, x: torch.Tensor,
@@ -154,7 +172,7 @@ def attn_decode_paged(cfg: ModelConfig, p, x: torch.Tensor,
     Returns ``(out, k_pool, v_pool)``.
     """
     positions = cache_len[:, None]
-    q, k, v = _qkv(cfg, p, x, positions)
+    q, k, v = _qkv(cfg, p, x, positions, decode=True)
     # The append is an in-place index_put_ into the engine's pool: the
     # JAX engine donates the pool to the jitted decode step for the same
     # effect (engine.py:471-478) -- one copy of the KV cache, never two.
@@ -162,7 +180,7 @@ def attn_decode_paged(cfg: ModelConfig, p, x: torch.Tensor,
     v_pool.index_put_((write_page, write_off), v[:, 0].to(v_pool.dtype))
     o = ops.paged_decode_attention(q, k_pool, v_pool, page_table,
                                    cache_len + 1)
-    return _out_proj(cfg, p, o), k_pool, v_pool
+    return _out_proj(cfg, p, o, decode=True), k_pool, v_pool
 
 
 def attn_verify_paged(cfg: ModelConfig, p, x: torch.Tensor,
@@ -185,11 +203,11 @@ def attn_verify_paged(cfg: ModelConfig, p, x: torch.Tensor,
     K = x.shape[1]
     positions = (cache_len[:, None]
                  + torch.arange(K, device=x.device, dtype=cache_len.dtype))
-    q, k, v = _qkv(cfg, p, x, positions)
+    q, k, v = _qkv(cfg, p, x, positions, decode=True)
     k_pool.index_put_(write_at, k[window_at].to(k_pool.dtype))
     v_pool.index_put_(write_at, v[window_at].to(v_pool.dtype))
     o = ops.spec_verify_attention(q, k_pool, v_pool, page_table, cache_len)
-    return _out_proj(cfg, p, o), k_pool, v_pool
+    return _out_proj(cfg, p, o, decode=True), k_pool, v_pool
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +225,8 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, Spec]:
     }
 
 
-def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    xn = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    return L.swiglu(xn, p["w_gate"], p["w_up"], p["w_down"])
+def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor,
+              decode: bool = False) -> torch.Tensor:
+    norm, mm = row_ops(decode)
+    xn = norm(x, p["norm"], cfg.norm_eps)
+    return L.swiglu(xn, p["w_gate"], p["w_up"], p["w_down"], matmul=mm)

@@ -1,6 +1,6 @@
-"""Shared layers in plain PyTorch, and the plain versions of the eight
+"""Shared layers in plain PyTorch, and the plain versions of the nine
 kernels (five attention kernels, the prefilter's top-k, the mamba2 SSD
-scan and RMSNorm).
+scan, RMSNorm and the decode GEMM).
 
 Conventions follow ``repro.models.layers``:
 
@@ -18,8 +18,9 @@ mirror ``repro.models.layers`` (``blockwise_causal_attention``,
 ``chunked_prefill_attention``, ``decode_attention``,
 ``paged_decode_attention``, ``spec_verify_attention(_paged)``,
 ``topk_similarity``) and ``repro.kernels.ref``.  :func:`rms_norm` is the
-plain version of the RMSNorm kernel, and :func:`ssd_chunk_scan` (after
-``repro.models.mamba2._ssd_chunk_scan``) that of the SSD scan kernel.
+plain version of the RMSNorm kernel, :func:`ssd_chunk_scan` (after
+``repro.models.mamba2._ssd_chunk_scan``) that of the SSD scan kernel,
+and :func:`matmul` that of the decode GEMM.
 """
 
 from __future__ import annotations
@@ -65,12 +66,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    """x: (B,S,D); w_gate/w_up: (D,F); w_down: (F,D)."""
-    g = x @ w_gate
-    u = x @ w_up
+           w_down: torch.Tensor, matmul=torch.matmul) -> torch.Tensor:
+    """x: (B,S,D); w_gate/w_up: (D,F); w_down: (F,D).  ``matmul`` takes
+    the three products (the decode and verify passes give it the decode
+    GEMM)."""
+    g = matmul(x, w_gate)
+    u = matmul(x, w_up)
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ w_down
+    return matmul(h, w_down)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``: the plain version of the decode GEMM kernel."""
+    return x @ w
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,12 @@ Public surface (plain functions of ``(cfg, params, ...)``):
 * :func:`verify_step`     — one pass over a K-token speculative window,
   dense or paged
 
+On the dense family's decode and verify passes every norm and product
+goes through the row-invariant kernels (``ops.rmsnorm``,
+``ops.decode_linear``): a row's logits do not depend on how many rows
+the pass holds, so a verify window's rows equal the decode steps they
+stand for, bit for bit, on the card as on the CPU.
+
 The JAX package scans the stacked layer weights with ``lax.scan``; here a
 Python loop takes layer ``i``'s views ``leaf[i]``.  Two families are
 ported: ``dense`` (granite-3-2b; attention layers over a KV cache) and
@@ -157,6 +163,14 @@ def _layer(params, i: int):
 
 def _unembed_table(cfg: ModelConfig, params) -> torch.Tensor:
     return params["embed"] if cfg.tie_embeddings else params["unembed"]
+
+
+def _decode_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and unembed of a decode or verify pass, through the
+    row-invariant kernels (:func:`blocks.row_ops`) → fp32 logits."""
+    norm, mm = B.row_ops(True)
+    x = norm(x, params["final_norm"], cfg.norm_eps)
+    return mm(x, _unembed_table(cfg, params).t()).float()
 
 
 def _last_logits(cfg: ModelConfig, params, x: torch.Tensor,
@@ -462,9 +476,8 @@ def decode_step(
             out, _, _ = B.attn_decode(cfg, lp["attn"], x, k_all[i], v_all[i],
                                       cache_len)
         x = x + out
-        x = x + B.mlp_apply(cfg, lp["mlp"], x)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = L.unembed(x, _unembed_table(cfg, params))[:, 0]
+        x = x + B.mlp_apply(cfg, lp["mlp"], x, decode=True)
+    logits = _decode_logits(cfg, params, x)[:, 0]
     return dict(cache, len=cache_len + step), logits
 
 
@@ -519,7 +532,6 @@ def verify_step(
             out, _, _ = B.attn_verify(cfg, lp["attn"], x, k_all[i], v_all[i],
                                       cache_len, write_at, window_at)
         x = x + out
-        x = x + B.mlp_apply(cfg, lp["mlp"], x)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = L.unembed(x, _unembed_table(cfg, params))   # (B, K, vocab)
+        x = x + B.mlp_apply(cfg, lp["mlp"], x, decode=True)
+    logits = _decode_logits(cfg, params, x)   # (B, K, vocab)
     return dict(cache), logits

@@ -13,16 +13,23 @@ and its plain version take the same rounded products and sums in the
 same order, so they agree bit for bit.  Two contracts hold bit for bit
 between kernels: every window row ``j`` of the speculative-verify kernel
 equals the paged decode kernel at ``cache_len + j + 1``, and the dense
-decode kernel equals the paged one on the same data.
+decode kernel equals the paged one on the same data, also at lengths
+around the edge of their context chunks.  The decode GEMM gives each row
+the same bits whatever the number of rows beside it, so a decode step's
+rows and a verify pass's rows equal the decode steps they stand for, bit
+for bit, at granite-3-2b's widths.
 """
+
+import dataclasses
 
 import pytest
 import torch
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.kernels import build, ops
-from repro_torch.models import init_params, model_specs
+from repro_torch.models import (decode_step, init_params, model_specs,
+                                verify_step)
 from repro_torch.models import layers as L
 from repro_torch.serve import Engine
 
@@ -420,3 +427,176 @@ def test_ssm_engine_on_card_matches_cpu(cuda):
     torch.testing.assert_close(torch.from_numpy(out["cuda"][2]),
                                torch.from_numpy(out["cpu"][2]),
                                rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The row-invariant decode GEMM, and the decode-side kernels at the edges
+# of their context chunks
+# ---------------------------------------------------------------------------
+
+#: granite-3-2b's decode products (K, N): the attention projections, the
+#: MLP and the tied unembed
+GEMM_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+               (2048, 49168)]
+
+
+def _weights(g, dtype, K, N, layout):
+    """A (K, N) weight of std 1 / sqrt(K): contiguous, or the transpose
+    of a contiguous (N, K) table."""
+    if layout == "kn":
+        w = torch.randn(K, N, generator=g, device=g.device)
+    else:
+        w = torch.randn(N, K, generator=g, device=g.device).t()
+    return (w / K ** 0.5).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("K,N", GEMM_SHAPES)
+def test_decode_gemm_on_card(cuda, dtype, layout, K, N):
+    """Against the plain ``x @ w`` at the repo's tolerances, and rows bit
+    for bit across M in {1, 4, 9, 36, 52, 128, 300}: each row of a batch
+    of M (rows drawn in another order each time) equals the same row in
+    the batch of 52.  Above the 128 rows of a launch the wrapper walks
+    blocks of 128, one launch each."""
+    g = torch.Generator(cuda).manual_seed(K + N)
+    w = _weights(g, dtype, K, N, layout)
+    x = _randn(g, dtype, 128, K)
+    before = ops.decode_gemm.launches
+    ref = ops.decode_linear(x[:52], w)
+    torch.cuda.synchronize()
+    assert ops.decode_gemm.launches == before + 1
+    assert ref.dtype == dtype and ref.shape == (52, N)
+    torch.testing.assert_close(ref.float(), L.matmul(x[:52], w).float(),
+                               **_tol(dtype))
+    for M in (1, 4, 9, 36, 52):
+        rows = torch.randperm(52, generator=g, device=cuda)[:M]
+        got = ops.decode_linear(x[rows].contiguous(), w)
+        assert torch.equal(got, ref[rows]), M
+    full = ops.decode_linear(x, w)        # M = 128, one launch's rows
+    assert torch.equal(full[:52], ref)
+    before = ops.decode_gemm.launches
+    wide = ops.decode_linear(torch.cat([x, x, x[:44]]), w)   # M = 300
+    assert ops.decode_gemm.launches == before + 3
+    assert torch.equal(wide, torch.cat([full, full, full[:44]]))
+    x3 = x[:36].reshape(4, 9, K)          # a verify window's (B, K, D)
+    assert torch.equal(ops.decode_linear(x3, w).reshape(36, N), ref[:36])
+
+
+def test_decode_gemm_rejects_what_it_does_not_take(cuda):
+    w = torch.zeros(64, 64, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.decode_linear(torch.zeros(4, 60, device=cuda),
+                          torch.zeros(60, 64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.decode_linear(torch.zeros(4, 64, device=cuda), w[:, ::2])
+    with pytest.raises(TypeError, match="mixed"):
+        ops.decode_linear(torch.zeros(4, 64, device=cuda), w.bfloat16())
+
+
+def _granite_layers(cuda, dtype, n_layers=2):
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=n_layers)
+    g = torch.Generator(cuda).manual_seed(5)
+    return cfg, init_params(model_specs(cfg), g, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_step_rows_do_not_depend_on_the_batch(cuda, dtype):
+    """granite-3-2b widths, 2 layers: each row of a decode step at M = 4
+    equals, bit for bit, the same row inside a step of M = 36 (its state
+    and token repeated 9 times), on the dense cache."""
+    cfg, params = _granite_layers(cuda, dtype)
+    g = torch.Generator(cuda).manual_seed(6)
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    state = {"len": torch.tensor([1000, 517, 16, 3], dtype=torch.int32,
+                                 device=cuda),
+             "k": _randn(g, dtype, cfg.n_layers, 4, 1024, KV, hd),
+             "v": _randn(g, dtype, cfg.n_layers, 4, 1024, KV, hd)}
+    toks = torch.randint(0, cfg.vocab_size, (4, 1), generator=g, device=cuda)
+    wide = {k: v.repeat_interleave(9, dim=1 if v.dim() > 1 else 0)
+            for k, v in state.items()}
+    _, alone = decode_step(cfg, params, state, toks)
+    _, inside = decode_step(cfg, params, wide, toks.repeat_interleave(9, 0))
+    assert torch.equal(inside[::9], alone)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_verify_step_equals_decode_steps(cuda, dtype, paged):
+    """granite-3-2b widths, 2 layers: a K = 9 verify pass gives, bit for
+    bit, the logits of 9 decode steps on a copy of the same state."""
+    cfg, params = _granite_layers(cuda, dtype)
+    g = torch.Generator(cuda).manual_seed(7)
+    KV, hd, nl = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
+    B, K, page, n_slots = 4, 9, 16, 64
+    lens = torch.tensor([1000, 247, 16, 3], dtype=torch.int32, device=cuda)
+    if paged:
+        n_pages = B * n_slots + 1
+        table = torch.randperm(n_pages, generator=g, device=cuda)
+        state = {"len": lens,
+                 "pages": table[: B * n_slots].reshape(B, n_slots).int(),
+                 "k": _randn(g, dtype, nl, n_pages, page, KV, hd),
+                 "v": _randn(g, dtype, nl, n_pages, page, KV, hd)}
+    else:
+        state = {"len": lens, "k": _randn(g, dtype, nl, B, 1024, KV, hd),
+                 "v": _randn(g, dtype, nl, B, 1024, KV, hd)}
+    toks = torch.randint(0, cfg.vocab_size, (B, K), generator=g, device=cuda)
+    a = {k: v.clone() for k, v in state.items()}
+    _, vlog = verify_step(cfg, params, a, toks)
+    b, dlog = state, []
+    for j in range(K):
+        b, lj = decode_step(cfg, params, b, toks[:, j:j + 1])
+        dlog.append(lj)
+    assert torch.equal(vlog, torch.stack(dlog, dim=1))
+
+
+def _chunk_lens(page):
+    """Lengths at and around the decode kernels' chunk boundary (C - 1, C,
+    C + 1, 4C + 7), and the table's full length, with the table slots
+    that hold them."""
+    C = ops.paged_decode_attention.chunk()
+    n_slots = -(-(4 * C + 7 + 32) // page)
+    return C, n_slots, [C - 1, C, C + 1, 4 * C + 7, n_slots * page]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,hd", [(32, 8, 64), (4, 1, 128), (8, 2, 16)])
+def test_decode_kernels_at_chunk_edges(cuda, dtype, H, KV, hd):
+    """Paged decode, dense decode and verify at lengths around the chunk
+    boundary and at the table's full length: each against its plain
+    version; dense decode == paged decode and every verify row j == paged
+    decode at cache_len + j + 1, bit for bit."""
+    page = 16
+    C, n_slots, lens = _chunk_lens(page)
+    B = len(lens)
+    g = torch.Generator(cuda).manual_seed(C + hd)
+    kp, vp, table = _pool(g, dtype, B, H, KV, hd, page, n_slots)
+    q = _randn(g, dtype, B, 1, H, hd)
+    clen = torch.tensor(lens, device=cuda)
+    out = ops.paged_decode_attention(q, kp, vp, table, clen)
+    torch.testing.assert_close(
+        out.float(), L.paged_decode_attention(q, kp, vp, table, clen).float(),
+        **_tol(dtype))
+    Skv = n_slots * page
+    kc, vc = (p[table.long()].reshape(B, Skv, KV, hd).contiguous()
+              for p in (kp, vp))
+    dense = ops.decode_attention(q, kc, vc, clen)
+    torch.testing.assert_close(
+        dense.float(), L.decode_attention(q, kc, vc, clen).float(),
+        **_tol(dtype))
+    assert torch.equal(dense, out)
+    K = 9
+    qv = _randn(g, dtype, B, K, H, hd)
+    # windows that cross each boundary, and one that ends at the table's end
+    base = torch.tensor([C - 4, C - 1, C, 4 * C + 7 - K, Skv - K],
+                        device=cuda)
+    ver = ops.spec_verify_attention(qv, kp, vp, table, base)
+    torch.testing.assert_close(
+        ver.float(),
+        L.spec_verify_attention_paged(qv, kp, vp, table, base).float(),
+        **_tol(dtype))
+    for j in range(K):
+        dec = ops.paged_decode_attention(qv[:, j:j + 1].contiguous(), kp, vp,
+                                         table, base + j + 1)
+        assert torch.equal(ver[:, j:j + 1], dec), j
+    torch.cuda.synchronize()
