@@ -12,9 +12,11 @@ scored verification); speculative decoding verifies its windows with
 with ``decode_attention``; the ssm family (mamba2-130m) runs ``ssd_scan``
 in every prefill, scoring and encode pass.  Every granite decode and
 verify pass sends its 281 products (7 a layer and the unembed) through
-``decode_gemm`` and its 81 norms through ``rmsnorm``: kernels whose
-result per row does not depend on the number of rows, so a verify pass
-gives each window row the bits of the decode step it stands for.
+``decode_gemm`` in 161 launches (the products that share an input go in
+one: {wq, wk, wv}, wo, {w_gate, w_up}, w_down, and the unembed) and its
+81 norms through ``rmsnorm``: kernels whose result per row does not
+depend on the number of rows, so a verify pass gives each window row the
+bits of the decode step it stands for.
 
 Phases, in order; any failure ends the run with a non-zero exit code and
 no result line:
@@ -33,9 +35,11 @@ no result line:
    for bit, also at lengths around the decode kernels' context chunk;
    ``decode_gemm`` at granite-3-2b's products (M 4 and 36, both weight
    layouts; 2e-5 fp32, 2e-2 bf16 against ``x @ w``) with every row bit for
-   bit the same at M 1 to 128; top-k in fp32 over the sweep of
-   ``tests/test_kernels.py`` (lattice inputs bit for bit, ties, k >= N,
-   Gaussian inputs to 1e-6, k up to 2048); ``ssd_scan`` at mamba2-130m's
+   bit the same at M 1 to 128, and a grouped launch (q/k/v, gate/up) bit
+   for bit the products' own launches at M 1, 4, 36 and 128; top-k in
+   fp32, bit for bit, over the sweep of ``tests/test_kernels.py`` (lattice
+   and Gaussian inputs, ties, k >= N, k up to 2048) and at the prefilter's
+   1,000 x 10,000 with ties placed in different splits of N; ``ssd_scan`` at mamba2-130m's
    main shape (B 4, S 1024, H 24, P 64, N 128, chunk 256), at a bucket of
    128 and over the sweep of ``tests/test_kernels.py`` (2e-4 fp32, 5e-2
    bf16, its tolerances); ``rmsnorm`` at the port's norm shapes (2e-5
@@ -51,8 +55,8 @@ no result line:
    ``EngineClient`` with the rule oracle teacher-forcing the answers.
    F1 must be 1.00, the counts those of the JAX engine (``EXPECTED``),
    the three attention kernels must have launched, and every decode step
-   must have sent 281 products through ``decode_gemm`` and 81 norms
-   through ``rmsnorm``;
+   must have sent 281 products through ``decode_gemm`` in 161 launches and
+   81 norms through ``rmsnorm``;
 5. the prefilter path on the same engine, through a fresh
    ``EngineClient``: (a) the 10,000 x 1,000 marketplace, hashed
    embeddings, ``prefilter_join(k=8)`` verified by the rule oracle on the
@@ -99,8 +103,11 @@ no result line:
    port: ``scaled_dot_product_attention``, with a mask where needed,
    ``torch.topk(e1 @ e2.T, k)``, ``torch.nn.functional.rms_norm``,
    ``torch.matmul``; none for the scan) and its bound from bytes and
-   operations; ``decode_gemm`` as the 281 products of one granite pass at
-   M 4 and M 36.  The decode side also gets its device time (the calls
+   operations; top-k in both directions of the prefilter's leg (a);
+   ``decode_gemm`` as one granite pass at M 4 and M 36 (its 161 calls as
+   the model makes them, beside ``torch.matmul`` once per product), and
+   each call of a layer with its weights cold (copies rotated past the
+   50 MB L2).  The decode side also gets its device time (the calls
    queued behind a sleep kernel, so the host's time to issue them is
    hidden).
    Flash and chunked prefill are timed at every shape any path launched
@@ -155,6 +162,9 @@ HOME_PATH = {"topk_similarity": "prefilter", "spec_verify_attention": "spec",
 #: w_gate / w_up, w_down, and the tied unembed (the table's transpose)
 GEMM_SHAPES = [(2048, 2048, "kn"), (2048, 512, "kn"), (2048, 8192, "kn"),
                (8192, 2048, "kn"), (2048, 49168, "nk")]
+#: the products a granite-3-2b pass launches together (K, their N): the
+#: attention block's q/k/v and the MLP's gate/up
+GEMM_GROUPS = [(2048, (2048, 512, 512)), (2048, (8192, 8192))]
 #: the three decode-side kernels on the split-context body
 SPLIT = ("paged_decode_attention", "decode_attention", "spec_verify_attention")
 #: mamba2-130m at full width at the largest bucket: the scan's main shape
@@ -410,9 +420,20 @@ def check_topk(ops, L, dev, c: "Checks") -> None:
             cases.append((f"ties (25 rows of 5) M,k={(M, k)}",
                           _lattice(g, M, 8), base.repeat(5, 1), k, 0.0))
     cases += [(f"gaussian M,N,D,k={(M, N, D, k)}", _unit_rows(g, M, D),
-               _unit_rows(g, N, D), k, 1e-6)
+               _unit_rows(g, N, D), k, 0.0)
               for M, N, D, k in ((64, 50, 32, 8), (97, 1500, 40, 1024),
-                                 (13, 2100, 24, 2048))]
+                                 (13, 2100, 24, 2048), (16, 5000, 32, 2048),
+                                 (300, 3001, 40, 8))]
+    # leg (a)'s 1,000 x 10,000, split along N: one vector at columns in
+    # three splits and at the last column, and rows equal to it
+    M, N, D, k = 1000, 10000, 256, 8
+    splits, cps = ops.topk_similarity.plan(M, N, k, dev)
+    e1, e2 = _unit_rows(g, M, D), _unit_rows(g, N, D)
+    v = e2[cps - 1].clone()
+    e2[[cps - 1, cps + 5, min(2 * cps, N - 2), N - 1]] = v
+    e1[::7] = v
+    cases.append((f"ties across {splits} splits of {cps} M,N,D,k="
+                  f"{(M, N, D, k)}", e1, e2, k, 0.0))
     for label, e1, e2, k, atol in cases:
         c.compare_topk(label, ops.topk_similarity(e1, e2, k=k),
                        L.topk_similarity(e1, e2, k), atol)
@@ -566,6 +587,22 @@ def check_decode_gemm(ops, L, g, dtype, c: "Checks") -> None:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             c.failed.append(f"decode_gemm {dtype} row invariance {label}")
+    for K, Ns in GEMM_GROUPS:
+        ws = [gemm_inputs(g, dtype, 1, K, N, "kn")[1] for N in Ns]
+        x = _randn(g, dtype, 128, K)
+        bad = []
+        for M in (1, 4, 36, 128):
+            group = ops.decode_linear_group(x[:M], ws)
+            if not all(torch.equal(a, ops.decode_linear(x[:M], w))
+                       for a, w in zip(group, ws)):
+                bad.append(M)
+        ok = not bad
+        label = f"  group K,N={(K, Ns)} == single launches"
+        log(f"  {'decode_gemm':26s} {str(dtype)[6:]:8s} {label:44s} "
+            f"{'bit for bit' if ok else f'DIFFER at M {bad}'} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            c.failed.append(f"decode_gemm {dtype} {label.strip()}")
 
 
 def check_verify_and_dense(ops, L, g, dtype, c: "Checks") -> None:
@@ -915,17 +952,27 @@ def hold_counts(label: str, per_join: dict, expected: dict) -> None:
                              f"{bad}")
 
 
+def gemm_products(path: dict) -> int:
+    """Products the decode GEMM took on a path (its ``shapes`` count each
+    product of a grouped launch)."""
+    return sum(n for _, n in path["shapes"]["decode_gemm"])
+
+
 def hold_pass_launches(label: str, summary: dict, n_layers: int) -> None:
     """Every decode (or verify) pass of a granite path sent its products
-    through decode_gemm (7 a layer and the unembed: 281) and its norms
-    through rmsnorm (2 a layer and the final one: 81)."""
-    steps, got = summary["decode_steps"], summary["launches"]
-    per_pass = dict(decode_gemm=7 * n_layers + 1, rmsnorm=2 * n_layers + 1)
+    through decode_gemm (7 a layer and the unembed: 281) in 4 launches a
+    layer and one for the unembed (161), and its norms through rmsnorm (2
+    a layer and the final one: 81)."""
+    steps = summary["decode_steps"]
+    got = dict(summary["launches"], products=gemm_products(summary))
+    per_pass = dict(decode_gemm=4 * n_layers + 1, products=7 * n_layers + 1,
+                    rmsnorm=2 * n_layers + 1)
     bad = {k: (got[k], n * steps) for k, n in per_pass.items()
            if got[k] != n * steps}
-    log(f"  {label}: {steps} decode passes, decode_gemm {got['decode_gemm']} "
-        f"and rmsnorm {got['rmsnorm']} launches ({per_pass['decode_gemm']} "
-        f"and {per_pass['rmsnorm']} a pass) "
+    log(f"  {label}: {steps} decode passes, decode_gemm {got['products']} "
+        f"products in {got['decode_gemm']} launches and rmsnorm "
+        f"{got['rmsnorm']} launches ({per_pass['products']}, "
+        f"{per_pass['decode_gemm']} and {per_pass['rmsnorm']} a pass) "
         f"{'ok' if not bad else f'FAIL {bad}'}")
     if bad or not steps:
         raise AssertionError(f"{label}: launches (got, want) {bad}")
@@ -1551,7 +1598,7 @@ def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
         e1, e2 = _unit_rows(g, M, D), _unit_rows(g, N, D)
         checks.compare_topk(f"prefilter path M,N,D,k={(M, N, D, k)}",
                             ops.topk_similarity(e1, e2, k=k),
-                            L.topk_similarity(e1, e2, k), 1e-6, main=True)
+                            L.topk_similarity(e1, e2, k), 0.0, main=True)
     for (B, K, H, KV, pg, _, n_slots, hd, _), _ in \
             shapes["spec_verify_attention"]:
         cap = n_slots * pg
@@ -1980,65 +2027,98 @@ def time_rmsnorm(ops, L, g, dtype, rows, D):
                            - L.rms_norm(*x0).float()).abs().max()))
 
 
-def pass_weights(params, cfg) -> list:
-    """The weights of one granite decode pass's 281 products, in the
-    order the pass multiplies them, as ``decode_linear`` takes them."""
+def pass_calls(params, cfg) -> list:
+    """The calls of one granite decode pass to the decode GEMM, in the
+    order the pass makes them, each the weights of one launch as
+    ``decode_linear_group`` takes them: per layer {wq, wk, wv}, wo,
+    {w_gate, w_up}, w_down, then the unembed (161 calls, 281 products)."""
     D, H, hd = cfg.d_model, cfg.padded_heads, cfg.resolved_head_dim
     a, m = params["blocks"]["attn"], params["blocks"]["mlp"]
     out = []
     for i in range(cfg.n_layers):
-        out += [a["wq"][i].reshape(D, -1), a["wk"][i].reshape(D, -1),
-                a["wv"][i].reshape(D, -1), a["wo"][i].reshape(H * hd, -1),
-                m["w_gate"][i], m["w_up"][i], m["w_down"][i]]
-    return out + [params["embed"].t()]
+        out += [(a["wq"][i].reshape(D, -1), a["wk"][i].reshape(D, -1),
+                 a["wv"][i].reshape(D, -1)),
+                (a["wo"][i].reshape(H * hd, -1),),
+                (m["w_gate"][i], m["w_up"][i]), (m["w_down"][i],)]
+    return out + [(params["embed"].t(),)]
 
 
-def time_decode_gemm(ops, L, g, weights, M):
-    """The products of one granite pass at M rows (4: a decode step, 36: a
-    verify pass), one x per width, the weights (5.07 GB) cold by size:
-    the kernel, its plain version and ``torch.matmul`` (the same function
-    as the plain version: one library call per product), and the bound."""
+def _copy(w):
+    """A copy of a weight in its layout (a table's transpose stays one)."""
+    return w.clone() if w.is_contiguous() else w.t().clone().t()
+
+
+def in_turns(timer, first, second, *args) -> tuple:
+    """``timer(second), timer(first), timer(first), timer(second)``: the
+    two readings of each, so the order on the card does not favour one."""
+    b1 = timer(second, *args)
+    a1, a2 = timer(first, *args), timer(first, *args)
+    b2 = timer(second, *args)
+    return [a1, a2], [b1, b2]
+
+
+def time_decode_gemm(ops, L, g, calls, M):
+    """One granite pass at M rows (4: a decode step, 36: a verify pass),
+    one x per width, the weights (5.07 GB) cold by size: the kernel as the
+    model calls it (161 calls, the products of one input grouped), its
+    plain version and ``torch.matmul`` (the same function as the plain
+    version: one library call per product), and the bound; kernel and
+    library in turns.  Then each call of a layer and the unembed, kernel
+    against ``torch.matmul`` on its products, with copies of the weights
+    rotated past the 50 MB L2 so each launch finds them cold."""
+    weights = [w for ws in calls for w in ws]
     dtype = weights[0].dtype
-    xs = {}
-    for w in weights:
-        if w.shape[0] not in xs:
-            xs[w.shape[0]] = _randn(g, dtype, M, w.shape[0])
+    xs = {K: _randn(g, dtype, M, K) for K in {w.shape[0] for w in weights}}
 
-    def run(mm):
-        return lambda: [mm(xs[w.shape[0]], w) for w in weights]
+    def kernel(ws_list=calls):
+        return [ops.decode_linear_group(xs[ws[0].shape[0]], ws)
+                for ws in ws_list]
+
+    def per_product(mm, ws_list=calls):
+        return [mm(xs[w.shape[0]], w) for ws in ws_list for w in ws]
     es = weights[0].element_size()
     nbytes = sum(w.numel() * es + M * sum(w.shape) * es for w in weights)
     flops = 2 * M * sum(w.numel() for w in weights)
     b_ms, b_by = bound(nbytes, flops, dtype)
-    err = max(float((ops.decode_linear(xs[w.shape[0]], w).float()
-                     - L.matmul(xs[w.shape[0]], w).float()).abs().max())
-              for w in weights)
-    # device time of each distinct product, kernel against torch.matmul
-    by_shape = {}
-    for w in weights:
-        key = f"{tuple(w.shape)} {'kn' if w.is_contiguous() else 'nk'}"
-        if key not in by_shape:
-            x = xs[w.shape[0]]
-            by_shape[key] = dict(
-                count=sum(v.shape == w.shape for v in weights),
-                device_ms=device_ms(lambda: ops.decode_linear(x, w), [()],
-                                    50),
-                library_device_ms=device_ms(lambda: torch.matmul(x, w), [()],
-                                            50))
-    log(f"  decode_gemm M={M} device ms by product (kernel / torch.matmul): "
-        + "; ".join(f"{k} x{v['count']}: {v['device_ms']:.4f} / "
-                    f"{v['library_device_ms']:.4f}"
-                    for k, v in by_shape.items()))
+    got = [y for ys in kernel() for y in ys]
+    err = max(float((y.float() - L.matmul(xs[w.shape[0]], w).float())
+                    .abs().max()) for y, w in zip(got, weights))
+    del got
+    # each call of a layer (and the unembed) alone, weights cold
+    by_call = {}
+    for ws in calls[:4] + calls[-1:]:
+        key = " + ".join(f"{tuple(w.shape)}{'' if w.is_contiguous() else 'T'}"
+                         for w in ws)
+        copies = [tuple(_copy(w) for w in ws) for _ in range(n_sets(
+            sum(w.numel() * es for w in ws)))]
+        k_ms, l_ms = in_turns(
+            lambda fn, sets: device_ms(fn, sets, 30),
+            lambda *c: kernel([c]), lambda *c: per_product(torch.matmul, [c]),
+            copies)
+        by_call[key] = dict(
+            products=len(ws), mbytes=sum(w.numel() * es for w in ws) / 1e6,
+            device_ms=sum(k_ms) / 2, library_device_ms=sum(l_ms) / 2,
+            readings=dict(kernel=k_ms, library=l_ms))
+        del copies
+    log(f"  decode_gemm M={M} device ms by call, weights cold (kernel / "
+        "torch.matmul on its products): " + "; ".join(
+            f"{k} ({v['mbytes']:.1f} MB): {v['device_ms']:.4f} / "
+            f"{v['library_device_ms']:.4f}" for k, v in by_call.items()))
+    dev_k, dev_l = in_turns(lambda fn: device_ms(fn, [()], 3), kernel,
+                            lambda: per_product(torch.matmul))
+    host_k, host_l = in_turns(lambda fn: time_ms(fn, [()], 10), kernel,
+                              lambda: per_product(torch.matmul))
     return dict(
-        shape=dict(M=M, products=len(weights),
+        shape=dict(M=M, products=len(weights), launches=len(calls),
                    params=sum(w.numel() for w in weights)),
-        ms=time_ms(run(ops.decode_linear), [()], 10),
-        plain_ms=time_ms(run(L.matmul), [()], 10),
-        library_ms=time_ms(run(torch.matmul), [()], 10),
-        device_ms=device_ms(run(ops.decode_linear), [()], 3),
-        library_device_ms=device_ms(run(torch.matmul), [()], 3),
+        ms=sum(host_k) / 2,
+        plain_ms=time_ms(lambda: per_product(L.matmul), [()], 10),
+        library_ms=sum(host_l) / 2,
+        device_ms=sum(dev_k) / 2, library_device_ms=sum(dev_l) / 2,
+        readings=dict(host_kernel=host_k, host_library=host_l,
+                      device_kernel=dev_k, device_library=dev_l),
         library="torch.matmul, once per product",
-        bound_ms=b_ms, bound_by=b_by, max_abs_err=err, by_shape=by_shape)
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err, by_call=by_call)
 
 
 PREFILL = ("flash_attention", "chunked_prefill_attention")
@@ -2084,13 +2164,13 @@ def time_prefill_paths(ops, L, g, paths, cores) -> tuple:
     return [(name, r) for (name, _), r in timed.items()], sums
 
 
-def time_kernels(ops, L, dev, shapes, paths, cores, weights) -> dict:
+def time_kernels(ops, L, dev, shapes, paths, cores, calls) -> dict:
     """Time each kernel at its path's most frequent shape (bf16), flash
     and chunked prefill at every shape any path gave them (beside their
     CUDA-core body, ``cores``), and the other kernels at further shapes
     of their paths.  ``shapes`` holds each kernel's launches by shape on
-    its own path; ``paths`` every path's record; ``weights`` a granite
-    pass's products (the decode GEMM is timed over all of them)."""
+    its own path; ``paths`` every path's record; ``calls`` a granite
+    pass's calls of the decode GEMM (timed over all of them)."""
     g = torch.Generator(dev).manual_seed(2)
     dt = torch.bfloat16
     (nrows, nD, _, _), _ = shapes["rmsnorm"][0]
@@ -2110,8 +2190,11 @@ def time_kernels(ops, L, dev, shapes, paths, cores, weights) -> dict:
         "paged_decode_attention": time_decode(
             ops, L, g, dt, dB, dH, dKV, dhd, dpg, dslots,
             [dslots * dpg] * dB),
-        # leg (a)'s shape: the prefilter's candidates at real scale
-        "topk_similarity": time_topk(ops, L, g, 10_000, 1_000, 256, 8),
+        # leg (a)'s two directions: the prefilter's candidates at real
+        # scale (mode "both" runs the kernel each way)
+        "topk_similarity": dict(
+            time_topk(ops, L, g, 10_000, 1_000, 256, 8),
+            other_direction=time_topk(ops, L, g, 1_000, 10_000, 256, 8)),
         # a full table: each window reaches the table's last position
         "spec_verify_attention": time_verify(
             ops, L, g, dt, vB, vK, vH, vKV, vhd, vpg, vslots,
@@ -2124,7 +2207,7 @@ def time_kernels(ops, L, dev, shapes, paths, cores, weights) -> dict:
         # a decode pass's norm: the slots' rows at granite's width
         "rmsnorm": time_rmsnorm(ops, L, g, dt, nrows, nD),
         # the products of one decode step (M = slots)
-        "decode_gemm": time_decode_gemm(ops, L, g, weights, 4),
+        "decode_gemm": time_decode_gemm(ops, L, g, calls, 4),
     }
     sweep, prefill_sums = time_prefill_paths(ops, L, g, paths, cores)
     for n in (256, 1024):
@@ -2142,10 +2225,7 @@ def time_kernels(ops, L, dev, shapes, paths, cores, weights) -> dict:
     sweep.append(("decode_attention",
                   time_dense_decode(ops, L, g, dt, 4, 32, 8, 64, 1024,
                                     [256] * 4)))
-    # leg (a)'s other direction, and the width of EngineEmbedder's
-    # vectors (d_model 2048)
-    sweep.append(("topk_similarity",
-                  time_topk(ops, L, g, 1_000, 10_000, 256, 8)))
+    # the width of EngineEmbedder's vectors (d_model 2048)
     sweep.append(("topk_similarity",
                   time_topk(ops, L, g, 10_000, 1_000, 2048, 8)))
     # the ssm path's other buckets, by their launches there (the scored
@@ -2158,9 +2238,12 @@ def time_kernels(ops, L, dev, shapes, paths, cores, weights) -> dict:
         if (rows, D) != (nrows, nD):
             sweep.append(("rmsnorm", time_rmsnorm(ops, L, g, dt, rows, D)))
     # the products of a verify pass (M = slots x (spec_k + 1))
-    sweep.append(("decode_gemm", time_decode_gemm(ops, L, g, weights, 36)))
+    sweep.append(("decode_gemm", time_decode_gemm(ops, L, g, calls, 36)))
     torch.cuda.synchronize()
-    for name, r in [(k, v) for k, v in main.items()] + sweep:
+    rows = [(k, v) for k, v in main.items()]
+    rows.insert(4, ("topk_similarity", main["topk_similarity"][
+        "other_direction"]))
+    for name, r in rows + sweep:
         lib = {"topk_similarity": "topk", "ssd_scan": "none",
                "rmsnorm": "rms_norm", "decode_gemm": "matmul"}.get(name,
                                                                   "sdpa")
@@ -2177,14 +2260,13 @@ def time_kernels(ops, L, dev, shapes, paths, cores, weights) -> dict:
             f"{lib}={lib_ms}{cores_ms} bound={r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) kernel/bound={r['ms'] / r['bound_ms']:.1f}x")
         if name == "topk_similarity" and (not r["indices_equal"]
-                                          or r["max_abs_err"] > 1e-6):
+                                          or r["max_abs_err"] > 0.0):
             raise AssertionError(f"topk_similarity timed inputs: kernel "
                                  f"differs from plain ({r})")
     # the decode side on each path: launches x ms at the main shape's time
-    # (the decode GEMM's time is per pass: launches / 281 passes)
+    # (the decode GEMM's time is per pass: a launch is 1 / 161 of it)
     per_launch = {k: main[k]["ms"] for k in SPLIT}
-    per_launch["decode_gemm"] = (main["decode_gemm"]["ms"]
-                                 / len(weights))
+    per_launch["decode_gemm"] = main["decode_gemm"]["ms"] / len(calls)
     decode_sums = {}
     for pname, path in paths.items():
         row = {k: dict(launches=path["launches"][k],
@@ -2311,7 +2393,7 @@ def main() -> int:
     home = {k.name: paths[HOME_PATH.get(k.name, "block_adaptive")]["shapes"][
         k.name] for k in ops.KERNELS}
     timing = time_kernels(ops, L, dev, home, paths, cuda_core_prefill(build),
-                          pass_weights(engine.params, engine.cfg))
+                          pass_calls(engine.params, engine.cfg))
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     if args.profile:
@@ -2328,11 +2410,21 @@ def main() -> int:
         # paged attention kernels, RMSNorm and the decode GEMM on block +
         # adaptive, top-k on the prefilter, the verify kernel on spec,
         # dense decode on dense, the scan on ssm.  Every time is per
-        # launch: the decode GEMM's, timed over the 281 products of a pass
-        # at M = 4, is the pass's divided by its products (the pass's
-        # times stay under timing in chip_smoke.json)
+        # launch: the decode GEMM's, timed over the 161 launches (281
+        # products) of a pass at M = 4, is the pass's divided by its
+        # launches (the pass's times stay under timing in chip_smoke.json)
         path = paths[HOME_PATH.get(k.name, "block_adaptive")]
-        per = r["shape"]["products"] if k.name == "decode_gemm" else 1
+        per = r["shape"]["launches"] if k.name == "decode_gemm" else 1
+        extra = {}
+        if k.name == "decode_gemm":
+            extra = dict(products=gemm_products(path),
+                         products_by_path={name: gemm_products(pth)
+                                           for name, pth in paths.items()})
+        if k.name == "topk_similarity":
+            extra = dict(directions=[
+                {**t["shape"], **{x: t[x] for x in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+                for t in (r, r["other_direction"])])
         kernels.append(dict(
             name=k.name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{k.source}.cu",
@@ -2343,7 +2435,7 @@ def main() -> int:
             ms=r["ms"] / per, plain_ms=r["plain_ms"] / per,
             bound_ms=r["bound_ms"] / per, bound_by=r["bound_by"],
             library_ms=(None if r["library_ms"] is None
-                        else r["library_ms"] / per)))
+                        else r["library_ms"] / per), **extra))
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, build_s=times, main_path=summary,
         prefilter_path=prefilter, spec_path=spec, dense_path=dense,

@@ -12,9 +12,11 @@ ssm family (mamba2) runs ``ssd_scan`` in every prefill, scoring and
 encode pass, once a layer.  The dense family's decode and verify
 passes take every norm through ``rmsnorm`` (one warp a row) and every
 product -- the attention projections, the MLP and the unembed --
-through ``decode_gemm`` (by :func:`decode_linear`): results per row that
-do not depend on how many rows came with it, so a verify pass gives
-each window row the bits of the decode step it stands for.  (The JAX
+through ``decode_gemm`` (by :func:`decode_linear`, and by
+:func:`decode_linear_group` for the products of one input in one call:
+q/k/v, gate/up): results per row that do not depend on how many rows
+came with it, so a verify pass gives each window row the bits of the
+decode step it stands for.  (The JAX
 package's model calls its RMSNorm kernel nowhere; the port needs the
 row-blocked norm for this.)
 
@@ -30,9 +32,10 @@ dispatches on the device of its tensors:
   kernel does not take is an error, and so is a failed launch.
 
 Every wrapper counts its launches in ``launches`` (a plain int), and in
-``shapes`` by the launch's integer arguments, so a run can show that its
-main path went through the kernels and at which shapes;
-:func:`reset_launch_counts` zeroes them all.
+``shapes`` by the launch's integer arguments (the decode GEMM by
+product: a grouped launch counts each of its products there), so a run
+can show that its main path went through the kernels and at which
+shapes; :func:`reset_launch_counts` zeroes them all.
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ SPEC_MAX_ROWS = 128
 #: csrc/topk_sim.cu): 4 query rows a block keep two 2048-long lists in
 #: 128 KB of shared memory
 TOPK_MAX_K = 2048
+#: the most products one call of the decode GEMM takes (kMaxGroup in
+#: csrc/decode_gemm.cu): q/k/v of an attention block
+DECODE_MAX_GROUP = 3
 #: the largest head width P and state width N the scan kernel stages
 #: (csrc/ssd_scan.cu), and its longest chunk
 SSD_MAX_P, SSD_MAX_N, SSD_MAX_CHUNK = 64, 128, 2048
@@ -74,7 +80,7 @@ class CudaKernel:
 
     def __init__(self, name: str, source: str, symbol: str, n_ptrs: int,
                  n_ints: int, plain: Callable, replaces: str,
-                 n_floats: int = 0):
+                 n_floats: int = 0, n_longs: int = 0):
         self.name = name
         self.source = source          # csrc/<source>.cu
         self.symbol = symbol
@@ -84,6 +90,7 @@ class CudaKernel:
         #: launches by their integer arguments (the shapes), beside the count
         self.shapes: collections.Counter = collections.Counter()
         self._argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                          + [ctypes.c_longlong] * n_longs
                           + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         self._fn = None
 
@@ -92,24 +99,27 @@ class CudaKernel:
 
     def _launch(self, ptrs: Sequence[Optional[torch.Tensor]],
                 ints: Sequence[int], floats: Sequence[float] = (),
-                key: Optional[Sequence[int]] = None):
+                key: Optional[Sequence[int]] = None,
+                keys: Sequence[Sequence[int]] = ()):
         """Launch on the current stream and count it, under ``key`` in
-        :attr:`shapes` (the integer arguments unless given)."""
+        :attr:`shapes` (the integer arguments unless given), or once under
+        each of ``keys`` where one launch does several things."""
         if self._fn is None:
             fn = getattr(self._lib(), self.symbol)
             fn.argtypes = self._argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
         # the raw handle of the current stream: the cheapest way to it, as
-        # a decode pass makes ~400 launches
+        # a decode pass makes ~300 launches
         stream = torch._C._cuda_getCurrentRawStream(ptrs[0].device.index)
         rc = self._fn(*[None if t is None else t.data_ptr() for t in ptrs],
-                      *map(int, ints), *map(float, floats), stream)
+                      *ints, *floats, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {rc}")
         self.launches += 1
-        self.shapes[tuple(map(int, ints if key is None else key))] += 1
+        for k in keys or (ints if key is None else key,):
+            self.shapes[tuple(k)] += 1
 
 
 class _SplitDecode(CudaKernel):
@@ -307,6 +317,31 @@ class _DecodeAttention(_SplitDecode):
 
 
 class _TopkSimilarity(CudaKernel):
+    """The kernel splits N across blocks and merges each row's split lists
+    in the same C call (one launch counted); the wrapper allocates the
+    split lists."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self._plans = {}   # (device, M, N, k') -> (splits, columns a split)
+
+    def plan(self, M: int, N: int, kk: int, device) -> tuple:
+        """``(splits, columns a split)`` of an ``(M, N, k')`` call on
+        ``device``: chosen by the kernel from the shape and the card's
+        resident blocks; no result depends on it."""
+        key = (device, M, N, kk)
+        if key not in self._plans:
+            fn = self._lib().repro_topk_plan
+            fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            out = (ctypes.c_int * 2)()
+            with torch.cuda.device(device):
+                rc = fn(M, N, kk, out)
+            if rc != 0:
+                raise RuntimeError(f"{self.name} plan failed: CUDA error {rc}")
+            self._plans[key] = (out[0], out[1])
+        return self._plans[key]
+
     def __call__(self, e1: torch.Tensor, e2: torch.Tensor, *,
                  k: int) -> tuple:
         """The ``k' = min(k, N)`` most similar rows of ``e2 (N, D)`` for
@@ -335,7 +370,16 @@ class _TopkSimilarity(CudaKernel):
         if M and kk:
             if D == 0:
                 raise ValueError("topk_similarity: D == 0")
-            self._launch((e1, e2, idx, sim), (M, N, D, kk))
+            splits, _ = self.plan(M, N, kk, e1.device)
+            pidx = psim = None
+            if splits > 1:
+                pidx = torch.empty(splits * M * kk, dtype=torch.int32,
+                                   device=e1.device)
+                psim = torch.empty(splits * M * kk, dtype=torch.float32,
+                                   device=e1.device)
+            self._launch((e1, e2, idx, sim, pidx, psim),
+                         (M, N, D, kk, 0 if pidx is None else pidx.numel()),
+                         key=(M, N, D, kk))
         return idx, sim
 
 
@@ -397,18 +441,21 @@ class _RmsNorm(CudaKernel):
 
 class _DecodeGemm(CudaKernel):
     """``x @ w`` with a result per row of x that does not depend on the
-    other rows or their number (csrc/decode_gemm.cu).  A granite pass
-    calls it 281 times, so the wrapper keeps its host work small: the
-    splits per (K, N) are cached, and the partials' scratch and the
-    counters are one buffer per device, reused by every call (calls run
-    in order on one stream)."""
+    other rows or their number (csrc/decode_gemm.cu), for one weight or
+    for up to :data:`DECODE_MAX_GROUP` weights of one ``x`` in one launch
+    (:meth:`group`).  A granite pass makes 161 calls for its 281
+    products, so the wrapper keeps its host work small.  bf16 needs no
+    scratch (the splits combine in the cluster's shared memory); fp32
+    keeps its partials and counters in one buffer per device, reused by
+    every call (calls run in order on one stream)."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
-        self._splits = {}     # (K, N) -> the kernel's K splits
+        self._splits = {}     # fp32 (K, N) -> the kernel's K splits
         self._scratch = {}    # device -> (fp32 partials, int32 counters)
 
     def splits(self, K: int, N: int) -> int:
+        """K splits of an fp32 (K, N) product (sizes its partials)."""
         n = self._splits.get((K, N))
         if n is None:
             fn = self._lib().repro_decode_gemm_splits
@@ -429,56 +476,83 @@ class _DecodeGemm(CudaKernel):
     def __call__(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """x ``(..., K)`` @ w ``(K, N)`` → ``(..., N)`` in x's dtype, fp32
         accumulation.  ``w`` is a contiguous ``(K, N)`` matrix or the
-        transpose of a contiguous ``(N, K)`` one (``table.t()``).  On the
-        card the rows go in blocks of :data:`DECODE_MAX_ROWS`, one launch
-        each: a row's bits depend only on that row and on w, so the blocks
-        change none."""
-        dev = x.device
-        if dev.type != "cuda" or w.device != dev:
-            if _on_cpu(x, w):
-                return self.plain(x, w)
-        if w.dim() != 2 or x.shape[-1] != w.shape[0]:
-            raise ValueError(f"decode_gemm: x {tuple(x.shape)} and w "
-                             f"{tuple(w.shape)} do not fit")
-        K, N = w.shape
-        if w.is_contiguous():
-            w_nk = 0
-        elif w.stride() == (1, K):
-            w_nk = 1
-        else:
-            raise ValueError("decode_gemm: w must be a contiguous (K, N) "
-                             "matrix or the transpose of a contiguous one")
-        M = x.numel() // K if K else 0
+        transpose of a contiguous ``(N, K)`` one (``table.t()``)."""
+        return self.group(x, (w,))[0]
+
+    def group(self, x: torch.Tensor, ws: Sequence[torch.Tensor]) -> list:
+        """``[x @ w for w in ws]`` in one launch: every ``w`` a ``(K, N_i)``
+        weight of x's dtype and device, all contiguous or all transposed
+        contiguous tables.  Each result's bits are those of its product
+        alone.  On the card the rows go in blocks of
+        :data:`DECODE_MAX_ROWS`, one launch each: a row's bits depend
+        only on that row and on w, so the blocks change none."""
+        n = len(ws)
+        if not 0 < n <= DECODE_MAX_GROUP:
+            raise ValueError(f"decode_gemm: {n} weights in a group "
+                             f"(1 to {DECODE_MAX_GROUP})")
+        # a decode pass makes 161 of these calls: one pass over the weights
+        # (Tensor.size and get_device are the cheap accessors)
+        K = x.size(-1)
+        d = x.get_device()   # -1 on the CPU
+        Ns = []
+        for w in ws:
+            if w.dim() != 2 or w.size(0) != K:
+                raise ValueError(f"decode_gemm: x {tuple(x.shape)} and w "
+                                 f"{tuple(w.shape)} do not fit")
+            if w.dtype != x.dtype:
+                raise TypeError(f"decode_gemm: mixed dtypes {x.dtype} and "
+                                f"{w.dtype}")
+            if w.get_device() != d:
+                d = -2   # a mix: _on_cpu raises on it
+            Ns.append(w.size(1))
+        if d < 0:
+            if _on_cpu(x, *ws):
+                return [self.plain(x, w) for w in ws]
         dt = _DTYPES.get(x.dtype)
-        if dt is None or w.dtype != x.dtype:
-            raise TypeError(f"decode_gemm: mixed or unsupported dtypes "
-                            f"{x.dtype} and {w.dtype} (both float32 or both "
-                            "bfloat16)")
-        if K % 8 or N % 8:
-            raise ValueError(f"decode_gemm: K {K} and N {N} must be "
+        if dt is None:
+            raise TypeError(f"decode_gemm: dtype {x.dtype} not supported "
+                            "(float32 or bfloat16)")
+        w_nk = 0 if ws[0].is_contiguous() else 1
+        for w in ws:
+            if not (w.is_contiguous() if w_nk == 0 else w.stride() == (1, K)):
+                raise ValueError("decode_gemm: the weights must all be "
+                                 "contiguous (K, N) matrices or all "
+                                 "transposes of contiguous ones")
+        if K % 8 or any(N % 8 for N in Ns):
+            raise ValueError(f"decode_gemm: K {K} and N {Ns} must be "
                              "multiples of 8")
         if not x.is_contiguous():
             raise ValueError("decode_gemm: x must be contiguous")
-        y = torch.empty(x.shape[:-1] + (N,), dtype=x.dtype, device=dev)
+        M = x.numel() // K if K else 0
+        lead = x.shape[:-1]
+        ys = [torch.empty(lead + (N,), dtype=x.dtype, device=x.device)
+              for N in Ns]
         if M == 0:
-            return y
-        n = self._splits.get((K, N)) or self.splits(K, N)
-        rows = min(M, DECODE_MAX_ROWS)
-        part, counters = self._scratch.get(dev, (None, None))
-        if part is None or part.numel() < n * rows * N:
-            part, counters = self._buffers(dev, n * rows * N)
-        if M <= DECODE_MAX_ROWS:
-            key = (M, K, N, w_nk, dt)
-            self._launch((x, w, y, part, counters),
-                         key + (part.numel(), _GEMM_COUNTERS), key=key)
-            return y
-        x2, y2 = x.view(M, K), y.view(M, N)
+            return ys
+        part = counters = None
+        n_part = 0
+        if dt == 0:   # fp32: partials for its largest split product
+            rows = min(M, DECODE_MAX_ROWS)
+            part, counters = self._buffers(
+                x.device, max(self.splits(K, N) * rows * N for N in Ns))
+            n_part = part.numel()
+        pad = (None,) * (DECODE_MAX_GROUP - n)
+        tail = (0,) * (DECODE_MAX_GROUP - n) + (n, w_nk, dt, n_part,
+                                                 _GEMM_COUNTERS)
+        if M <= DECODE_MAX_ROWS:   # every call of a decode or verify pass
+            self._launch((x, *ws, *pad, *ys, *pad, part, counters),
+                         (M, K, *Ns, *tail),
+                         keys=[(M, K, N, w_nk, dt) for N in Ns])
+            return ys
+        x2 = x.view(M, K)
+        y2 = [y.view(M, N) for y, N in zip(ys, Ns)]
         for r0 in range(0, M, DECODE_MAX_ROWS):
-            xb, yb = x2[r0:r0 + DECODE_MAX_ROWS], y2[r0:r0 + DECODE_MAX_ROWS]
-            key = (xb.shape[0], K, N, w_nk, dt)
-            self._launch((xb, w, yb, part, counters),
-                         key + (part.numel(), _GEMM_COUNTERS), key=key)
-        return y
+            xb = x2[r0:r0 + DECODE_MAX_ROWS]
+            rows = xb.shape[0]
+            self._launch((xb, *ws, *pad, *[y[r0:r0 + rows] for y in y2],
+                          *pad, part, counters), (rows, K, *Ns, *tail),
+                         keys=[(rows, K, N, w_nk, dt) for N in Ns])
+        return ys
 
 
 flash_attention = _FlashAttention(
@@ -496,8 +570,8 @@ paged_decode_attention = _PagedDecodeAttention(
     plain=L.paged_decode_attention,
     replaces="src/repro/kernels/paged_decode_attention.py:75")
 topk_similarity = _TopkSimilarity(
-    "topk_similarity", "topk_sim", "repro_topk_similarity", n_ptrs=4,
-    n_ints=4, plain=L.topk_similarity,
+    "topk_similarity", "topk_sim", "repro_topk_similarity", n_ptrs=6,
+    n_ints=4, n_longs=1, plain=L.topk_similarity,
     replaces="src/repro/kernels/topk_sim.py:75")
 spec_verify_attention = _SpecVerifyAttention(
     "spec_verify_attention", "spec_verify_attention",
@@ -515,7 +589,7 @@ rmsnorm = _RmsNorm(
     "rmsnorm", "rmsnorm", "repro_rmsnorm", n_ptrs=3, n_ints=4, n_floats=1,
     plain=L.rms_norm, replaces="src/repro/kernels/rmsnorm.py:26")
 decode_gemm = _DecodeGemm(
-    "decode_gemm", "decode_gemm", "repro_decode_gemm", n_ptrs=5, n_ints=7,
+    "decode_gemm", "decode_gemm", "repro_decode_gemm", n_ptrs=9, n_ints=10,
     plain=L.matmul,
     replaces="none (the JAX package leaves these products to XLA): the "
              "repair of ROADMAP.md C1, greedy parity of speculative "
@@ -536,6 +610,18 @@ def decode_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     their plain versions swaps this one too).  On the CPU exactly ``x @
     w``."""
     return decode_gemm(x, w)
+
+
+def decode_linear_group(x: torch.Tensor, ws: Sequence[torch.Tensor]) -> list:
+    """``[x @ w for w in ws]`` on the decode and verify passes, in one
+    launch of :data:`decode_gemm` (looked up at each call, as in
+    :func:`decode_linear`); each result has the bits of
+    ``decode_linear(x, w)``.  On the CPU exactly ``[x @ w for w in
+    ws]``."""
+    kernel = decode_gemm
+    if isinstance(kernel, _DecodeGemm):
+        return kernel.group(x, ws)
+    return [kernel(x, w) for w in ws]
 
 
 def top1_similarity(e1: torch.Tensor, e2: torch.Tensor) -> tuple:

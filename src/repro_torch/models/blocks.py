@@ -8,8 +8,9 @@ the CUDA kernel, on the CPU its plain version.  The dense projections
 and the MLP of prefill are ``torch.matmul``, as the JAX package leaves
 them to XLA.  The decode and verify blocks (``decode=True``) take their
 norms through ``ops.rmsnorm`` and their products through
-``ops.decode_linear``, whose result per row does not depend on the
-number of rows: a verify pass over slots x K rows then gives each row
+``ops.decode_linear`` (``ops.decode_linear_group`` for the products that
+share an input: q/k/v, and gate/up), whose result per row does not
+depend on the number of rows: a verify pass over slots x K rows then gives each row
 the bits of the decode step over slots rows that it replaces (on the
 CPU both are the plain ``rms_norm`` and ``x @ w``).  ``cfg.use_pallas``
 has no meaning here.
@@ -60,19 +61,23 @@ def row_ops(decode: bool):
     return L.rms_norm, torch.matmul
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk")`` as one matmul."""
+def _proj(x: torch.Tensor, ws, decode: bool = False) -> list:
+    """``einsum("bsd,dhk->bshk")`` for each weight of ``ws``, one matmul
+    each; on the decode and verify passes one grouped call of the decode
+    GEMM for all of them."""
     B, S, D = x.shape
-    return mm(x, w.reshape(D, -1)).view(B, S, w.shape[1], w.shape[2])
+    flat = [w.reshape(D, -1) for w in ws]
+    ys = (ops.decode_linear_group(x, flat) if decode
+          else [x @ w for w in flat])
+    return [y.view(B, S, w.shape[1], w.shape[2]) for y, w in zip(ys, ws)]
 
 
 def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
          decode: bool = False):
-    norm, mm = row_ops(decode)
-    xn = norm(x, p["norm"], cfg.norm_eps)
-    q = L.apply_rope(_proj(xn, p["wq"], mm), positions, cfg.rope_theta)
-    k = L.apply_rope(_proj(xn, p["wk"], mm), positions, cfg.rope_theta)
-    v = _proj(xn, p["wv"], mm)
+    xn = row_ops(decode)[0](x, p["norm"], cfg.norm_eps)
+    q, k, v = _proj(xn, (p["wq"], p["wk"], p["wv"]), decode)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -227,6 +232,10 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, Spec]:
 
 def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor,
               decode: bool = False) -> torch.Tensor:
-    norm, mm = row_ops(decode)
-    xn = norm(x, p["norm"], cfg.norm_eps)
-    return L.swiglu(xn, p["w_gate"], p["w_up"], p["w_down"], matmul=mm)
+    """The SwiGLU FFN; on the decode and verify passes the gate and up
+    products are one grouped call of the decode GEMM."""
+    xn = row_ops(decode)[0](x, p["norm"], cfg.norm_eps)
+    if not decode:
+        return L.swiglu(xn, p["w_gate"], p["w_up"], p["w_down"])
+    g, u = ops.decode_linear_group(xn, (p["w_gate"], p["w_up"]))
+    return ops.decode_linear(L.swiglu_gate(g, u), p["w_down"])

@@ -66,14 +66,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor, matmul=torch.matmul) -> torch.Tensor:
-    """x: (B,S,D); w_gate/w_up: (D,F); w_down: (F,D).  ``matmul`` takes
-    the three products (the decode and verify passes give it the decode
-    GEMM)."""
-    g = matmul(x, w_gate)
-    u = matmul(x, w_up)
-    h = F.silu(g.float()).to(x.dtype) * u
-    return matmul(h, w_down)
+           w_down: torch.Tensor) -> torch.Tensor:
+    """x: (B,S,D); w_gate/w_up: (D,F); w_down: (F,D)."""
+    return swiglu_gate(x @ w_gate, x @ w_up) @ w_down
+
+
+def swiglu_gate(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``silu(g) * u``, the silu in fp32, in g's dtype: the hidden layer of
+    :func:`swiglu` from its two products (the decode and verify passes
+    take them from the decode GEMM)."""
+    return F.silu(g.float()).to(g.dtype) * u
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

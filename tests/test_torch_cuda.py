@@ -15,9 +15,11 @@ between kernels: every window row ``j`` of the speculative-verify kernel
 equals the paged decode kernel at ``cache_len + j + 1``, and the dense
 decode kernel equals the paged one on the same data, also at lengths
 around the edge of their context chunks.  The decode GEMM gives each row
-the same bits whatever the number of rows beside it, so a decode step's
-rows and a verify pass's rows equal the decode steps they stand for, bit
-for bit, at granite-3-2b's widths.
+the same bits whatever the number of rows beside it, or the products
+launched with it, so a decode step's rows and a verify pass's rows equal
+the decode steps they stand for, bit for bit, at granite-3-2b's widths.
+The top-k kernel splits N across blocks; ties across its splits still go
+to the lower index.
 """
 
 import dataclasses
@@ -220,7 +222,7 @@ def test_spec_verify_kernel_rejects_too_many_rows(cuda):
     (257, 259, 8, 16, "lattice"), (1, 7, 8, 4, "lattice"),
     (33, 25, 8, 25, "ties"), (31, 29, 16, 1000, "lattice"),
     (64, 50, 32, 8, "gaussian"), (97, 1500, 40, 1024, "gaussian"),
-    (10000, 1000, 256, 8, "gaussian")])
+    (10000, 1000, 256, 8, "gaussian"), (1000, 10000, 256, 8, "gaussian")])
 def test_topk_kernel_on_card(cuda, M, N, D, k, inputs):
     g = torch.Generator(cuda).manual_seed(M)
     if inputs == "gaussian":
@@ -237,6 +239,48 @@ def test_topk_kernel_on_card(cuda, M, N, D, k, inputs):
     assert ops.topk_similarity.launches == before + 1
     pidx, psim = L.topk_similarity(e1, e2, k)
     assert idx.shape == (M, min(k, e2.shape[0])) and idx.dtype == torch.int32
+    assert torch.equal(idx, pidx) and torch.equal(sim, psim)
+
+
+def _unit(g, M, D):
+    return torch.nn.functional.normalize(_randn(g, torch.float32, M, D), dim=1)
+
+
+def test_topk_ties_across_splits_go_to_the_lower_index(cuda):
+    """The prefilter's 1,000 x 10,000 x 256 shape, which the kernel splits
+    along N: one vector repeated at columns in three splits and at the
+    last column; rows equal to it find the copies first, in ascending
+    index order, exactly as the plain version does."""
+    M, N, D, k = 1000, 10000, 256, 8
+    splits, cps = ops.topk_similarity.plan(M, N, k, cuda)
+    assert splits >= 3, (splits, cps)
+    g = torch.Generator(cuda).manual_seed(11)
+    e1, e2 = _unit(g, M, D), _unit(g, N, D)
+    cols = [cps - 1, cps + 5, 2 * cps, N - 1]
+    v = e2[cps - 1].clone()
+    e2[cols] = v
+    e1[::7] = v
+    idx, sim = ops.topk_similarity(e1, e2, k=k)
+    pidx, psim = L.topk_similarity(e1, e2, k)
+    assert torch.equal(idx, pidx) and torch.equal(sim, psim)
+    want = torch.tensor(cols, dtype=torch.int32, device=cuda)
+    assert (idx[::7, :4] == want).all()
+
+
+@pytest.mark.parametrize("M,N,D,k", [(300, 3001, 40, 1), (300, 3001, 40, 8),
+                                     (16, 5000, 32, 2048)])
+def test_topk_split_edges(cuda, M, N, D, k):
+    """N not a multiple of the columns a split takes, at k' = 1, 8 and
+    2048 (the longest list): bit for bit the plain version."""
+    splits, cps = ops.topk_similarity.plan(M, N, k, cuda)
+    assert splits > 1 and N % cps, (splits, cps)
+    g = torch.Generator(cuda).manual_seed(N + k)
+    e1, e2 = _unit(g, M, D), _unit(g, N, D)
+    before = ops.topk_similarity.launches
+    idx, sim = ops.topk_similarity(e1, e2, k=k)
+    torch.cuda.synchronize()
+    assert ops.topk_similarity.launches == before + 1
+    pidx, psim = L.topk_similarity(e1, e2, k)
     assert torch.equal(idx, pidx) and torch.equal(sim, psim)
 
 
@@ -483,6 +527,29 @@ def test_decode_gemm_on_card(cuda, dtype, layout, K, N):
     assert torch.equal(ops.decode_linear(x3, w).reshape(36, N), ref[:36])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,Ns", [(2048, (2048, 512, 512)),
+                                  (2048, (8192, 8192)), (8192, (2048,)),
+                                  (1024, (64, 40, 520))])
+def test_decode_gemm_group_equals_single_products(cuda, dtype, K, Ns):
+    """One grouped launch gives every product the bits of its own launch,
+    at M 1, 4, 36 and 128 (q/k/v and gate/up of granite-3-2b, and ragged
+    widths); the wrapper counts one launch and each product."""
+    g = torch.Generator(cuda).manual_seed(K + sum(Ns))
+    ws = [_weights(g, dtype, K, N, "kn") for N in Ns]
+    x = _randn(g, dtype, 128, K)
+    for M in (1, 4, 36, 128):
+        singles = [ops.decode_linear(x[:M], w) for w in ws]
+        launches = ops.decode_gemm.launches
+        products = sum(ops.decode_gemm.shapes.values())
+        group = ops.decode_linear_group(x[:M], ws)
+        torch.cuda.synchronize()
+        assert ops.decode_gemm.launches == launches + 1
+        assert sum(ops.decode_gemm.shapes.values()) == products + len(ws)
+        for a, b in zip(group, singles):
+            assert torch.equal(a, b), (M, tuple(a.shape))
+
+
 def test_decode_gemm_rejects_what_it_does_not_take(cuda):
     w = torch.zeros(64, 64, device=cuda)
     with pytest.raises(ValueError, match="multiples of 8"):
@@ -492,6 +559,11 @@ def test_decode_gemm_rejects_what_it_does_not_take(cuda):
         ops.decode_linear(torch.zeros(4, 64, device=cuda), w[:, ::2])
     with pytest.raises(TypeError, match="mixed"):
         ops.decode_linear(torch.zeros(4, 64, device=cuda), w.bfloat16())
+    x = torch.zeros(4, 64, device=cuda)
+    with pytest.raises(ValueError, match="must all be contiguous"):
+        ops.decode_linear_group(x, (w, torch.zeros(64, 64, device=cuda).t()))
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.decode_linear_group(x, (w, torch.zeros(64, 64)))
 
 
 def _granite_layers(cuda, dtype, n_layers=2):

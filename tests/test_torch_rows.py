@@ -51,12 +51,58 @@ def test_decode_linear_on_cpu_is_x_at_w(M, K, N, layout):
     assert ops.decode_gemm.launches == launches     # CPU tensors: no kernel
 
 
+GROUPS = [((64, 48), (64, 16), (64, 16)), ((64, 528), (64, 528)),
+          ((256, 64),)]
+
+
+@pytest.mark.parametrize("shapes", GROUPS, ids=["qkv", "gate_up", "one"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_linear_group_on_cpu_is_x_at_w(shapes, dtype):
+    """Each member of a grouped call is exactly ``x @ w``, for a (M, K)
+    and a (B, S, K) input; no kernel is launched."""
+    rng = np.random.default_rng(len(shapes) + shapes[0][1])
+    K = shapes[0][0]
+    x = torch.from_numpy(rng.standard_normal((36, K), dtype=np.float32))
+    ws = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+          for s in shapes]
+    x, ws = x.to(dtype), [w.to(dtype) for w in ws]
+    launches = ops.decode_gemm.launches
+    for xi in (x, x.reshape(4, 9, K)):
+        got = ops.decode_linear_group(xi, ws)
+        assert len(got) == len(ws)
+        for y, w in zip(got, ws):
+            assert y.dtype == dtype and torch.equal(y, xi @ w)
+    assert ops.decode_gemm.launches == launches
+
+
+def test_decode_linear_group_rejects_mismatched_members():
+    """Members of another K, another dtype or another device, and groups
+    of no weight or of more than ``ops.DECODE_MAX_GROUP``, are refused."""
+    x = torch.zeros(4, 64)
+    w = torch.zeros(64, 32)
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.decode_linear_group(x, (w, torch.zeros(48, 32)))
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        ops.decode_linear_group(x, (w, w.bfloat16()))
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.decode_linear_group(x, (w, torch.zeros(64, 32, device="meta")))
+    with pytest.raises(ValueError, match="weights in a group"):
+        ops.decode_linear_group(x, ())
+    with pytest.raises(ValueError, match="weights in a group"):
+        ops.decode_linear_group(x, (w,) * (ops.DECODE_MAX_GROUP + 1))
+
+
 @pytest.fixture
 def counted(monkeypatch):
     """Count the products that reach the decode GEMM wrapper and the
     norms that reach the RMSNorm wrapper (their plain versions)."""
-    calls = {"gemm": [], "norm": 0}
+    calls = {"gemm": [], "norm": 0, "launches": 0}
     gemm_plain, norm_plain = ops.decode_gemm.plain, ops.rmsnorm.plain
+    group = ops.decode_gemm.group
+
+    def launch(x, ws):   # one launch on the card, per grouped call
+        calls["launches"] += 1
+        return group(x, ws)
 
     def gemm(x, w):
         calls["gemm"].append(tuple(w.shape))
@@ -66,6 +112,7 @@ def counted(monkeypatch):
         calls["norm"] += 1
         return norm_plain(x, w, eps)
     monkeypatch.setattr(ops.decode_gemm, "plain", gemm)
+    monkeypatch.setattr(ops.decode_gemm, "group", launch)
     monkeypatch.setattr(ops.rmsnorm, "plain", norm)
     return calls
 
@@ -117,6 +164,27 @@ def test_decode_and_verify_send_every_product_through_the_kernel(
     counted["norm"] = 0
     prefill(cfg, params, {"tokens": window}, max_seq=16)
     assert counted["gemm"] == [] and counted["norm"] == 0
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_decode_and_verify_group_products_sharing_an_input(smoke, counted,
+                                                         paged):
+    """The 7 products of a layer go in 4 calls of the decode GEMM ({wq,
+    wk, wv}, wo, {w_gate, w_up}, w_down) and the unembed in one: 161
+    launches for 281 products a granite-3-2b pass."""
+    cfg, params = smoke
+    B = 4
+    state = (_paged_state(cfg, B, 8) if paged else _dense_state(cfg, B, 64))
+    decode_step(cfg, params, {k: v.clone() for k, v in state.items()},
+                torch.tensor([[3], [7], [11], [13]]))
+    assert counted["launches"] == 4 * cfg.n_layers + 1
+    assert len(counted["gemm"]) == 7 * cfg.n_layers + 1
+    counted["launches"] = 0
+    window = torch.arange(B * 5).reshape(B, 5) % cfg.vocab_size
+    verify_step(cfg, params, {k: v.clone() for k, v in state.items()}, window)
+    assert counted["launches"] == 4 * cfg.n_layers + 1
+    full = get_config("granite-3-2b")
+    assert (4 * full.n_layers + 1, 7 * full.n_layers + 1) == (161, 281)
 
 
 @pytest.mark.parametrize("arch,slots,spec,spec_k", [
