@@ -43,7 +43,8 @@ no result line:
    main shape (B 4, S 1024, H 24, P 64, N 128, chunk 256), at a bucket of
    128 and over the sweep of ``tests/test_kernels.py`` (2e-4 fp32, 5e-2
    bf16, its tolerances); ``rmsnorm`` at the port's norm shapes (2e-5
-   fp32, 2e-2 bf16);
+   fp32, 2e-2 bf16), also at rows whose width is not a whole number of
+   the kernel's 16-byte vectors;
 3. small inputs against a reference: the granite smoke engine (paged and
    dense, speculation off and on) and the mamba2 smoke engine decode the
    same greedy tokens on the card as on the CPU, and the full-width
@@ -104,6 +105,13 @@ no result line:
    ``torch.topk(e1 @ e2.T, k)``, ``torch.nn.functional.rms_norm``,
    ``torch.matmul``; none for the scan) and its bound from bytes and
    operations; top-k in both directions of the prefilter's leg (a);
+   ``ssd_scan`` at every shape of the ssm path, also in device time
+   (split by the kernels one call queues, from ``torch.profiler``), its
+   bound also at the tensor-core rate, and its launches x time summed
+   over the path; ``rmsnorm`` at a decode step's and a verify pass's
+   rows (4 and 36 x 2048) and at 4,096 x 768, host-inclusive and in
+   device time, each in turns with ``F.rms_norm``, and where a call's
+   host time goes (the wrapper's own work, ctypes and the launch);
    ``decode_gemm`` as one granite pass at M 4 and M 36 (its 161 calls as
    the model makes them, beside ``torch.matmul`` once per product), and
    each call of a layer with its weights cold (copies rotated past the
@@ -187,8 +195,9 @@ CHUNKED_EDGES = [(4, 63, 16, 8, 2, 32, [16, 0, 1, 15]),
                  (2, 127, 1000, 32, 8, 64, [999, 0]),
                  (3, 64, 64, 6, 3, 32, [0, 64, 65])]
 #: the port's norm shapes: mamba2 prefill (4 x 1024 rows) and decode, its
-#: gate norm at decode, granite at decode
-NORM_SHAPES = [(4096, 768), (4, 768), (4, 1536), (4, 2048)]
+#: gate norm at decode, granite at decode and at a verify pass (4 slots x
+#: 9 window rows)
+NORM_SHAPES = [(4096, 768), (4, 768), (4, 1536), (4, 2048), (36, 2048)]
 #: benchmarks/logit_score.py part C: the cross-engine cascade
 CASCADE = dict(rows=12, threshold=0.5, max_seq=128, slots=4, fn_rate=0.2,
                fp_rate=0.2, noise_seed=17)
@@ -528,7 +537,7 @@ def ssd_inputs(g, dtype, B, S, H, P, N):
 def check_ssd_and_norm(ops, L, g, dtype, c: "Checks") -> None:
     """The scan at mamba2-130m's main shape, at a bucket of 128, over the
     CPU sweep and at ragged 64-row tiles; RMSNorm at the port's norm
-    shapes and the widest row it takes."""
+    shapes, a row of 8192 and rows that are not whole 16-byte vectors."""
     m = SSD_MAIN
     for (B, S, H, P, N, chunk), main in (
             [((m["B"], S, m["H"], m["P"], m["N"], m["chunk"]), True)
@@ -541,7 +550,9 @@ def check_ssd_and_norm(ops, L, g, dtype, c: "Checks") -> None:
                   ops.ssd_scan(*x, chunk=chunk), L.ssd_chunk_scan(*x, chunk),
                   dtype, main, tol=SSD_TOL)
     for shape, main in ([(s, True) for s in NORM_SHAPES]
-                        + [((2, 5, 7, 128), False), ((3, 8192), False)]):
+                        + [((2, 5, 7, 128), False), ((3, 8192), False),
+                           ((6, 33), False), ((3, 770), False),
+                           ((2, 4, 1001), False)]):
         x = _randn(g, dtype, *shape)
         w = _randn(g, dtype, shape[-1])
         c.compare("rmsnorm", f"x={shape}", ops.rmsnorm(x, w),
@@ -1973,58 +1984,124 @@ def time_topk(ops, L, g, M, N, D, k):
         max_abs_err=float((got[1] - want[1]).abs().max()))
 
 
-def ssd_flops(B, S, H, P, N, chunk) -> int:
+def ssd_flops(B, S, H, P, N, chunk, split: int = 1) -> int:
     """The scan's multiply-adds, x 2.  B and C form one group shared by
     every head, so the causal pairs' C.B (c(c+1)/2 x N) is needed once per
-    (row, chunk), though the kernel recomputes it in each head's block;
-    per (row, head, chunk) come the pairs' W.x (c(c+1)/2 x P), the state's
-    read C.h and its update (c x N x P each).  The masked upper triangle
-    is not counted: the least work, not the kernel's."""
-    c = chunk
+    (row, chunk); per (row, head, chunk) come the pairs' W.x (c(c+1)/2 x
+    P), and, per chunk boundary, the state's update after the chunk
+    before and its read C.h in the chunk after (c x N x P each; a single
+    chunk needs neither: the scan returns y, not the final state).  The
+    masked upper triangle is not counted: the least work, not the
+    kernel's.  ``split`` counts the products of the operands the bf16
+    kernel splits into two bf16 parts (W, w x, h) that many times."""
+    c, n = chunk, S // chunk
     pairs = c * (c + 1) // 2
-    per_row_chunk = pairs * N + H * (pairs * P + 2 * c * N * P)
-    return 2 * B * (S // c) * per_row_chunk
+    per_row = n * pairs * N + H * split * (n * pairs * P
+                                           + 2 * (n - 1) * c * N * P)
+    return 2 * B * per_row
+
+
+def device_us_by_kernel(fn, args, calls: int) -> dict:
+    """Device us a call of ``fn(*args)`` spends in each CUDA kernel it
+    queues, from ``torch.profiler`` over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0]: e.self_device_time_total / calls
+            for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
 def time_ssd(ops, L, g, dtype, B, S, H, P, N, chunk):
     """The scan in the model's types (x, b, c in ``dtype``; dt, A fp32),
-    its plain version, and its bound at the fp32 rate (its arithmetic is
-    fp32).  No single PyTorch call computes the scan: no yardstick."""
+    host-inclusive and in device time, its plain version, and its bound
+    two ways: at the fp32 rate (as every PR has stated it) and at the
+    bf16 tensor-core rate with the split operands' products counted
+    twice (the units the bf16 kernel uses).  No single PyTorch call
+    computes the scan: no yardstick."""
     x0 = ssd_inputs(g, dtype, B, S, H, P, N)
     sets = [x0] + [ssd_inputs(g, dtype, B, S, H, P, N)
                    for _ in range(n_sets(_nbytes(*x0)) - 1)]
-    b_ms, b_by = bound(_nbytes(*x0) + _nbytes(x0[0]),
-                       ssd_flops(B, S, H, P, N, chunk), torch.float32)
+    nbytes = _nbytes(*x0) + _nbytes(x0[0])
+    b_ms, b_by = bound(nbytes, ssd_flops(B, S, H, P, N, chunk),
+                       torch.float32)
+    tc_ms, tc_by = bound(nbytes, ssd_flops(B, S, H, P, N, chunk, split=2),
+                         torch.bfloat16)
+    kernel = lambda *x: ops.ssd_scan(*x, chunk=chunk)  # noqa: E731
     return dict(
         shape=dict(B=B, S=S, H=H, P=P, N=N, chunk=chunk),
-        ms=time_ms(lambda *x: ops.ssd_scan(*x, chunk=chunk), sets, 20),
+        ms=time_ms(kernel, sets, 20), device_ms=device_ms(kernel, sets, 20),
+        device_us_by_kernel=device_us_by_kernel(kernel, x0, 10),
+        library_device_ms=None,
         plain_ms=time_ms(lambda *x: L.ssd_chunk_scan(*x, chunk), sets[:2], 3),
         library_ms=None, library="none: no single PyTorch call",
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, bound_tc_ms=tc_ms, bound_tc_by=tc_by,
         max_abs_err=float((ops.ssd_scan(*x0, chunk=chunk).float()
                            - L.ssd_chunk_scan(*x0, chunk).float())
                           .abs().max()))
 
 
 def time_rmsnorm(ops, L, g, dtype, rows, D):
-    """RMSNorm with x and w in ``dtype``; the yardstick is
+    """RMSNorm with x and w in ``dtype``, host-inclusive and in device
+    time, each in turns with its yardstick,
     ``torch.nn.functional.rms_norm``."""
     mk = lambda: (_randn(g, dtype, rows, D), _randn(g, dtype, D))  # noqa
     x0 = mk()
     sets = [x0] + [mk() for _ in range(n_sets(2 * _nbytes(*x0)) - 1)]
     F = torch.nn.functional
+    lib = lambda x, w: F.rms_norm(x, (D,), w, eps=1e-5)  # noqa: E731
     b_ms, b_by = bound(2 * _nbytes(x0[0]) + _nbytes(x0[1]), 4 * rows * D,
                        torch.float32)
+    host_k, host_l = in_turns(lambda fn: time_ms(fn, sets, 2000), ops.rmsnorm,
+                              lib)
+    dev_k, dev_l = in_turns(lambda fn: device_ms(fn, sets, 50), ops.rmsnorm,
+                            lib)
     return dict(
         shape=dict(rows=rows, D=D),
-        ms=time_ms(ops.rmsnorm, sets, 50),
+        ms=sum(host_k) / 2, library_ms=sum(host_l) / 2,
+        device_ms=sum(dev_k) / 2, library_device_ms=sum(dev_l) / 2,
+        readings=dict(host_kernel=host_k, host_library=host_l,
+                      device_kernel=dev_k, device_library=dev_l),
         plain_ms=time_ms(L.rms_norm, sets[:2], 20),
-        library_ms=time_ms(lambda x, w: F.rms_norm(x, (D,), w, eps=1e-5),
-                           sets, 50),
         library="torch.nn.functional.rms_norm",
         bound_ms=b_ms, bound_by=b_by,
         max_abs_err=float((ops.rmsnorm(*x0).float()
                            - L.rms_norm(*x0).float()).abs().max()))
+
+
+def host_us(fn, n: int = 2000) -> float:
+    """Mean host us of ``fn()`` called back to back (launches queue while
+    the host is the slower side), after a warm-up."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def host_cost(kernel, args) -> dict:
+    """Where a wrapper's host time goes, in us a call: the whole call, the
+    wrapper's own work (its C entry point swapped for a Python no-op), and
+    the C entry point alone on the arguments the wrapper passes it
+    (ctypes' conversion and the launch)."""
+    kernel(*args)
+    fn, seen = kernel._fn, []
+    try:
+        kernel._fn = lambda *a: seen.append(a) or 0
+        kernel(*args)
+        kernel._fn = lambda *a: 0
+        wrapper = host_us(lambda: kernel(*args))
+    finally:
+        kernel._fn = fn
+    return dict(call_us=host_us(lambda: kernel(*args)), wrapper_us=wrapper,
+                c_call_us=host_us(lambda: fn(*seen[0])))
 
 
 def pass_calls(params, cfg) -> list:
@@ -2228,15 +2305,40 @@ def time_kernels(ops, L, dev, shapes, paths, cores, calls) -> dict:
     # the width of EngineEmbedder's vectors (d_model 2048)
     sweep.append(("topk_similarity",
                   time_topk(ops, L, g, 10_000, 1_000, 2048, 8)))
-    # the ssm path's other buckets, by their launches there (the scored
-    # tuple join's 512, the cascade's 128), and the other norm shapes
-    for (B, S, H, P, N, chunk, _), _ in shapes["ssd_scan"][:3]:
-        if S != SSD_MAIN["S"]:
-            sweep.append(("ssd_scan", time_ssd(ops, L, g, dt, B, S, H, P, N,
-                                               chunk)))
+    # every shape of the ssm path (the scored tuple join's 128 and the
+    # cascade's buckets beside the main one), and the scan over the path:
+    # launches x time at each shape it took; then the other norm shapes
+    ssd_keys = ("B", "S", "H", "P", "N", "chunk")
+    by_shape = {tuple(SSD_MAIN[k] for k in ssd_keys): main["ssd_scan"]}
+    weighted = {}
+    for (*dims, _), n in shapes["ssd_scan"]:
+        r = by_shape.get(tuple(dims))
+        if r is None:
+            r = by_shape[tuple(dims)] = time_ssd(ops, L, g, dt, *dims)
+            sweep.append(("ssd_scan", r))
+        for k in ("ms", "device_ms", "bound_ms", "bound_tc_ms"):
+            weighted[k] = weighted.get(k, 0.0) + n * r[k]
+    main["ssd_scan"]["weighted"] = dict(
+        launches=sum(n for _, n in shapes["ssd_scan"]), **weighted)
+    log("  ssd_scan over the ssm path, launches x ms at each shape: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in weighted.items()))
     for rows, D in NORM_SHAPES:
         if (rows, D) != (nrows, nD):
             sweep.append(("rmsnorm", time_rmsnorm(ops, L, g, dt, rows, D)))
+    # the norm's host cost at a decode step's and a verify pass's rows,
+    # beside the library call's
+    F = torch.nn.functional
+    for r in [main["rmsnorm"]] + [r for n, r in sweep if n == "rmsnorm"]:
+        rows, D = r["shape"]["rows"], r["shape"]["D"]
+        if D == 2048:
+            x, w = _randn(g, dt, rows, D), _randn(g, dt, D)
+            r["host_cost"] = dict(
+                host_cost(ops.rmsnorm, (x, w)),
+                library_call_us=host_us(
+                    lambda: F.rms_norm(x, (D,), w, eps=1e-5)))
+            log(f"  rmsnorm host cost at {rows} x {D}, us a call: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in
+                            r["host_cost"].items()))
     # the products of a verify pass (M = slots x (spec_k + 1))
     sweep.append(("decode_gemm", time_decode_gemm(ops, L, g, calls, 36)))
     torch.cuda.synchronize()
@@ -2253,8 +2355,15 @@ def time_kernels(ops, L, dev, shapes, paths, cores, calls) -> dict:
         cores_ms = (f" cuda_cores={r['cuda_cores_ms']:.4f} ms"
                     if r.get("cuda_cores_ms") is not None else "")
         if "device_ms" in r:
-            cores_ms += (f" device: kernel={r['device_ms']:.4f} ms "
-                         f"{lib}={r['library_device_ms']:.4f} ms")
+            cores_ms += f" device: kernel={r['device_ms']:.4f} ms"
+            if r["library_device_ms"] is not None:
+                cores_ms += f" {lib}={r['library_device_ms']:.4f} ms"
+        if "bound_tc_ms" in r:
+            cores_ms += (f" bound at the tensor-core rate="
+                         f"{r['bound_tc_ms']:.4f} ms ({r['bound_tc_by']})"
+                         " device us by kernel: " + ", ".join(
+                             f"{k} {v:.2f}" for k, v in
+                             r["device_us_by_kernel"].items()))
         log(f"  {name:26s} {dt_name} {json.dumps(r['shape']):100s} "
             f"kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
             f"{lib}={lib_ms}{cores_ms} bound={r['bound_ms']:.4f} ms "
@@ -2420,6 +2529,11 @@ def main() -> int:
             extra = dict(products=gemm_products(path),
                          products_by_path={name: gemm_products(pth)
                                            for name, pth in paths.items()})
+        if k.name == "ssd_scan":
+            extra = {x: r[x] for x in ("device_ms", "bound_tc_ms",
+                                       "weighted")}
+        if k.name == "rmsnorm":
+            extra = {x: r[x] for x in ("device_ms", "library_device_ms")}
         if k.name == "topk_similarity":
             extra = dict(directions=[
                 {**t["shape"], **{x: t[x] for x in (

@@ -10,7 +10,7 @@ on the paged engine verifies its draft windows with
 ``decode_attention`` and verifies by looping it over the window.  The
 ssm family (mamba2) runs ``ssd_scan`` in every prefill, scoring and
 encode pass, once a layer.  The dense family's decode and verify
-passes take every norm through ``rmsnorm`` (one warp a row) and every
+passes take every norm through ``rmsnorm`` (one block a row) and every
 product -- the attention projections, the MLP and the unembed --
 through ``decode_gemm`` (by :func:`decode_linear`, and by
 :func:`decode_linear_group` for the products of one input in one call:
@@ -72,6 +72,16 @@ DECODE_MAX_ROWS = 128
 #: at most 256 (kTargetBlocks / 2 in csrc/decode_gemm.cu)
 _GEMM_COUNTERS = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: (x's, w's) dtype codes of the RMSNorm kernel, by their dtypes
+_NORM_CODES = {(a, b): (_DTYPES[a], _DTYPES[b]) for a in _DTYPES
+               for b in _DTYPES}
+#: the widest row the RMSNorm kernel takes, by x's dtype code: 1024
+#: threads of 4 vectors of 16 bytes (kMaxThreads, kMaxPer in
+#: csrc/rmsnorm.cu)
+NORM_MAX_D = {0: 1024 * 4 * 4, 1: 1024 * 4 * 8}
+#: the raw handle of the current stream (absent from CPU-only builds, which
+#: never launch)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 class CudaKernel:
@@ -97,29 +107,34 @@ class CudaKernel:
     def _lib(self) -> ctypes.CDLL:
         return build.load(self.source)
 
+    def _bind(self):
+        fn = getattr(self._lib(), self.symbol)
+        fn.argtypes = self._argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        return fn
+
     def _launch(self, ptrs: Sequence[Optional[torch.Tensor]],
                 ints: Sequence[int], floats: Sequence[float] = (),
                 key: Optional[Sequence[int]] = None,
                 keys: Sequence[Sequence[int]] = ()):
         """Launch on the current stream and count it, under ``key`` in
         :attr:`shapes` (the integer arguments unless given), or once under
-        each of ``keys`` where one launch does several things."""
-        if self._fn is None:
-            fn = getattr(self._lib(), self.symbol)
-            fn.argtypes = self._argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        # the raw handle of the current stream: the cheapest way to it, as
-        # a decode pass makes ~300 launches
-        stream = torch._C._cuda_getCurrentRawStream(ptrs[0].device.index)
-        rc = self._fn(*[None if t is None else t.data_ptr() for t in ptrs],
-                      *ints, *floats, stream)
+        each of ``keys`` where one launch does several things.  A decode
+        pass makes ~300 launches, so this stays lean: the raw handle of
+        the current stream, ``get_device`` (no ``torch.device`` built)."""
+        fn = self._fn or self._bind()
+        rc = fn(*[t if t is None else t.data_ptr() for t in ptrs], *ints,
+                *floats, _raw_stream(ptrs[0].get_device()))
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {rc}")
         self.launches += 1
-        for k in keys or (ints if key is None else key,):
-            self.shapes[tuple(k)] += 1
+        if keys:
+            for k in keys:
+                self.shapes[tuple(k)] += 1
+        else:
+            self.shapes[tuple(ints if key is None else key)] += 1
 
 
 class _SplitDecode(CudaKernel):
@@ -384,14 +399,34 @@ class _TopkSimilarity(CudaKernel):
 
 
 class _SsdScan(CudaKernel):
-    def __call__(self, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                 b: torch.Tensor, c: torch.Tensor, *,
-                 chunk: int = 256) -> torch.Tensor:
-        """The SSD chunked scan: x ``(B,S,H,P)``, dt ``(B,S,H)`` fp32, A
-        ``(H,)`` fp32, b/c ``(B,S,N)`` → y ``(B,S,H,P)`` in x's dtype,
-        over chunks of ``pick_chunk(S, chunk)`` positions."""
-        if _on_cpu(x, dt, A, b, c):
-            return self.plain(x, dt, A, b, c, chunk)
+    """One C call queues the scan's kernels (C.B^T and the log-decay sums,
+    then, over several chunks, the chunks' states and their serial
+    carry, then y): one launch counted.  The wrapper keeps their scratch
+    in one buffer per device, reused by every call (calls run in order on
+    one stream).  A mamba2 pass makes one call a layer, so each call's
+    checks and scratch size are looked up by its shapes and dtypes."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self._scratch = {}   # device index -> uint8 buffer
+        #: shapes, dtypes and chunk -> (the launch's ints, scratch bytes)
+        self._plans = {}
+
+    def scratch_bytes(self, B: int, S: int, H: int, P: int, N: int,
+                      chunk: int) -> int:
+        """Bytes of scratch a call of these shapes needs (from the
+        kernel)."""
+        fn = getattr(self, "_scratch_fn", None)
+        if fn is None:
+            fn = self._scratch_fn = self._lib().repro_ssd_scan_scratch
+            fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_longlong
+        n = int(fn(B, S, H, P, N, chunk))
+        if n < 0:
+            raise ValueError(f"ssd_scan: shapes {(B, S, H, P, N, chunk)} not "
+                             "taken")
+        return n
+
+    def _plan(self, key, x, dt, A, b, c, chunk) -> tuple:
         B, S, H, P = x.shape
         N = b.shape[-1]
         if (dt.shape != (B, S, H) or A.shape != (H,)
@@ -405,37 +440,100 @@ class _SsdScan(CudaKernel):
         if dt.dtype != torch.float32 or A.dtype != torch.float32:
             raise TypeError("ssd_scan: dt and A must be float32")
         dtype = _check(self.name, (x, b, c))
-        for t in (dt, A):
-            if not t.is_contiguous():
-                raise ValueError("ssd_scan: inputs must be contiguous")
         chunk = L.pick_chunk(S, chunk) if S else chunk
         if chunk > SSD_MAX_CHUNK:
             raise ValueError(f"ssd_scan: chunk {chunk} above the kernel's "
                              f"cap of {SSD_MAX_CHUNK}")
+        ints = (B, S, H, P, N, chunk, dtype)
+        nbytes = self.scratch_bytes(*ints[:6]) if x.numel() else 0
+        plan = self._plans[key] = (ints, nbytes)
+        return plan
+
+    def _buffer(self, device: int, nbytes: int) -> torch.Tensor:
+        buf = self._scratch.get(device)
+        if buf is None or buf.numel() < nbytes:
+            buf = self._scratch[device] = torch.empty(
+                max(nbytes, 1), dtype=torch.uint8, device=f"cuda:{device}")
+        return buf
+
+    def __call__(self, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, *,
+                 chunk: int = 256) -> torch.Tensor:
+        """The SSD chunked scan: x ``(B,S,H,P)``, dt ``(B,S,H)`` fp32, A
+        ``(H,)`` fp32, b/c ``(B,S,N)`` → y ``(B,S,H,P)`` in x's dtype,
+        over chunks of ``pick_chunk(S, chunk)`` positions."""
+        d = x.get_device()   # -1 on the CPU
+        if (d < 0 or dt.get_device() != d or A.get_device() != d
+                or b.get_device() != d or c.get_device() != d):
+            if _on_cpu(x, dt, A, b, c):
+                return self.plain(x, dt, A, b, c, chunk)
+        key = (x.shape, dt.shape, A.shape, b.shape, c.shape, x.dtype,
+               dt.dtype, A.dtype, b.dtype, c.dtype, chunk)
+        ints, nbytes = (self._plans.get(key)
+                        or self._plan(key, x, dt, A, b, c, chunk))
+        if not (x.is_contiguous() and dt.is_contiguous()
+                and A.is_contiguous() and b.is_contiguous()
+                and c.is_contiguous()):
+            raise ValueError("ssd_scan: inputs must be contiguous")
         y = torch.empty_like(x)
-        if y.numel():
-            self._launch((x, dt, A, b, c, y), (B, S, H, P, N, chunk, dtype))
+        if nbytes:
+            buf = self._buffer(d, nbytes)
+            self._launch((x, dt, A, b, c, y, buf), ints + (buf.numel(),),
+                         key=ints)
         return y
 
 
 class _RmsNorm(CudaKernel):
+    """A granite pass makes 81 of these calls, so the host work before the
+    launch is two device tests, one cached lookup of the call's plan by
+    its shapes and dtypes, the contiguity tests and the output's
+    allocation, and the C entry point is called directly."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        #: (x.shape, weight.shape, x.dtype, weight.dtype) -> (rows, D,
+        #: dtype code, weight dtype code), checked once
+        self._plans = {}
+
+    def _plan(self, x: torch.Tensor, weight: torch.Tensor) -> tuple:
+        codes = _NORM_CODES.get((x.dtype, weight.dtype))
+        if codes is None:
+            raise TypeError(f"rmsnorm: dtypes {x.dtype} / {weight.dtype} not "
+                            "supported (float32 or bfloat16)")
+        D = x.shape[-1]
+        if weight.shape != (D,):
+            raise ValueError(f"rmsnorm: weight {tuple(weight.shape)} does "
+                             f"not fit x {tuple(x.shape)}")
+        if D > NORM_MAX_D[codes[0]]:
+            raise ValueError(f"rmsnorm: D {D} above the kernel's cap of "
+                             f"{NORM_MAX_D[codes[0]]} for {x.dtype}")
+        plan = (x.numel() // D if D else 0, D) + codes
+        self._plans[(x.shape, weight.shape, x.dtype, weight.dtype)] = plan
+        return plan
+
     def __call__(self, x: torch.Tensor, weight: torch.Tensor,
                  eps: float = 1e-5) -> torch.Tensor:
         """``x * rsqrt(mean(x^2) + eps) * weight`` over the last axis in
         fp32, in x's dtype; x ``(..., D)``, weight ``(D,)``, each fp32 or
         bf16 and contiguous."""
-        if _on_cpu(x, weight):
-            return self.plain(x, weight, eps)
-        D = x.shape[-1]
-        if weight.shape != (D,):
-            raise ValueError(f"rmsnorm: weight {tuple(weight.shape)} does "
-                             f"not fit x {tuple(x.shape)}")
-        dtype = _check(self.name, (x,))
-        wdtype = _check(self.name, (weight,))
+        d = x.get_device()   # -1 on the CPU
+        if d < 0 or weight.get_device() != d:
+            if _on_cpu(x, weight):
+                return self.plain(x, weight, eps)
+        plan = (self._plans.get((x.shape, weight.shape, x.dtype, weight.dtype))
+                or self._plan(x, weight))
+        if not (x.is_contiguous() and weight.is_contiguous()):
+            raise ValueError("rmsnorm: inputs must be contiguous")
         out = torch.empty_like(x)
-        if out.numel():
-            self._launch((x, weight, out), (x.numel() // D, D, dtype, wdtype),
-                         (eps,))
+        if plan[0]:
+            fn = self._fn or self._bind()
+            rc = fn(x.data_ptr(), weight.data_ptr(), out.data_ptr(), *plan,
+                    eps, _raw_stream(d))
+            if rc != 0:
+                raise RuntimeError(f"rmsnorm kernel launch failed: CUDA "
+                                   f"error {rc}")
+            self.launches += 1
+            self.shapes[plan] += 1
         return out
 
 
@@ -583,7 +681,7 @@ decode_attention = _DecodeAttention(
     n_ptrs=6, n_ints=7, plain=L.decode_attention,
     replaces="src/repro/kernels/decode_attention.py:65")
 ssd_scan = _SsdScan(
-    "ssd_scan", "ssd_scan", "repro_ssd_scan", n_ptrs=6, n_ints=7,
+    "ssd_scan", "ssd_scan", "repro_ssd_scan", n_ptrs=7, n_ints=7, n_longs=1,
     plain=L.ssd_chunk_scan, replaces="src/repro/kernels/ssd_scan.py:65")
 rmsnorm = _RmsNorm(
     "rmsnorm", "rmsnorm", "repro_rmsnorm", n_ptrs=3, n_ints=4, n_floats=1,

@@ -13,7 +13,7 @@ package casts.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,14 +71,21 @@ def _ssm_params(p) -> Tuple[torch.Tensor, torch.Tensor]:
     return p["dt_bias"].float(), -torch.exp(p["a_log"].float())
 
 
-def mamba_apply(cfg: ModelConfig, p, x: torch.Tensor, *,
-                chunk: int = 0) -> torch.Tensor:
-    """Full-sequence SSD mixer (prefill, scoring, encode).  x: (B,S,D)."""
+def in_proj(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """The layer's norm and in-projection, ``rms_norm(x) @ w_in``: the
+    ``[z, x, B, C, dt]`` of every position.  x: (B,S,D)."""
+    return L.rms_norm(x, p["norm"], cfg.norm_eps) @ p["w_in"]
+
+
+def mamba_apply(cfg: ModelConfig, p, x: torch.Tensor, *, chunk: int = 0,
+                proj: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence SSD mixer (prefill, scoring, encode).  x: (B,S,D);
+    ``proj``, where the caller has it, is ``in_proj(cfg, p, x)``."""
     chunk = chunk or cfg.ssm_chunk
     B, S, _ = x.shape
     DI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    xn = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    z, xi, b, c, dt = _split_proj(cfg, xn @ p["w_in"])
+    z, xi, b, c, dt = _split_proj(
+        cfg, in_proj(cfg, p, x) if proj is None else proj)
     xbc = _causal_conv(torch.cat([xi, b, c], dim=-1), p["conv_w"],
                        p["conv_b"])
     xi = xbc[..., :DI].reshape(B, S, H, P).contiguous()

@@ -276,16 +276,19 @@ def _mamba_prefill(cfg: ModelConfig, p, x: torch.Tensor,
     states.  ``seq_valid`` (B,S) masks right padding: the mixer output is
     zeroed past each row's valid prefix, and the state-only pass sees
     masked inputs, so the states stop exactly at ``valid_len``."""
-    out = M.mamba_apply(cfg, p, x)
+    proj = M.in_proj(cfg, p, x)   # once, for the mixer and the states
+    out = M.mamba_apply(cfg, p, x, proj=proj)
     if seq_valid is not None:
         out = out * seq_valid[..., None].to(out.dtype)
-    conv_s, ssm_s = _mamba_final_state(cfg, p, x, seq_valid)
+    conv_s, ssm_s = _mamba_final_state(cfg, p, x, seq_valid, proj=proj)
     return x + out, conv_s, ssm_s
 
 
 def _mamba_final_state(cfg: ModelConfig, p, x: torch.Tensor,
-                       seq_valid: Optional[torch.Tensor] = None):
-    """State-only SSD pass → ``(conv_state, ssm_state)`` after ``x``.
+                       seq_valid: Optional[torch.Tensor] = None,
+                       proj: Optional[torch.Tensor] = None):
+    """State-only SSD pass → ``(conv_state, ssm_state)`` after ``x``
+    (``proj``, where the caller has it, is ``M.in_proj(cfg, p, x)``).
 
     The conv state is the last W-1 (masked) raw inputs of each row,
     sliced from ``clip(valid_len - (W-1), 0, S - (W-1))`` as the JAX
@@ -296,8 +299,8 @@ def _mamba_final_state(cfg: ModelConfig, p, x: torch.Tensor,
     Bsz, S, _ = x.shape
     DI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     W = cfg.conv_width
-    xn = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    _, xi, b, c, dt = M._split_proj(cfg, xn @ p["w_in"])
+    _, xi, b, c, dt = M._split_proj(
+        cfg, M.in_proj(cfg, p, x) if proj is None else proj)
     xbc_raw = torch.cat([xi, b, c], dim=-1)
     if seq_valid is not None:
         xbc_raw = xbc_raw * seq_valid[..., None].to(xbc_raw.dtype)

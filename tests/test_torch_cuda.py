@@ -19,7 +19,10 @@ the same bits whatever the number of rows beside it, or the products
 launched with it, so a decode step's rows and a verify pass's rows equal
 the decode steps they stand for, bit for bit, at granite-3-2b's widths.
 The top-k kernel splits N across blocks; ties across its splits still go
-to the lower index.
+to the lower index.  The RMSNorm kernel gives a row the same bits in a
+launch of any number of rows, and the SSD scan a batch row the bits of
+that row launched alone; both give the same bits whether their inputs
+are staged by 16-byte vectors or, off the 16-byte grid, by scalar loads.
 """
 
 import dataclasses
@@ -308,12 +311,17 @@ def _ssd_inputs(g, dtype, B, S, H, P, N):
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [
     (1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16), (1, 48, 4, 8, 16, 12),
     (4, 128, 24, 64, 128, 256), (2, 1024, 24, 64, 128, 256),
-    (1, 200, 3, 40, 100, 100)])
+    (1, 200, 3, 40, 100, 100),
+    # the ssm path's three shapes, and S 1024 in 8 chunks of 128
+    (4, 256, 24, 64, 128, 256), (4, 1024, 24, 64, 128, 256),
+    (4, 1024, 24, 64, 128, 128)])
 def test_ssd_scan_kernel_on_card(cuda, dtype, B, S, H, P, N, chunk):
     """Against the plain chunked scan at the tolerances of
     tests/test_kernels.py::test_ssd_scan (2e-4 fp32, 5e-2 bf16): the CPU
-    sweep, mamba2-130m's widths at a bucket of 128 and of 1024, and ragged
-    64-row tiles (chunk 100, P 40, N 100)."""
+    sweep, mamba2-130m's widths at each bucket the ssm path launches (128,
+    256, 1024) and at S 1024 in 8 chunks (the state's serial pass over 7
+    chunks), and ragged 64-row tiles with unaligned rows (chunk 100, P 40,
+    N 100)."""
     g = torch.Generator(cuda).manual_seed(S + P)
     x = _ssd_inputs(g, dtype, B, S, H, P, N)
     before = ops.ssd_scan.launches
@@ -325,6 +333,39 @@ def test_ssd_scan_kernel_on_card(cuda, dtype, B, S, H, P, N, chunk):
     torch.testing.assert_close(out.float(),
                                L.ssd_chunk_scan(*x, chunk).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,chunk", [(128, 128), (256, 256), (1024, 256),
+                                     (1024, 128)])
+def test_ssd_scan_rows_do_not_depend_on_the_batch(cuda, dtype, S, chunk):
+    """mamba2-130m's widths: each batch row of a B = 4 launch equals, bit
+    for bit, the same row launched alone (B = 1)."""
+    g = torch.Generator(cuda).manual_seed(S + chunk)
+    x = _ssd_inputs(g, dtype, 4, S, 24, 64, 128)
+    out = ops.ssd_scan(*x, chunk=chunk)
+    for r in range(4):
+        alone = ops.ssd_scan(*[t[r:r + 1] if t.dim() > 1 else t for t in x],
+                             chunk=chunk)
+        assert torch.equal(out[r:r + 1], alone), r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_unaligned_rows_give_the_same_bits(cuda, dtype):
+    """x, b and c at an address off the 16-byte grid go through the
+    kernel's scalar staging: the same bits as the cp.async staging of the
+    same values, over several chunks."""
+    g = torch.Generator(cuda).manual_seed(9)
+    x, dt, A, b, c = _ssd_inputs(g, dtype, 2, 512, 4, 64, 128)
+
+    def shifted(t):   # the same values one element past a 16-byte address
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    want = ops.ssd_scan(x, dt, A, b, c, chunk=128)
+    got = ops.ssd_scan(shifted(x), dt, A, shifted(b), shifted(c), chunk=128)
+    assert torch.equal(got, want)
 
 
 def test_ssd_scan_kernel_rejects_what_it_does_not_take(cuda):
@@ -342,11 +383,13 @@ def test_ssd_scan_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 32), (4, 33, 64), (2, 5, 7, 128),
                                    (4096, 768), (4, 768), (4, 1536),
-                                   (4, 2048), (3, 8192)])
+                                   (4, 2048), (36, 2048), (3, 8192),
+                                   (6, 33), (3, 770), (2, 4, 1001)])
 def test_rmsnorm_kernel_on_card(cuda, dtype, shape):
     """Against the plain version at tests/test_kernels.py:13 tolerances
     (2e-5 fp32, 2e-2 bf16): the sweep of tests/test_kernels.py, the port's
-    norm shapes and the widest row taken (8192)."""
+    norm shapes, a row of 8192, and rows whose D is not a multiple of the
+    kernel's 16-byte vector (33, 770, 1001)."""
     g = torch.Generator(cuda).manual_seed(shape[-1])
     x = _randn(g, dtype, *shape)
     w = _randn(g, torch.float32, shape[-1])
@@ -355,6 +398,40 @@ def test_rmsnorm_kernel_on_card(cuda, dtype, shape):
     torch.cuda.synchronize()
     assert ops.rmsnorm.launches == before + 1 and out.dtype == dtype
     torch.testing.assert_close(out.float(), L.rms_norm(x, w).float(),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 4, 36, 52, 128, 4096])
+def test_rmsnorm_rows_do_not_depend_on_the_row_count(cuda, dtype, M):
+    """Each row of an (M, 2048) input equals, bit for bit, the row run
+    alone: M 1 and 4 (decode steps), 36 and 52 (verify passes), 128 and
+    4,096 (a prefill's rows)."""
+    g = torch.Generator(cuda).manual_seed(M)
+    x = _randn(g, dtype, M, 2048)
+    w = _randn(g, dtype, 2048)
+    out = ops.rmsnorm(x, w)
+    alone = torch.cat([ops.rmsnorm(x[i:i + 1], w) for i in range(M)])
+    assert torch.equal(out, alone)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 2048), (3, 8192), (5, 770),
+                                   (2, 3, 1001)])
+def test_rmsnorm_scalar_path_gives_the_vector_paths_bits(cuda, dtype, shape):
+    """x at an address off the 16-byte grid goes through scalar loads and
+    stores (as does every row whose D is not a multiple of the vector
+    width, 770 and 1001): the same elements to the same threads, so the
+    same bits as an aligned copy, and the plain version's values."""
+    g = torch.Generator(cuda).manual_seed(shape[-1])
+    x = _randn(g, dtype, *shape)
+    w = _randn(g, dtype, shape[-1])
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    shifted = buf[1:].view(shape)
+    shifted.copy_(x)
+    want = ops.rmsnorm(x, w)
+    assert torch.equal(ops.rmsnorm(shifted, w), want)
+    torch.testing.assert_close(want.float(), L.rms_norm(x, w).float(),
                                **_tol(dtype))
 
 

@@ -216,6 +216,35 @@ def test_mamba_apply_and_decode_match(weights, jax_cfg):
         _assert_state_close(a.numpy(), b)
 
 
+@pytest.mark.parametrize("lens", [None, [24, 13, 2]],
+                         ids=["unpadded", "ragged"])
+def test_mamba_prefill_projects_once(weights, lens, monkeypatch):
+    """``_mamba_prefill`` computes the layer's norm and in-projection once
+    and feeds the mixer and the final states from it: the layer output
+    and both states are ``torch.equal`` to the separate computation
+    (``mamba_apply`` and ``_mamba_final_state``, each projecting on its
+    own), with and without right padding."""
+    from repro_torch.models import model as MD
+    cfg, _, tparams = weights
+    p = _layer0(tparams)
+    B, S = 3, 24
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32))
+    seq_valid = (None if lens is None
+                 else torch.arange(S)[None, :] < torch.tensor(lens)[:, None])
+    out = M.mamba_apply(cfg, p, x)
+    if seq_valid is not None:
+        out = out * seq_valid[..., None].to(out.dtype)
+    want = (x + out, *MD._mamba_final_state(cfg, p, x, seq_valid))
+    calls = []
+    real = M.in_proj
+    monkeypatch.setattr(M, "in_proj", lambda *a: calls.append(1) or real(*a))
+    got = MD._mamba_prefill(cfg, p, x, seq_valid)
+    assert len(calls) == 1
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+
+
 def _ragged(cfg, B, S, lens, seed=4):
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
