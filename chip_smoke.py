@@ -81,7 +81,8 @@ no result line:
    and the dense cache, each bit for bit (0.000); and greedy tokens (no
    teacher forcing) with speculation on against off on prompts of random
    token ids, under which the drafter proposes (``GREEDY``): identical,
-   with drafts;
+   with drafts, and on each engine the eager run's token ids those of
+   the run with its pass as a graph;
 7. the dense-KV engine (``paged=False``) on the same weights, spec off
    and on: the paged engine's pairs, calls, prompt and completion tokens
    and decode steps, the JAX dense engine's counts, ``decode_attention``
@@ -97,7 +98,24 @@ no result line:
    engine as the large one), held to the JAX engines' F1, escalations,
    passes and scored tokens.  ``ssd_scan`` must launch 24 times per
    mamba2 pass and no attention kernel on the mamba2 engine;
-9. every kernel against its plain version again at each shape the paths
+9. the passes as CUDA graphs against eager: phases 4-8 ran their decode
+   and verify passes as graphs (the engine's default on the card); here
+   each captured kind (paged decode at M 4, verify at K 9, dense decode
+   at M 4, mamba2 decode at M 4) runs as the engine calls it, eagerly
+   and as a graph in turns on one engine, after a replay is held to an
+   eager pass from the same state (logits, K/V, lengths and states bit
+   for bit; the launches the replay adds to the wrappers' counts equal
+   an eager pass's; the kernels each queues on the device the same by
+   name and count, ``torch.profiler``): host-inclusive ms a pass, the
+   device's span in CUDA events, the replay's device time behind a
+   sleep kernel, the kernels' device time summed by ``torch.profiler``
+   (eager pass and replay), the host's own time to stage the inputs and
+   launch a replay, each graph's warm-up and capture time and its pool's
+   memory beside the peak; then phase 4's block + adaptive joins on one
+   fresh engine in ``GRAPH_PAIRS`` alternating eager / graph pairs, the
+   prefix cache emptied before each run, every run held to phase 4's
+   counts and launches a pass;
+10. every kernel against its plain version again at each shape the paths
    gave it; then each kernel's time (CUDA events, inputs rotated past the
    50 MB L2) at its path's most frequent shape, beside its plain version,
    one PyTorch call as a yardstick (timed here, never called by the
@@ -123,7 +141,9 @@ no result line:
    one, and each path's launches x ms of the two is printed under both
    bodies; so are the decode-side kernels' launches x ms on each path.
    ``--profile`` adds one block join and prefilter leg (b) under
-   ``torch.profiler`` (device busy share, device time by kernel).
+   ``torch.profiler`` (device busy share, device time by kernel), and
+   one block join on each of the spec, dense and ssm paths, graphs on
+   (each engine's graph captured before its profile).
 
 Each phase sets its engine's mode itself; ``REPRO_SPEC_DECODE``,
 ``REPRO_PAGED_KV`` and ``REPRO_PREFIX_CACHE`` are dropped if set.  The
@@ -210,6 +230,11 @@ MATCH_DENSE = dict(left_rows=24, right_rows=32, b1=12, b2=16, max_seq=1536,
 #: keeps to; its counts are teacher-forced, so depth does not move them,
 #: and its walls are per depth.  No other leg is cut.
 MATCH_DENSE_LAYERS = 20
+#: phase 9: alternating eager / graph runs of phase 4's joins on one
+#: engine (walls spread up to 2x between hosts, so one pair proves
+#: nothing), and each pass kind's rounds of passes in turns
+GRAPH_PAIRS = 3
+PASS_ROUNDS, PASS_STEPS = 4, 10
 
 # Counts of the teacher-forced workloads.  With the rule oracle forcing
 # every answer, decode steps, drafted and accepted tokens and the Ledger's
@@ -1364,31 +1389,51 @@ def id_tokenizer(base):
     return IdTokenizer(base.vocab_size)
 
 
+def empty_prefix_cache(engine) -> None:
+    """Evict every page ``engine``'s prefix cache holds, so the next run
+    prefills as a cold engine does."""
+    pc = engine.prefix_cache
+    while pc is not None and pc._evict_one():
+        pass
+
+
 def greedy_agreement(rt, engine) -> dict:
     """Greedy tokens (no teacher forcing) of ``GREEDY`` requests with
     speculation on against off, each on a fresh engine over the same
     weights: identical token ids on every request, and the drafter must
-    have proposed (else the check would be vacuous)."""
+    have proposed (else the check would be vacuous).  Each engine runs
+    the requests eagerly, then (the prefix cache emptied) with its
+    decode or verify pass as a graph: the token ids must be the same."""
     n, tok = GREEDY["requests"], id_tokenizer(engine.tokenizer)
     rng = np.random.default_rng(GREEDY["seed"])
     # ids past the 4 special ones (pad, bos, eos, sep)
     prompts = [" ".join(map(str, rng.choice(
         np.arange(4, engine.cfg.vocab_size), GREEDY["prompt_tokens"],
         replace=False))) for _ in range(n)]
-    ids, stats = {}, {}
+    ids, stats, eager = {}, {}, {}
     for spec in (False, True):
         eng = rt.Engine(engine.cfg, engine.params, tok, max_seq=1024,
                         slots=n, spec_decode=spec)
-        ex = eng.executor()
-        t = time.perf_counter()
-        hs = [ex.submit(p, max_tokens=GREEDY["max_tokens"]) for p in prompts]
-        ex.drain()
-        torch.cuda.synchronize()
-        ids[spec] = [h._out_ids for h in hs]
-        stats[spec] = dict(decode_steps=ex.stats.decode_steps,
-                           drafted=ex.stats.drafted_tokens,
-                           accepted=ex.stats.accepted_draft_tokens,
-                           wall_s=time.perf_counter() - t)
+        for graphs in (False, True):
+            eng.graphs = graphs
+            empty_prefix_cache(eng)
+            ex = eng.executor()
+            t = time.perf_counter()
+            hs = [ex.submit(p, max_tokens=GREEDY["max_tokens"])
+                  for p in prompts]
+            ex.drain()
+            torch.cuda.synchronize()
+            ids[spec] = [h._out_ids for h in hs]
+            stats[spec] = dict(decode_steps=ex.stats.decode_steps,
+                               drafted=ex.stats.drafted_tokens,
+                               accepted=ex.stats.accepted_draft_tokens,
+                               wall_s=time.perf_counter() - t)
+            if not graphs:
+                eager[spec] = ids[spec]
+        if eager[spec] != ids[spec]:
+            raise AssertionError(f"greedy tokens (spec {spec}): the graph "
+                                 "run's differ from the eager run's")
+    log("  greedy tokens eager == graph on both engines: ok")
     first = []
     for a, b in zip(ids[False], ids[True]):
         diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
@@ -1578,6 +1623,217 @@ def run_ssm_path(rt, ops, dev, seed: int, granite) -> dict:
                 n_params=n_params)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the passes as CUDA graphs against eager
+# ---------------------------------------------------------------------------
+
+
+def time_calls(call, n: int) -> tuple:
+    """``(host-inclusive ms, device span ms)`` a call over ``n`` calls of
+    ``call`` ending in a synchronize: the host clock, and CUDA events
+    around the calls (the device's span, its idle gaps included)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        call()
+    end.record()
+    end.synchronize()
+    return (time.perf_counter() - t) / n * 1e3, start.elapsed_time(end) / n
+
+
+def check_replay(ops, graph, label: str) -> dict:
+    """A replay of ``graph`` against its pass run eagerly from the same
+    state (the static inputs saved before the replay and put back after):
+    the logits and every input the pass writes in place (the pool or the
+    dense rows, the dense ``len``, the mamba2 states) equal bit for bit;
+    the launches that a replay adds to the wrappers' counts (the delta
+    kept at capture) equal those that an eager pass adds; and the kernels
+    that each queues on the device, by name and count (``torch.profiler``),
+    are the same, so the delta is checked against the launches the device
+    saw.  Returns each one's kernel time in ms."""
+    eager = lambda: graph.fn(graph.inputs)  # noqa: E731
+    saved = {n: t.clone() for n, t in graph.inputs.items()}
+    out_g = graph.replay().clone()
+    after_g = {n: t.clone() for n, t in graph.inputs.items()}
+    for n, t in graph.inputs.items():
+        t.copy_(saved[n])
+    before = {k.name: k.launches for k in ops.KERNELS}
+    out_e = eager()
+    torch.cuda.synchronize()
+    added = {k.name: k.launches - before[k.name] for k in ops.KERNELS
+             if k.launches != before[k.name]}
+    delta = {k.name: n for k, n, _ in graph.delta}
+    differ = [n for n in graph.inputs
+              if not torch.equal(graph.inputs[n], after_g[n])]
+    if not torch.equal(out_g, out_e):
+        differ.insert(0, "logits")
+    del saved, after_g
+    on_device = {name: kernels_queued(fn, (), 1)
+                 for name, fn in (("eager", eager), ("replay", graph.replay))}
+    hist = {name: {k: int(n) for k, (_, n) in q.items()}
+            for name, q in on_device.items()}
+    ok = not differ and added == delta and hist["eager"] == hist["replay"]
+    log(f"  {label}: replay against eager from the same state: "
+        f"{'bit for bit' if not differ else f'DIFFER in {differ}'}; "
+        f"counts added {added} (delta {'equal' if added == delta else delta})"
+        f"; {sum(hist['replay'].values())} device launches of "
+        f"{len(hist['replay'])} kernels a replay, "
+        f"{'the same' if hist['eager'] == hist['replay'] else 'NOT the same'}"
+        f" as an eager pass's {'ok' if ok else 'FAIL'}")
+    if not ok:
+        only = {name: {k: n for k, n in h.items()
+                       if hist[other].get(k) != n}
+                for name, h, other in (("eager", hist["eager"], "replay"),
+                                       ("replay", hist["replay"], "eager"))}
+        raise AssertionError(f"{label}: replay != eager: differ {differ}, "
+                             f"counts {added} against {delta}, kernels "
+                             f"{only}")
+    return {name: sum(us for us, _ in q.values()) / 1e3
+            for name, q in on_device.items()}
+
+
+def bench_pass(ops, engine, kind: str, label: str) -> dict:
+    """One captured pass kind (``"decode"`` or ``"verify"``) on
+    ``engine``, whose 4 rows are prefilled at ragged lengths, as the
+    engine runs it (staging and page bookkeeping included): the first
+    call warms and captures the graph; then ``PASS_ROUNDS`` rounds of
+    ``PASS_STEPS`` passes, eager and graph in turns (which comes first
+    alternates); then the host's own time to stage the inputs and launch
+    a replay (a call after a synchronize, not waited for) and that of the
+    launch alone (``graph.replay()`` after a synchronize), the replay's
+    device time behind a sleep kernel.  Before the timing, a replay is
+    held to an eager pass from the same state (:func:`check_replay`),
+    which also gives the device time of each one's kernels."""
+    rng = np.random.default_rng(9)
+    S = engine.slots
+    prompts = ["".join(map(chr, rng.integers(97, 123, n)))
+               for n in (800, 601, 300, 117)[:S]]
+    engine.graphs = True         # the state is the graphs' own
+    state = engine.init_state()
+    cache, logits, _, _ = engine.prefill_rows(prompts)
+    for r in range(len(prompts)):
+        engine.insert_row(state, cache, logits, r, r)
+    active = np.ones(S, bool)
+    K = engine.spec_k + 1 if kind == "verify" else 1
+    toks = rng.integers(4, 256, (S, K)).astype(np.int32)
+    n_tok = np.full(S, K, np.int32)
+
+    def call():
+        if kind == "verify":
+            engine.verify_active(state, toks, n_tok, active)
+        else:
+            engine.decode_active(state, toks[:, 0], active)
+    call()                       # the warm-up and the capture
+    torch.cuda.synchronize()
+    graph = engine.pass_graphs[(kind, S, K)]
+    kernels_ms = check_replay(ops, graph, label)
+    times = {False: [], True: []}
+    for r in range(PASS_ROUNDS):
+        for graphs in ((False, True) if r % 2 == 0 else (True, False)):
+            engine.graphs = graphs
+            times[graphs].append(time_calls(call, PASS_STEPS))
+    engine.graphs = True
+    own, launch = [], []
+    for _ in range(PASS_STEPS):
+        for fn, host in ((call, own), (graph.replay, launch)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    out = dict(
+        label=label, rows=S, window=K,
+        eager_host_ms=[h for h, _ in times[False]],
+        eager_span_ms=[d for _, d in times[False]],
+        graph_host_ms=[h for h, _ in times[True]],
+        graph_span_ms=[d for _, d in times[True]],
+        stage_launch_ms=float(np.median(own)),
+        launch_ms=float(np.median(launch)),
+        replay_device_ms=device_ms(graph.replay, [()], 20),
+        eager_kernels_ms=kernels_ms["eager"],
+        replay_kernels_ms=kernels_ms["replay"],
+        warm_s=graph.warm_s, capture_s=graph.capture_s,
+        pool_mib=graph.pool_bytes / 2 ** 20,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    engine.release_state(state)
+    med = {k: float(np.median(out[k])) for k in (
+        "eager_host_ms", "eager_span_ms", "graph_host_ms", "graph_span_ms")}
+    out["median"] = med
+    log(f"  {label}: host-inclusive eager {med['eager_host_ms']:.3f} / graph "
+        f"{med['graph_host_ms']:.3f} ms a pass "
+        f"({med['eager_host_ms'] / med['graph_host_ms']:.2f}x), device span "
+        f"{med['eager_span_ms']:.3f} / {med['graph_span_ms']:.3f} ms; "
+        f"kernels {out['eager_kernels_ms']:.3f} / "
+        f"{out['replay_kernels_ms']:.3f} ms; replay behind a sleep "
+        f"{out['replay_device_ms']:.3f} ms; stage + launch "
+        f"{out['stage_launch_ms']:.3f} ms (the replay's launch alone "
+        f"{out['launch_ms']:.3f}); warm-up {graph.warm_s:.3f} s, "
+        f"capture {graph.capture_s:.3f} s, pool {out['pool_mib']:.1f} MiB, "
+        f"peak {out['peak_gib']:.2f} GiB (medians of {PASS_ROUNDS} rounds of "
+        f"{PASS_STEPS}: eager {[round(x, 3) for x in out['eager_host_ms']]},"
+        f" graph {[round(x, 3) for x in out['graph_host_ms']]})")
+    return out
+
+
+def graph_walls(rt, ops, granite, base_pairs: dict) -> dict:
+    """Phase 4's block + adaptive joins on one fresh paged engine,
+    ``GRAPH_PAIRS`` eager / graph pairs (the order alternates), the
+    graph captured before the first pair and the prefix cache emptied
+    before each run: every run must give phase 4's pairs, the JAX
+    engine's counts and phase 4's launches a pass."""
+    eng = rt.Engine(granite.cfg, granite.params, granite.tokenizer,
+                    max_seq=1024, slots=4)
+    eng.generate(["warm the decode graph: " * 8], max_tokens=4)
+    torch.cuda.synchronize()
+    runs = []
+    for i in range(GRAPH_PAIRS):
+        for graphs in ((False, True) if i % 2 == 0 else (True, False)):
+            eng.graphs = graphs
+            empty_prefix_cache(eng)
+            label = f"{'graph' if graphs else 'eager'} run {len(runs) + 1}"
+            summary, pairs = run_joins(rt, ops, eng, label)
+            hold_counts(label, summary["joins"], EXPECTED[("paged", "base")])
+            hold_pass_launches(label, summary, eng.cfg.n_layers)
+            if pairs != base_pairs:
+                raise AssertionError(f"{label}: pairs differ from phase 4's")
+            runs.append(dict(graphs=graphs, wall_s=summary["wall_s"],
+                             block_s=summary["joins"]["block"]["wall_s"],
+                             adaptive_s=summary["joins"]["adaptive"]["wall_s"],
+                             ttft_mean_s=summary["ttft_mean_s"],
+                             launches=summary["launches"]))
+    walls = {g: [r["wall_s"] for r in runs if r["graphs"] == g]
+             for g in (False, True)}
+    log(f"  phase 4's joins, {GRAPH_PAIRS} pairs on one engine: eager "
+        f"{[round(w, 3) for w in walls[False]]} s, graph "
+        f"{[round(w, 3) for w in walls[True]]} s; medians "
+        f"{np.median(walls[False]):.3f} / {np.median(walls[True]):.3f} s "
+        f"({np.median(walls[False]) / np.median(walls[True]):.2f}x)")
+    return dict(runs=runs, eager_s=walls[False], graph_s=walls[True])
+
+
+def run_graph_phase(rt, ops, granite, ssm, base_pairs: dict) -> dict:
+    """Phase 9 (module docstring): each captured pass kind eager against
+    its graph, then phase 4's walls in alternating pairs."""
+    def fresh(base, **mode):
+        return rt.Engine(base.cfg, base.params, base.tokenizer, max_seq=1024,
+                         slots=4, **mode)
+    passes = {
+        "paged decode": bench_pass(ops, fresh(granite), "decode",
+                                   "granite paged decode, M 4"),
+        "verify": bench_pass(ops, fresh(granite, spec_decode=True), "verify",
+                             "granite paged verify, K 9 (M 36)"),
+        "dense decode": bench_pass(ops, fresh(granite, paged=False), "decode",
+                                   "granite dense decode, M 4"),
+        "mamba2 decode": bench_pass(ops, fresh(ssm), "decode",
+                                    "mamba2 decode, M 4"),
+    }
+    return dict(passes=passes, walls=graph_walls(rt, ops, granite,
+                                                 base_pairs))
+
+
 def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
     """Every kernel against its plain version again, in bf16, at each
     shape the main path gave it (ragged lengths; these launches come after
@@ -1651,32 +1907,49 @@ def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
         raise AssertionError(f"kernel checks failed: {checks.failed}")
 
 
-def profile_joins(rt, engine, out: Path) -> None:
+def profile_joins(rt, engine, ssm_engine, out: Path) -> dict:
     """One join of each path once more, each on a fresh engine over the
-    same weights (cold prefix cache), under ``torch.profiler``: the block
-    join, and leg (b) of the prefilter path (hashed candidates verified by
-    scoring through the engine)."""
+    same weights (cold prefix cache), the decode and verify passes as
+    graphs captured beforehand, under ``torch.profiler``: the block join
+    on the paged, the spec, the dense and the ssm engine, and leg (b) of
+    the prefilter path (hashed candidates verified by scoring through the
+    engine).  Returns each one's wall and device busy share."""
     sc = rt.ads_scenario()
     small = rt.marketplace_scenario(n1=96, n2=48, n_products=6, n_cities=4,
                                     seed=5)
 
-    def client(scenario):
-        eng = rt.Engine(engine.cfg, engine.params, engine.tokenizer,
-                        max_seq=1024, slots=4)
+    def client(scenario, base=engine, **mode):
+        eng = rt.Engine(base.cfg, base.params, base.tokenizer, max_seq=1024,
+                        slots=4, **mode)
+        # warm and capture the engine's graph, so that no profile holds
+        # a capture; then a cold prefix cache
+        eng.generate(["warm the decode graph: " * 8], max_tokens=4)
+        empty_prefix_cache(eng)
+        torch.cuda.synchronize()
         return rt.EngineClient(eng, oracle=rt.OracleLLM(
             scenario.predicate, context_limit=1_000_000))
 
-    cb, cp = client(sc), client(small)
-    profile_one("block join", "block_join", out, lambda: rt.block_join(
-        sc.r1, sc.r2, sc.condition, cb, 4, 4))
-    profile_one("prefilter leg (b)", "prefilter_b", out,
-                lambda: rt.prefilter_join(small.r1, small.r2, small.condition,
-                                          cp, rt.HashEmbedder(), k=4))
+    shares = {}
+    for label, name, c in (
+            ("block join", "block_join", client(sc)),
+            ("spec block join", "spec_block_join",
+             client(sc, spec_decode=True)),
+            ("dense block join", "dense_block_join", client(sc, paged=False)),
+            ("ssm block join", "ssm_block_join", client(sc, ssm_engine))):
+        shares[name] = profile_one(label, name, out, lambda c=c: rt.block_join(
+            sc.r1, sc.r2, sc.condition, c, 4, 4))
+    cp = client(small)
+    shares["prefilter_b"] = profile_one(
+        "prefilter leg (b)", "prefilter_b", out,
+        lambda: rt.prefilter_join(small.r1, small.r2, small.condition, cp,
+                                  rt.HashEmbedder(), k=4))
+    return shares
 
 
-def profile_one(label: str, name: str, out: Path, run) -> None:
+def profile_one(label: str, name: str, out: Path, run) -> dict:
     """``run()`` under ``torch.profiler``: device busy share and device
-    time by kernel, written to ``out/profile_<name>.txt``."""
+    time by kernel, written to ``out/profile_<name>.txt``; returns the
+    wall and the busy seconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1702,10 +1975,11 @@ def profile_one(label: str, name: str, out: Path, run) -> None:
     (out / f"profile_{name}.txt").write_text("\n".join(lines) + "\n")
     for line in lines[:16]:
         log("  " + line)
+    return dict(wall_s=wall, busy_s=busy, idle_share=1 - busy / wall)
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: timing
+# Phase 10: timing
 # ---------------------------------------------------------------------------
 
 
@@ -2001,9 +2275,11 @@ def ssd_flops(B, S, H, P, N, chunk, split: int = 1) -> int:
     return 2 * B * per_row
 
 
-def device_us_by_kernel(fn, args, calls: int) -> dict:
-    """Device us a call of ``fn(*args)`` spends in each CUDA kernel it
-    queues, from ``torch.profiler`` over ``calls`` calls."""
+def kernels_queued(fn, args, calls: int) -> dict:
+    """``{name: (device us, launches)}`` a call of ``fn(*args)`` (after
+    one call unprofiled) queues on the device, kernel by kernel (copies
+    and memsets too), from ``torch.profiler`` over ``calls`` calls."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
@@ -2011,8 +2287,17 @@ def device_us_by_kernel(fn, args, calls: int) -> dict:
         for _ in range(calls):
             fn(*args)
         torch.cuda.synchronize()
-    return {e.key.split("(")[0]: e.self_device_time_total / calls
-            for e in prof.key_averages() if e.self_device_time_total > 0}
+    return {e.key: (e.self_device_time_total / calls, e.count / calls)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def device_us_by_kernel(fn, args, calls: int) -> dict:
+    """Device us a call of ``fn(*args)`` spends in each CUDA kernel it
+    queues (:func:`kernels_queued`), by the kernel's name alone."""
+    return {k.split("(")[0]: us
+            for k, (us, _) in kernels_queued(fn, args, calls).items()
+            if us > 0}
 
 
 def time_ssd(ops, L, g, dtype, B, S, H, P, N, chunk):
@@ -2419,8 +2704,9 @@ def main() -> int:
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
                     help="directory for chip_smoke.json (the full record)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one block join and prefilter leg "
-                         "(b) with torch.profiler")
+                    help="also profile the block join on the paged, spec, "
+                         "dense and ssm engines and prefilter leg (b) with "
+                         "torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2491,11 +2777,17 @@ def main() -> int:
         "scored tuple join, the cross-engine cascade")
     ssm = run_ssm_path(rt, ops, dev, args.seed, engine)
 
+    log("== phase 9: the decode and verify passes as CUDA graphs against "
+        "eager")
+    ssm_engine = rt.build_engine("mamba2-130m", device=dev, seed=args.seed,
+                                 max_seq=1024, slots=4)
+    graphs = run_graph_phase(rt, ops, engine, ssm_engine, pairs)
+
     paths = dict(block_adaptive=summary, prefilter=prefilter, spec=spec,
                  dense=dense, ssm=ssm)
     every = {name: merge_shapes(paths.values(), name)
              for name in summary["shapes"]}
-    log("== phase 9: every kernel at each shape its paths gave it, then "
+    log("== phase 10: every kernel at each shape its paths gave it, then "
         "kernel times (CUDA events; attention, scan and norm bf16, top-k "
         "fp32)")
     check_main_shapes(ops, L, dev, every, checks)
@@ -2505,10 +2797,11 @@ def main() -> int:
                           pass_calls(engine.params, engine.cfg))
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
+    profiles = None
     if args.profile:
-        log("== profile: block join and prefilter leg (b) under "
-            "torch.profiler")
-        profile_joins(rt, engine, out)
+        log("== profile: the block join on the paged, spec, dense and ssm "
+            "engines and prefilter leg (b) under torch.profiler")
+        profiles = profile_joins(rt, engine, ssm_engine, out)
     log(f"  ({time.perf_counter() - _T_PHASE[0]:.1f} s)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
@@ -2553,7 +2846,7 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, build_s=times, main_path=summary,
         prefilter_path=prefilter, spec_path=spec, dense_path=dense,
-        ssm_path=ssm,
+        ssm_path=ssm, graphs=graphs, profiles=profiles,
         timing=timing, kernels=kernels), indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())

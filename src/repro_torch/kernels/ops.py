@@ -729,6 +729,19 @@ def top1_similarity(e1: torch.Tensor, e2: torch.Tensor) -> tuple:
     return idx[:, 0], sim[:, 0]
 
 
+def scratch_buffers() -> list:
+    """The persistent scratch tensors the wrappers hold now (the decode
+    GEMM's fp32 partials and counters, the scan's buffer).  A wrapper
+    replaces a buffer that a larger call outgrows; a CUDA graph captured
+    with the old one keeps writing it, so the graph holds these
+    (:class:`repro_torch.serve.graphs.PassGraph`)."""
+    out = []
+    for k in KERNELS:
+        for buf in getattr(k, "_scratch", {}).values():
+            out.extend(buf if isinstance(buf, tuple) else (buf,))
+    return out
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0

@@ -137,16 +137,28 @@ def attn_decode(cfg: ModelConfig, p, x: torch.Tensor, k_cache: torch.Tensor,
     return _out_proj(cfg, p, o, decode=True), k_cache, v_cache
 
 
+def _write_window(cache: torch.Tensor, write_at: tuple, keep: torch.Tensor,
+                  new: torch.Tensor) -> None:
+    """Write a verify window's K or V ``(B, K, KV, hd)`` in place at the
+    cells ``write_at`` (two ``(B, K)`` index tensors).  A cell that
+    ``keep`` leaves out writes the value its target cell already holds,
+    so the write has a fixed shape and changes no bit there."""
+    new = torch.where(keep[..., None, None], new.to(cache.dtype),
+                      cache[write_at])
+    cache.index_put_(write_at, new)
+
+
 def attn_verify(cfg: ModelConfig, p, x: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, cache_len: torch.Tensor,
-                write_at: tuple, window_at: tuple):
+                write_at: tuple, keep: torch.Tensor):
     """K-token speculative-verification attention against a dense cache.
 
     ``x``: (B, K, D), the window at positions ``cache_len + j``.  All K
-    tokens' K/V are written first: window cells ``window_at`` (rows,
-    window positions) land at cache cells ``write_at`` (rows, positions);
-    the caller leaves out positions at or past the cache's end, which the
-    JAX package drops (``mode="drop"``).  Then each query ``j`` attends to
+    tokens' K/V are written first, window cell ``(b, j)`` at cache cell
+    ``(write_at[0][b, j], write_at[1][b, j])``; the cells ``keep`` leaves
+    out (positions at or past the cache's end, which the JAX package
+    drops with ``mode="drop"``) rewrite the value their target already
+    holds (:func:`_write_window`).  Then each query ``j`` attends to
     positions ``< cache_len + j + 1`` through ``decode_attention`` called
     once per window position, as the Pallas branch of the JAX
     ``attn_verify`` does: the verify logits come from the same numeric
@@ -157,8 +169,8 @@ def attn_verify(cfg: ModelConfig, p, x: torch.Tensor, k_cache: torch.Tensor,
     positions = (cache_len[:, None]
                  + torch.arange(K, device=x.device, dtype=cache_len.dtype))
     q, k, v = _qkv(cfg, p, x, positions, decode=True)
-    k_cache.index_put_(write_at, k[window_at].to(k_cache.dtype))
-    v_cache.index_put_(write_at, v[window_at].to(v_cache.dtype))
+    _write_window(k_cache, write_at, keep, k)
+    _write_window(v_cache, write_at, keep, v)
     o = torch.cat(
         [ops.decode_attention(q[:, j:j + 1].contiguous(), k_cache, v_cache,
                               cache_len + j + 1) for j in range(K)], dim=1)
@@ -191,26 +203,26 @@ def attn_decode_paged(cfg: ModelConfig, p, x: torch.Tensor,
 def attn_verify_paged(cfg: ModelConfig, p, x: torch.Tensor,
                       k_pool: torch.Tensor, v_pool: torch.Tensor,
                       page_table: torch.Tensor, cache_len: torch.Tensor,
-                      write_at: tuple, window_at: tuple):
+                      write_at: tuple, keep: torch.Tensor):
     """K-token speculative-verification attention through a per-row page
     table.
 
     ``x``: (B, K, D), the window at positions ``cache_len + j``.  Window
-    cells ``window_at`` (rows, window positions) write their K/V in place
-    at pool cells ``write_at`` (pages, offsets); the engine pre-extends
-    each row's pages over its window, and the caller leaves out positions
-    past the table's capacity (the JAX package routes them to the
-    out-of-range page ``n_pages`` and drops them; ``index_put_`` would
-    raise).  Attention then reads through the table, causal inside the
-    window (the ``spec_verify_attention`` kernel).  Returns ``(out,
-    k_pool, v_pool)``.
+    cell ``(b, j)`` writes its K/V in place at pool cell ``(write_at[0][b,
+    j], write_at[1][b, j])`` (page, offset); the engine pre-extends each
+    row's pages over its window.  The cells ``keep`` leaves out (past the
+    table's capacity: the JAX package routes them to the out-of-range
+    page ``n_pages`` and drops them) rewrite the value their target
+    already holds (:func:`_write_window`).  Attention then reads through
+    the table, causal inside the window (the ``spec_verify_attention``
+    kernel).  Returns ``(out, k_pool, v_pool)``.
     """
     K = x.shape[1]
     positions = (cache_len[:, None]
                  + torch.arange(K, device=x.device, dtype=cache_len.dtype))
     q, k, v = _qkv(cfg, p, x, positions, decode=True)
-    k_pool.index_put_(write_at, k[window_at].to(k_pool.dtype))
-    v_pool.index_put_(write_at, v[window_at].to(v_pool.dtype))
+    _write_window(k_pool, write_at, keep, k)
+    _write_window(v_pool, write_at, keep, v)
     o = ops.spec_verify_attention(q, k_pool, v_pool, page_table, cache_len)
     return _out_proj(cfg, p, o, decode=True), k_pool, v_pool
 

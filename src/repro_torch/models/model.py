@@ -497,7 +497,13 @@ def verify_step(
     is the next-token distribution after tokens ``0..j``, attention being
     causal inside the window.  Positions the cache cannot hold (past
     ``max_seq`` on the dense cache, past the page table's capacity on the
-    paged one) are not written, as the JAX package drops them.
+    paged one) are not written, as the JAX package drops them
+    (``mode="drop"``): the write keeps its fixed ``(B, K)`` shape, so the
+    pass has no host sync and can be captured as a CUDA graph, and a
+    dropped cell is sent to its row's position 0 with the value that cell
+    already holds.  A row whose window passes the capacity has ``len >=
+    1`` (for ``K`` up to the capacity), so no window write of the pass
+    touches that cell, and it keeps every bit.
 
     ``cache["len"]`` is **not** advanced: the engine commits the accepted
     prefix on the host (``Engine.commit_spec``); the rejected tail stays
@@ -507,7 +513,7 @@ def verify_step(
     """
     _require_kv(cfg, "speculative verification")
     x = L.embed(tokens, params["embed"])
-    K = tokens.shape[1]
+    Bsz, K = tokens.shape
     cache_len = cache["len"]
     k_all, v_all = cache["k"], cache["v"]
     pos = cache_len.long()[:, None] + torch.arange(K, device=x.device)[None]
@@ -515,25 +521,24 @@ def verify_step(
     if paged:
         page = k_all.shape[2]
         page_table = cache["pages"]
-        n_slots = page_table.shape[1]
-        # the window cells the table can hold: one host sync a pass, so
-        # that no layer indexes the pool out of range
-        window_at = torch.nonzero(pos < n_slots * page, as_tuple=True)
-        wpos = pos[window_at]
-        write_at = (page_table.long()[window_at[0], wpos // page],
+        keep = pos < page_table.shape[1] * page
+        wpos = torch.where(keep, pos, 0)
+        write_at = (torch.gather(page_table.long(), 1, wpos // page),
                     wpos % page)
     else:
-        window_at = torch.nonzero(pos < k_all.shape[2], as_tuple=True)
-        write_at = (window_at[0], pos[window_at])
+        keep = pos < k_all.shape[2]
+        wpos = torch.where(keep, pos, 0)
+        write_at = (torch.arange(Bsz, device=x.device)[:, None].expand(-1, K),
+                    wpos)
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         if paged:
             out, _, _ = B.attn_verify_paged(
                 cfg, lp["attn"], x, k_all[i], v_all[i], page_table,
-                cache_len, write_at, window_at)
+                cache_len, write_at, keep)
         else:
             out, _, _ = B.attn_verify(cfg, lp["attn"], x, k_all[i], v_all[i],
-                                      cache_len, write_at, window_at)
+                                      cache_len, write_at, keep)
         x = x + out
         x = x + B.mlp_apply(cfg, lp["mlp"], x, decode=True)
     logits = _decode_logits(cfg, params, x)   # (B, K, vocab)

@@ -50,10 +50,20 @@ What carries over unchanged from the JAX engine:
   JAX engine gates them, and every prefill, scoring and encode pass runs
   the ``ssd_scan`` kernel once a layer.
 
-PyTorch runs eagerly, so there are no jitted closures: every pass is a
-call into :mod:`repro_torch.models` on the engine's device (the device of
-the weights).  The pool and the dense cache rows are updated in place
-where the JAX engine donates buffers.  Int8 weights and meshes are not
+Every pass is a call into :mod:`repro_torch.models` on the engine's
+device (the device of the weights).  Where the JAX engine compiles its
+entry points once per shape (``Engine._mjit``), a CUDA engine captures
+its decode and verify passes as CUDA graphs (the ``graphs`` attribute,
+true on a CUDA device): one :class:`~repro_torch.serve.graphs.PassGraph`
+per ``(pass kind, rows, window)``, captured at its first call and
+replayed after, with the tokens, ``active``, lengths and page table
+staged into its static buffers.  With ``graphs`` set false, and on the
+CPU, the engine runs the passes eagerly.  Prefill, scoring and encode
+passes stay eager.  The
+pool and the dense cache rows are updated in place where the JAX engine
+donates buffers; a graph engine keeps one dense state for its lifetime
+(:meth:`Engine.init_state` zeroes and returns it), since its graphs hold
+the state's tensors.  Int8 weights and meshes are not
 yet ported and raise ``NotImplementedError`` naming their ROADMAP.md
 item.
 """
@@ -62,7 +72,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +83,7 @@ from repro_torch.models import (KV_ONLY_FAMILIES, cache_dtype, cache_specs,
                                 chunked_prefill, decode_step, encode, prefill,
                                 verify_step)
 from repro_torch.obs.trace import NULL_TRACE
+from repro_torch.serve.graphs import PassGraph
 from repro_torch.serve.prefix_cache import PagedKVPool, RadixPrefixCache
 
 _ID_BYTES = 4  # int32 token ids in the packed speculative context
@@ -234,6 +245,20 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
     )
 
 
+def _pass(cfg: ModelConfig, params: Any, kind: str, cache: dict,
+          tokens: torch.Tensor,
+          active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One ``kind`` pass ("decode" or "verify") over ``cache`` → its
+    logits, eager or under capture; a dense decode advances the state's
+    own ``len`` in place (the graphs read that tensor)."""
+    if kind == "verify":
+        return verify_step(cfg, params, cache, tokens)[1]
+    new, logits = decode_step(cfg, params, cache, tokens, active=active)
+    if "pages" not in cache:
+        cache["len"].copy_(new["len"])
+    return logits
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not yet ported to repro_torch (ROADMAP.md {item})")
@@ -321,6 +346,15 @@ class Engine:
         self.max_seq = max_seq
         self.slots = slots
         self.device = params["embed"].device
+        #: decode and verify passes as CUDA graphs (on a CUDA device); may
+        #: be switched between busy periods
+        self.graphs = self.device.type == "cuda"
+        #: how a PassGraph warms and captures (None: CUDA graphs)
+        self.graph_capture = None
+        #: (pass kind, rows, window) -> PassGraph, each captured once
+        self.pass_graphs: Dict[tuple, PassGraph] = {}
+        self._rows: Optional[dict] = None   # the graphs' dense state
+        self._rows_taken = False
         self.paged = bool(paged)
         self.spec_decode = bool(spec_decode)
         self.spec_k = spec_k
@@ -475,7 +509,10 @@ class Engine:
         state.table_np[slot, :] = self._dump
 
     def release_state(self, state: Any) -> None:
-        """Release every slot of a decode state about to be dropped."""
+        """Release every slot of a decode state about to be dropped (a
+        graph engine's dense state goes back to the engine)."""
+        if isinstance(state, DecodeState) and state.cache is self._rows:
+            self._rows_taken = False
         if not self.paged or state is None:
             return
         for slot in range(self.slots):
@@ -503,14 +540,31 @@ class Engine:
                 table_np=np.full((self.slots, self._maxp), self._dump,
                                  np.int32),
             )
+        if not self.graphs:
+            return DecodeState(cache=self._zero_rows(), logits=logits)
+        # the graphs hold the state's tensors: one dense state, reused
+        if self._rows_taken:
+            raise RuntimeError("a graph engine has one dense decode state: "
+                               "release_state the one in use first")
+        if self._rows is None:
+            self._rows = self._zero_rows()
+        else:
+            for t in self._rows.values():
+                t.zero_()
+        self._rows_taken = True
+        return DecodeState(cache=self._rows, logits=logits)
+
+    def _zero_rows(self) -> dict:
+        """Every leaf of :func:`cache_specs` at ``slots`` rows, zeroed in
+        its own dtype."""
         dt = self.params["embed"].dtype
-        return DecodeState(cache={
+        return {
             name: torch.zeros(spec.shape,
                               dtype=cache_dtype(self.cfg, name, dt),
                               device=self.device)
             for name, spec in cache_specs(self.cfg, self.slots,
                                           self.max_seq).items()
-        }, logits=logits)
+        }
 
     def prefill_rows(
         self, prompts: Sequence[str]
@@ -928,21 +982,17 @@ class Engine:
         whenever an active row's next position crosses a page boundary
         (copy-on-write should the tail page ever be shared).  The table
         and lengths are copied to the device for the step; the pool or
-        the cache rows are written in place."""
-        toks = self._tensor(np.asarray(tokens, np.int64)[:, None])
-        act = self._tensor(np.asarray(active, bool))
-        if not self.paged:
-            state.cache, state.logits = decode_step(
-                self.cfg, self.params, state.cache, toks, active=act)
-            return
-        for s in np.nonzero(active)[0]:
-            self._extend_tail(state, int(s), 1)
-        self._note_live_pages(state)
-        _, logits = decode_step(self.cfg, self.params,
-                                self._device_table_args(state), toks,
-                                active=act)
-        state.logits = logits
-        state.lens[np.asarray(active, bool)] += 1
+        the cache rows are written in place.  On a graph engine the pass
+        is the decode graph's replay and ``state.logits`` its output
+        buffer, which the next replay overwrites."""
+        if self.paged:
+            for s in np.nonzero(active)[0]:
+                self._extend_tail(state, int(s), 1)
+            self._note_live_pages(state)
+        state.logits = self._run("decode", state,
+                                 np.asarray(tokens)[:, None], active)
+        if self.paged:
+            state.lens[np.asarray(active, bool)] += 1
 
     def _extend_tail(self, state: PagedDecodeState, s: int,
                      n_tok: int) -> None:
@@ -983,18 +1033,70 @@ class Engine:
         :meth:`commit_spec` advances lengths by the accepted counts and
         rolls back the speculative pages.  On the paged engine each active
         row's pages are first extended over its window (copy-on-write
-        guard included)."""
-        toks = self._tensor(np.asarray(tokens, np.int64))
-        if not self.paged:
-            state.cache, logits = verify_step(self.cfg, self.params,
-                                              state.cache, toks)
-            return logits
-        for s in np.nonzero(active)[0]:
-            self._extend_tail(state, int(s), int(n_tokens[s]))
-        self._note_live_pages(state)
-        _, logits = verify_step(self.cfg, self.params,
-                                self._device_table_args(state), toks)
-        return logits
+        guard included).  On a graph engine the logits are the verify
+        graph's output buffer, which the next replay overwrites."""
+        if self.paged:
+            for s in np.nonzero(active)[0]:
+                self._extend_tail(state, int(s), int(n_tokens[s]))
+            self._note_live_pages(state)
+        return self._run("verify", state, np.asarray(tokens))
+
+    def _run(self, kind: str, state: Any, tokens: np.ndarray,
+             active: Optional[np.ndarray] = None) -> torch.Tensor:
+        """The ``kind`` pass over ``state``'s rows with ``tokens`` (slots,
+        window): the replay of its graph on a graph engine, else the pass
+        on tensors copied from the host (:meth:`_tensor`)."""
+        if self.graphs:
+            host = dict(tokens=tokens)
+            if active is not None:
+                host["active"] = active
+            if self.paged:
+                host.update(len=state.lens, pages=state.table_np)
+            return self._pass_graph(kind, tokens.shape[1], state)(**host)
+        cache = (self._device_table_args(state) if self.paged
+                 else state.cache)
+        return _pass(
+            self.cfg, self.params, kind, cache,
+            self._tensor(np.asarray(tokens, np.int64)),
+            None if active is None else self._tensor(np.asarray(active,
+                                                                bool)))
+
+    def _pass_graph(self, kind: str, window: int, state: Any) -> PassGraph:
+        """The :class:`PassGraph` of the ``kind`` pass ("decode" or
+        "verify") at ``slots`` rows x ``window`` tokens, built at its first
+        use.  Its static inputs: the tokens and (decode) ``active``, and on
+        the paged engine ``len`` and ``pages``, staged from the host; the
+        pool (paged) or the dense state's leaves, which the pass writes in
+        place (:func:`_pass`).  The pass holds no reference to the engine,
+        so a dropped engine frees its graphs without waiting for the
+        cycle collector."""
+        if not self.paged and state.cache is not self._rows:
+            raise RuntimeError("the graphs hold the engine's own dense "
+                               "state; this one was made with graphs off")
+        key = (kind, self.slots, window)
+        graph = self.pass_graphs.get(key)
+        if graph is not None:
+            return graph
+        dev, S = self.device, self.slots
+        staged = {"tokens": torch.zeros((S, window), dtype=torch.int64,
+                                        device=dev)}
+        if kind == "decode":
+            staged["active"] = torch.zeros(S, dtype=torch.bool, device=dev)
+        if self.paged:
+            staged["len"] = torch.zeros(S, dtype=torch.int32, device=dev)
+            staged["pages"] = torch.zeros((S, self._maxp), dtype=torch.int32,
+                                          device=dev)
+            cache = {"len": staged["len"], "pages": staged["pages"],
+                     "k": self.pool.k, "v": self.pool.v}
+        else:
+            cache = state.cache
+        cfg, params = self.cfg, self.params
+        graph = self.pass_graphs[key] = PassGraph(
+            f"{kind} pass at {S} rows x {window} tokens",
+            lambda x: _pass(cfg, params, kind, cache, x["tokens"],
+                            x.get("active")),
+            {**cache, **staged}, tuple(staged), capture=self.graph_capture)
+        return graph
 
     def commit_spec(self, state: Any, logits: torch.Tensor,
                     counts: np.ndarray, alive: np.ndarray) -> None:
@@ -1011,10 +1113,9 @@ class Engine:
         sel = self._tensor(np.maximum(np.asarray(counts) - 1, 0)
                            .astype(np.int64))
         rows = torch.arange(logits.shape[0], device=logits.device)
-        state.logits = logits[rows, sel]
+        state.logits = logits[rows, sel]   # a copy: outlives the replay
         if not self.paged:
-            state.cache["len"] = state.cache["len"] + self._tensor(
-                np.asarray(counts, np.int32))
+            state.cache["len"] += self._tensor(np.asarray(counts, np.int32))
             return
         pg = self.page_size
         for s in np.nonzero(alive)[0]:

@@ -439,8 +439,10 @@ class ContinuousBatchingExecutor:
         if self._state is not None and not self.pending:
             # fully idle: release the dense slots × max_seq cache
             # (GiB-scale at real configs) — init_state rebuilds it on the
-            # next admission.  All slots already retired through
-            # _free_slot, so the paged release is a no-op backstop.
+            # next admission (a graph engine keeps its one dense state,
+            # which its graphs hold, and zeroes it then).  All slots
+            # already retired through _free_slot, so the paged release is
+            # a no-op backstop.
             self.engine.release_state(self._state)
             self._state = None
         return expired + finished

@@ -23,6 +23,10 @@ to the lower index.  The RMSNorm kernel gives a row the same bits in a
 launch of any number of rows, and the SSD scan a batch row the bits of
 that row launched alone; both give the same bits whether their inputs
 are staged by 16-byte vectors or, off the 16-byte grid, by scalar loads.
+Each pass kind the engine captures as a CUDA graph (paged and dense
+decode and verify, mamba2 decode) gives, replayed, the eager pass's
+logits and cache writes bit for bit, with new inputs at every replay and
+after a wrapper's scratch buffer was replaced.
 """
 
 import dataclasses
@@ -36,7 +40,9 @@ from repro_torch.kernels import build, ops
 from repro_torch.models import (decode_step, init_params, model_specs,
                                 verify_step)
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.serve import Engine
+from repro_torch.serve.graphs import PassGraph
 
 pytestmark = pytest.mark.gpu
 
@@ -749,3 +755,152 @@ def test_decode_kernels_at_chunk_edges(cuda, dtype, H, KV, hd):
                                          table, base + j + 1)
         assert torch.equal(ver[:, j:j + 1], dec), j
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The decode and verify passes as CUDA graphs (serve/graphs.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_KINDS = ["paged-decode", "paged-verify", "dense-decode",
+               "dense-verify", "ssm-decode"]
+
+
+def _graph_case(cuda, kind, dtype, steps=4):
+    """One captured pass kind on 2 full-width layers (granite-3-2b, or
+    mamba2-130m for ``ssm``) at 4 rows: the pass as the engine captures
+    it, its static inputs, the names staged from the host, and ``steps``
+    host inputs that each change the tokens, ``active``, the lengths and
+    the page table, lengths that cross the page table's capacity or the
+    cache's end included."""
+    family, kind_ = kind.split("-")
+    g = torch.Generator(cuda).manual_seed(9)
+    rng = torch.Generator().manual_seed(9)
+    B, page, n_slots, K = 4, 16, 64, (9 if kind_ == "verify" else 1)
+    if family == "ssm":
+        cfg = dataclasses.replace(get_config("mamba2-130m"), n_layers=2)
+        params = init_params(model_specs(cfg), g, dtype, cuda)
+    else:
+        cfg, params = _granite_layers(cuda, dtype)
+    KV, hd, nl = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
+    inputs = {"tokens": torch.zeros(B, K, dtype=torch.int64, device=cuda)}
+    staged = ["tokens"]
+    if kind_ == "decode":
+        inputs["active"] = torch.zeros(B, dtype=torch.bool, device=cuda)
+        staged.append("active")
+    if family == "paged":
+        n_pages = B * n_slots + 1
+        inputs.update(len=torch.zeros(B, dtype=torch.int32, device=cuda),
+                      pages=torch.zeros(B, n_slots, dtype=torch.int32,
+                                        device=cuda),
+                      k=_randn(g, dtype, nl, n_pages, page, KV, hd),
+                      v=_randn(g, dtype, nl, n_pages, page, KV, hd))
+        staged += ["len", "pages"]
+        names = ("len", "pages", "k", "v")
+    elif family == "dense":
+        inputs.update(len=torch.tensor([1019, 247, 16, 3], dtype=torch.int32,
+                                       device=cuda),
+                      k=_randn(g, dtype, nl, B, n_slots * page, KV, hd),
+                      v=_randn(g, dtype, nl, B, n_slots * page, KV, hd))
+        names = ("len", "k", "v")
+    else:
+        cs, ss = M.mamba_cache_shape(cfg, B)
+        inputs.update(len=torch.tensor([30, 5, 1, 0], dtype=torch.int32,
+                                       device=cuda),
+                      conv=_randn(g, dtype, nl, *cs),
+                      ssm=torch.randn(nl, *ss, generator=g, device=cuda))
+        names = ("len", "conv", "ssm")
+
+    def run(x):
+        cache = {n: x[n] for n in names}
+        if kind_ == "verify":
+            return verify_step(cfg, params, cache, x["tokens"])[1]
+        new, logits = decode_step(cfg, params, cache, x["tokens"],
+                                  active=x["active"])
+        if family != "paged":
+            cache["len"].copy_(new["len"])
+        return logits
+
+    host = []
+    for i in range(steps):
+        h = {"tokens": torch.randint(0, cfg.vocab_size, (B, K),
+                                     generator=rng).numpy()}
+        if kind_ == "decode":
+            h["active"] = (torch.arange(B) != i % B).numpy()
+        if family == "paged":
+            # a new table and new lengths each step, one window past the
+            # table's capacity
+            h["pages"] = torch.randperm(B * n_slots + 1, generator=rng)[
+                :B * n_slots].reshape(B, n_slots).int().numpy()
+            h["len"] = torch.tensor([n_slots * page - 3 - i, 247 + 31 * i,
+                                     16 * i, i], dtype=torch.int32).numpy()
+        host.append(h)
+    return run, inputs, staged, host
+
+
+def _run_eager(run, state, staged, host):
+    for n in staged:
+        state[n].copy_(torch.from_numpy(host[n]).reshape(state[n].shape))
+    return run(state)
+
+
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+def test_pass_graph_replays_equal_eager(cuda, kind):
+    """bf16, 2 full-width layers: each captured pass kind, replayed with
+    new tokens, ``active``, lengths and page tables at every step, gives
+    the eager pass's logits and cache writes bit for bit (the dense state
+    advances its own ``len`` in place), and the wrappers count the same
+    launches by the same shapes."""
+    run, inputs, staged, host = _graph_case(cuda, kind, torch.bfloat16)
+    eager = {n: t.clone() for n, t in inputs.items()}
+    ops.reset_launch_counts()
+    graph = PassGraph(kind, run, inputs, staged)
+    got = [graph(**h).clone() for h in host]
+    torch.cuda.synchronize()
+    counts = {k.name: (k.launches, dict(k.shapes)) for k in ops.KERNELS}
+    ops.reset_launch_counts()
+    want = [_run_eager(run, eager, staged, h) for h in host]
+    torch.cuda.synchronize()
+    # the mamba2 decode pass has no kernel of the port (its products are
+    # torch.matmul, its norms the plain ones)
+    assert graph.replays == len(host) - 1
+    assert bool(graph.delta) == (not kind.startswith("ssm"))
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), (kind, i)
+    for n in inputs:
+        assert torch.equal(inputs[n], eager[n]), (kind, n)
+    assert counts == {k.name: (k.launches, dict(k.shapes))
+                      for k in ops.KERNELS}
+
+
+def test_pass_graph_survives_a_grown_scratch(cuda):
+    """fp32, where the decode GEMM keeps persistent partials: after a
+    larger product replaces the wrapper's buffer, the graph (which holds
+    the buffer it was captured with) still gives the eager pass's bits,
+    and memory allocated since is not written by it."""
+    run, inputs, staged, host = _graph_case(cuda, "paged-decode",
+                                            torch.float32, steps=3)
+    ops.decode_gemm._scratch.clear()   # sized by this pass's warm-up alone
+    eager = {n: t.clone() for n, t in inputs.items()}
+    graph = PassGraph("paged decode", run, inputs, staged)
+    graph(**host[0])
+    _run_eager(run, eager, staged, host[0])
+    part = ops.decode_gemm._scratch[inputs["k"].device][0]
+    size = part.numel()
+    g = torch.Generator(cuda).manual_seed(10)
+    x = _randn(g, torch.float32, 128, 2048)
+    w = _randn(g, torch.float32, 49168, 2048).t()
+    ops.decode_linear(x, w)                      # M 128 outgrows the buffer
+    grown = ops.decode_gemm._scratch[inputs["k"].device][0]
+    assert grown.numel() > size and grown.data_ptr() != part.data_ptr()
+    del part, grown
+    # blocks of the old buffer's size: one would take its memory, were it
+    # freed, and the replays would write into it
+    canary = [torch.full((size,), float("nan"), device=cuda)
+              for _ in range(8)]
+    for h in host[1:]:
+        a = graph(**h).clone()
+        b = _run_eager(run, eager, staged, h)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+    assert all(bool(torch.isnan(c).all()) for c in canary)
+    assert torch.equal(inputs["k"], eager["k"])
