@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
 
-The port has nine CUDA kernels on five paths: the three attention
+The port has nine CUDA kernels on five paths, over the dense family
+(granite-3-2b; yi-9b and starcoder2-7b in phase 9b; mistral-large-123b
+cut to two layers in phase 3) and the ssm family: the three attention
 kernels of the paged engine (flash, chunked prefill, paged decode) carry
 the block and adaptive joins; flash, chunked prefill and the top-k
 similarity kernel carry the prefilter path (embedding, candidates,
@@ -44,12 +46,22 @@ no result line:
    128 and over the sweep of ``tests/test_kernels.py`` (2e-4 fp32, 5e-2
    bf16, its tolerances); ``rmsnorm`` at the port's norm shapes (2e-5
    fp32, 2e-2 bf16), also at rows whose width is not a whole number of
-   the kernel's 16-byte vectors;
+   the kernel's 16-byte vectors; the rest of the dense family's shapes:
+   the attention kernels at hd 128 with G = H / KV of 8 and 12 over 4 KV
+   heads and 12 over 8 (a verify window of 156 rows walked in two
+   launches), ``decode_gemm`` at every product of yi-9b, starcoder2-7b
+   and mistral-large-123b (the untied unembeds of 64,000, 49,152 and
+   32,768 rows), ``rmsnorm`` at D 4096, 4608 and 12288; and the three
+   decode-side kernels over e4m3 pools (an fp8 KV cache) under an fp32
+   and a bf16 query, against their plain versions and bit for bit each
+   other;
 3. small inputs against a reference: the granite smoke engine (paged and
    dense, speculation off and on) and the mamba2 smoke engine decode the
    same greedy tokens on the card as on the CPU, and the full-width
-   models cut to two layers give the same logits through the kernels as
-   through the plain versions (fp32);
+   models cut to two layers (granite-3-2b, yi-9b, starcoder2-7b,
+   mistral-large-123b with 13.3 GiB of fp32 weights, ``DEPTH_CUTS``;
+   mamba2-130m) give the same logits through the kernels as through the
+   plain versions (fp32);
 4. the block + adaptive path: full-width granite-3-2b in bf16 (random
    weights from ``--seed``) behind ``Engine(max_seq=1024, slots=4)``, the
    block join (4 x 4) and the adaptive join on the ads scenario through
@@ -115,9 +127,28 @@ no result line:
    fresh engine in ``GRAPH_PAIRS`` alternating eager / graph pairs, the
    prefix cache emptied before each run, every run held to phase 4's
    counts and launches a pass;
+9b. the rest of the dense family: yi-9b, then starcoder2-7b (48 padded
+   heads, 12 dead), each at full width in bf16 (random weights from
+   ``--seed``) behind phase 4's engine settings, one at a time and freed
+   after: (a) phase 4's joins, held to ``EXPECTED`` and phase 4's pairs
+   (teacher-forced counts do not depend on the width, the vocabulary or
+   the weights: ``tests/test_torch_arch_counts.py``), every attention
+   kernel launched, the GEMM and the norm on every decode pass; (b) the
+   same with speculation on (``spec_k`` 8), and verify == decode bit for
+   bit on the paged and the dense cache (on starcoder2-7b also a K = 13
+   window, 156 query rows a KV head, walked); (c) yi-9b with
+   ``kv_cache_dtype="float8_e4m3fn"``: the joins at the same counts, the
+   pool half the bf16 run's, no NaN in the cache and no value above 464
+   before the cast (largest |K| and |V| printed), one decode step's
+   logits within a standard deviation of ``forward``'s teacher forcing
+   (``tests/test_quant.py:140``), verify == decode bit for bit on e4m3
+   pools; then flash, chunked prefill, paged decode (bf16 and e4m3),
+   verify, ``rmsnorm`` and one pass of ``decode_gemm`` timed at yi-9b's
+   most frequent shapes; weights and peak memory printed for each;
 10. every kernel against its plain version again at each shape the paths
-   gave it; then each kernel's time (CUDA events, inputs rotated past the
-   50 MB L2) at its path's most frequent shape, beside its plain version,
+   gave it (phase 9b's e4m3 pools included); then each kernel's time
+   (CUDA events, inputs rotated past the 50 MB L2) at its path's most
+   frequent shape, beside its plain version,
    one PyTorch call as a yardstick (timed here, never called by the
    port: ``scaled_dot_product_attention``, with a mask where needed,
    ``torch.topk(e1 @ e2.T, k)``, ``torch.nn.functional.rms_norm``,
@@ -142,13 +173,15 @@ no result line:
    bodies; so are the decode-side kernels' launches x ms on each path.
    ``--profile`` adds one block join and prefilter leg (b) under
    ``torch.profiler`` (device busy share, device time by kernel), and
-   one block join on each of the spec, dense and ssm paths, graphs on
-   (each engine's graph captured before its profile).
+   one block join on each of the spec, dense and ssm paths and, in phase
+   9b, on yi-9b and starcoder2-7b, graphs on (each engine's graph
+   captured before its profile).
 
 Each phase sets its engine's mode itself; ``REPRO_SPEC_DECODE``,
 ``REPRO_PAGED_KV`` and ``REPRO_PREFIX_CACHE`` are dropped if set.  The
 last lines are the ``{"kernels": [...]}`` summary (launches on each
-kernel's own path, and by path), the card's name and power limit, and
+kernel's own path, and by path; the six kernels of phase 9b's paths also
+timed at yi-9b's shapes, ``yi_9b``), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
 the repository's ``src/`` beside it.
 """
@@ -160,6 +193,7 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -193,8 +227,23 @@ GEMM_SHAPES = [(2048, 2048, "kn"), (2048, 512, "kn"), (2048, 8192, "kn"),
 #: the products a granite-3-2b pass launches together (K, their N): the
 #: attention block's q/k/v and the MLP's gate/up
 GEMM_GROUPS = [(2048, (2048, 512, 512)), (2048, (8192, 8192))]
+#: the decode products (K, N, weight layout) of the rest of the dense
+#: family: yi-9b, starcoder2-7b (q over 48 padded heads) and
+#: mistral-large-123b, each with its untied unembed (the table's transpose)
+DENSE_GEMM_SHAPES = [
+    (4096, 4096, "kn"), (4096, 512, "kn"), (4096, 11008, "kn"),
+    (11008, 4096, "kn"), (4096, 64000, "nk"),
+    (4608, 6144, "kn"), (4608, 512, "kn"), (6144, 4608, "kn"),
+    (4608, 18432, "kn"), (18432, 4608, "kn"), (4608, 49152, "nk"),
+    (12288, 12288, "kn"), (12288, 1024, "kn"), (12288, 28672, "kn"),
+    (28672, 12288, "kn"), (12288, 32768, "nk")]
+#: the attention shapes of the rest of the dense family at hd 128: (H, KV)
+#: of yi-9b (G 8), starcoder2-7b (48 padded heads, G 12) and
+#: mistral-large-123b (G 12 over 8 KV heads)
+DENSE_HEADS = [(32, 4), (48, 4), (96, 8)]
 #: the three decode-side kernels on the split-context body
 SPLIT = ("paged_decode_attention", "decode_attention", "spec_verify_attention")
+E4M3 = torch.float8_e4m3fn
 #: mamba2-130m at full width at the largest bucket: the scan's main shape
 SSD_MAIN = dict(B=4, S=1024, H=24, P=64, N=128, chunk=256)
 SSD_TOL = {torch.float32: (2e-4, 2e-4),             # tests/test_kernels.py
@@ -398,11 +447,15 @@ def chunked_inputs(g, dtype, B, S, P, H, KV, hd, plens):
     return q, k, v, kp, vp, plen
 
 
-def decode_inputs(g, dtype, B, H, KV, hd, page, n_slots, lens):
+def decode_inputs(g, dtype, B, H, KV, hd, page, n_slots, lens, kv8=None):
+    """One query over a random pool through a permuted table; with ``kv8``
+    (``layers``) the pool is e4m3, as an fp8 KV cache holds it."""
     n_pages = B * n_slots + 1
     q = _randn(g, dtype, B, 1, H, hd)
     kp = _randn(g, dtype, n_pages, page, KV, hd)
     vp = _randn(g, dtype, n_pages, page, KV, hd)
+    if kv8 is not None:
+        kp, vp = e4m3(kv8, (kp, vp))
     table = torch.randperm(n_pages, generator=g, device=g.device)
     table = table[: B * n_slots].reshape(B, n_slots).to(torch.int32)
     clen = torch.tensor(lens, dtype=torch.int32, device=g.device)
@@ -492,7 +545,9 @@ def check_kernels(ops, L, dev) -> Checks:
                                ((4, 77, 4, 2, 16), False),
                                ((1, 128, 4, 1, 128), False),
                                ((1, 1, H, KV, hd), False)]
-                            + [(x, False) for x in FLASH_EDGES]):
+                            + [(x, False) for x in FLASH_EDGES]
+                            + [((2, 130, Hn, KVn, 128), False)
+                               for Hn, KVn in DENSE_HEADS]):
             x = flash_inputs(g, dtype, *shape)
             c.compare("flash_attention", f"B,S,H,KV,hd={shape}",
                       ops.flash_attention(*x), L.flash_attention(*x), dtype,
@@ -506,7 +561,9 @@ def check_kernels(ops, L, dev) -> Checks:
                    ((2, 96, 1024, H, KV, hd, [1024, 1024]), False),
                    ((2, 48, 32, 6, 3, 32, [20, 32]), False),
                    ((4, 40, 64, 4, 2, 16, [64, 0, 33, 16]), False)]
-                + [(x, False) for x in CHUNKED_EDGES]):
+                + [(x, False) for x in CHUNKED_EDGES]
+                + [((2, 129, 300, Hn, KVn, 128, [300, 0]), False)
+                   for Hn, KVn in DENSE_HEADS]):
             x = chunked_inputs(g, dtype, Bc, S, P, Hc, KVc, hdc, plens)
             out = ops.chunked_prefill_attention(*x)
             label = f"B,S,P,H,KV,hd={(Bc, S, P, Hc, KVc, hdc)} plen={plens}"
@@ -529,7 +586,9 @@ def check_kernels(ops, L, dev) -> Checks:
                                             1280]), False),
                  ((4, 4, 2, 16, page, 64, [1024, 16, 17, 1]), False),
                  ((2, 6, 3, 32, page, 8, [48, 127]), False),
-                 ((2, 4, 1, 128, page, 8, [128, 15]), False)]):
+                 ((2, 4, 1, 128, page, 8, [128, 15]), False)]
+                + [((4, Hn, KVn, 128, page, 64, [1024, 600, 17, 1]), False)
+                   for Hn, KVn in DENSE_HEADS]):
             x = decode_inputs(g, dtype, Bd, Hd, KVd, hdd, pg, n_slots, lens)
             out = ops.paged_decode_attention(*x)
             label = f"B,H,KV,hd,page,slots={(Bd, Hd, KVd, hdd, pg, n_slots)}"
@@ -543,6 +602,7 @@ def check_kernels(ops, L, dev) -> Checks:
                       ops.paged_decode_attention(q, kp, vp, dead, clen), out,
                       dtype, exact=True)
         check_verify_and_dense(ops, L, g, dtype, c)
+        check_e4m3_pools(ops, L, g, dtype, c)
         check_ssd_and_norm(ops, L, g, dtype, c)
         check_decode_gemm(ops, L, g, dtype, c)
     check_topk(ops, L, dev, c)
@@ -577,7 +637,11 @@ def check_ssd_and_norm(ops, L, g, dtype, c: "Checks") -> None:
     for shape, main in ([(s, True) for s in NORM_SHAPES]
                         + [((2, 5, 7, 128), False), ((3, 8192), False),
                            ((6, 33), False), ((3, 770), False),
-                           ((2, 4, 1001), False)]):
+                           ((2, 4, 1001), False)]
+                        # the rest of the dense family's widths at a decode
+                        # step's and a verify pass's rows
+                        + [((M, D), False) for D in (4096, 4608, 12288)
+                           for M in (4, 36)]):
         x = _randn(g, dtype, *shape)
         w = _randn(g, dtype, shape[-1])
         c.compare("rmsnorm", f"x={shape}", ops.rmsnorm(x, w),
@@ -599,14 +663,15 @@ def check_decode_gemm(ops, L, g, dtype, c: "Checks") -> None:
     """The decode GEMM at granite-3-2b's products: at M = 4 (a decode step)
     and 36 (a verify pass) against ``x @ w``; then each row of batches of
     M = 1, 4, 9, 36, 52 and 128 (rows drawn in another order each time)
-    bit for bit the same row at M = 52."""
-    for K, N, layout in GEMM_SHAPES:
+    bit for bit the same row at M = 52; the same at the products of the
+    rest of the dense family (``DENSE_GEMM_SHAPES``)."""
+    for K, N, layout in GEMM_SHAPES + DENSE_GEMM_SHAPES:
         x, w = gemm_inputs(g, dtype, 128, K, N, layout)
         label = f"K,N={(K, N)} {layout}"
         for M in (4, 36):
             c.compare("decode_gemm", f"M={M} {label}",
                       ops.decode_linear(x[:M], w), L.matmul(x[:M], w), dtype,
-                      main=True)
+                      main=(K, N, layout) in GEMM_SHAPES)
         ref = ops.decode_linear(x[:52], w)
         full = ops.decode_linear(x, w)
         bad = [] if torch.equal(full[:52], ref) else [128]
@@ -656,7 +721,10 @@ def check_verify_and_dense(ops, L, g, dtype, c: "Checks") -> None:
                ((B, 9, H, KV, hd, 64, [1020, 15, 16, 1]), False),
                ((2, 13, 6, 3, 32, 8, [100, 3]), False),
                ((2, 9, 4, 1, 128, 8, [64, 119]), False),
-               ((3, 32, 4, 1, 16, 8, [0, 50, 96]), False)]):   # 128 rows
+               ((3, 32, 4, 1, 16, 8, [0, 50, 96]), False)]   # 128 rows
+            # G 8 and 12 at hd 128; K 13 at G 12 is 156 rows: walked
+            + [((3, K, Hn, KVn, 128, 64, [1024 - K, 300, 0]), False)
+               for Hn, KVn in DENSE_HEADS for K in (9, 13)]):
         x = verify_inputs(g, dtype, Bv, K, Hv, KVv, hdv, page, n_slots, lens)
         q, kp, vp, table, clen = x
         out = ops.spec_verify_attention(*x)
@@ -682,7 +750,9 @@ def check_verify_and_dense(ops, L, g, dtype, c: "Checks") -> None:
               False),
              ((2, 6, 3, 32, 128, [48, 127]), False),
              ((2, 4, 1, 128, 128, [128, 15]), False),
-             ((3, 4, 2, 16, 96, [95, 1, 64]), False)]):
+             ((3, 4, 2, 16, 96, [95, 1, 64]), False)]
+            + [((4, Hn, KVn, 128, 1024, [1024, 600, 17, 1]), False)
+               for Hn, KVn in DENSE_HEADS]):
         x, paged = dense_inputs(g, dtype, Bd, Hd, KVd, hdd, Skv, lens)
         out = ops.decode_attention(*x)
         c.compare("decode_attention",
@@ -690,6 +760,54 @@ def check_verify_and_dense(ops, L, g, dtype, c: "Checks") -> None:
                   L.decode_attention(*x), dtype, main)
         c.compare("decode_attention", "  == paged decode on the same data",
                   out, ops.paged_decode_attention(*paged), dtype, exact=True)
+
+
+def e4m3(L, pools):
+    """Pools as an fp8 KV cache holds them (``layers.to_cache``)."""
+    return tuple(L.to_cache(p, E4M3) for p in pools)
+
+
+def check_e4m3_pools(ops, L, g, dtype, c: "Checks") -> None:
+    """The three decode-side kernels over e4m3 K/V (an fp8 KV cache)
+    under an fp32 or bf16 query, at granite-3-2b's and the rest of the
+    dense family's heads: each against its plain version (which widens on
+    load, as the JAX package does), dense decode == paged decode and every
+    verify row == paged decode at its length, bit for bit, at lengths
+    around the context chunk and in a window walked in sub-windows."""
+    C = ops.paged_decode_attention.chunk()
+    for Hn, KVn, hd in [(MAIN["H"], MAIN["KV"], MAIN["hd"])] + [
+            (Hn, KVn, 128) for Hn, KVn in DENSE_HEADS]:
+        page, n_slots = 16, 80
+        lens = [C - 1, C, C + 1, 4 * C + 7, 1280]
+        B, Skv = len(lens), n_slots * page
+        q, kp, vp, table, clen = decode_inputs(g, dtype, B, Hn, KVn, hd, page,
+                                               n_slots, lens)
+        kp, vp = e4m3(L, (kp * 4, vp * 4))
+        shape = f"H,KV,hd={(Hn, KVn, hd)} e4m3 pools"
+        out = ops.paged_decode_attention(q, kp, vp, table, clen)
+        c.compare("paged_decode_attention", shape, out,
+                  L.paged_decode_attention(q, kp, vp, table, clen), dtype)
+        kc, vc = (p[table.long()].reshape(B, Skv, KVn, hd).contiguous()
+                  for p in (kp, vp))
+        dense = ops.decode_attention(q, kc, vc, clen)
+        c.compare("decode_attention", shape, dense,
+                  L.decode_attention(q, kc, vc, clen), dtype)
+        c.compare("decode_attention", "  == paged decode, e4m3", dense, out,
+                  dtype, exact=True)
+        K = ops.SPEC_MAX_ROWS // (Hn // KVn) + 3     # two launches
+        qv = _randn(g, dtype, B, K, Hn, hd)
+        base = torch.tensor([C - 4, C - 1, C, 4 * C + 7 - K, Skv - K],
+                            dtype=torch.int32, device=q.device)
+        ver = ops.spec_verify_attention(qv, kp, vp, table, base)
+        c.compare("spec_verify_attention", f"K={K} {shape}", ver,
+                  L.spec_verify_attention_paged(qv, kp, vp, table, base),
+                  dtype)
+        rows = torch.cat([ops.paged_decode_attention(
+            qv[:, j:j + 1].contiguous(), kp, vp, table, base + j + 1)
+            for j in range(K)], dim=1)
+        c.compare("spec_verify_attention",
+                  "  every row j == paged decode, e4m3", ver, rows, dtype,
+                  exact=True)
 
 
 # ---------------------------------------------------------------------------
@@ -758,14 +876,45 @@ def check_small_engine(rt, dev) -> None:
                     f"card {texts[str(dev)]} != cpu {texts['cpu']}")
 
 
-def check_full_width_depth_cut(rt, ops, dev) -> None:
-    """granite-3-2b widths, 2 layers, fp32: prefill, chunked prefill, a
-    paged and a dense decode step and a paged and a dense K = 9 verify
-    step give the same logits through the kernels as through the plain
-    versions (2e-5, the fp32 kernel tolerance)."""
-    cfg = dataclasses.replace(rt.get_config("granite-3-2b"), n_layers=2)
+#: the full-width configs phase 3 cuts to two layers (fp32): mistral-
+#: large-123b's 228 GiB in bf16 fit one card only so, at 13.3 GiB of fp32
+#: weights
+DEPTH_CUTS = ("granite-3-2b", "yi-9b", "starcoder2-7b", "mistral-large-123b")
+
+
+#: the input dims each stacked block matrix contracts over (after its
+#: ``layers`` axis): q/k/v and the MLP's in-projections read d_model, the
+#: out projection (heads, head_dim), the down projection d_ff
+CONTRACTED = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1,
+              "w_down": 1}
+
+
+def unit_scale(params, n_layers: int) -> None:
+    """Rescale each stacked block matrix, in place, from the reference's
+    draw (std 1/sqrt(n_layers): its fan-in rule reads the stacked
+    ``layers`` axis) to std 1/sqrt(its own fan-in).  At the reference's
+    std (0.71 for 2 layers) q, k and v reach ~10^2 at d_model 4096 and
+    scores ~10^4, where softmax is a hard argmax and two keys within a few
+    units of each other take weights that any two fp32 summation orders
+    move apart: a comparison there measures rounding, not wiring."""
+    for leaves in params["blocks"].values():
+        for name, w in leaves.items():
+            if name in CONTRACTED:
+                fan = math.prod(w.shape[1:1 + CONTRACTED[name]])
+                w.mul_(math.sqrt(n_layers / fan))
+
+
+def check_full_width_depth_cut(rt, ops, dev, arch: str) -> None:
+    """``arch``'s widths, 2 layers, fp32, the block matrices at std
+    1/sqrt(fan-in) (``unit_scale``): prefill, chunked prefill, a paged
+    and a dense decode step and a paged and a dense K = 9 verify step give
+    the same logits through the kernels as through the plain versions
+    (2e-5, the fp32 kernel tolerance)."""
+    cfg = dataclasses.replace(rt.get_config(arch), n_layers=2)
     g = torch.Generator(dev).manual_seed(1)
     params = rt.init_params(rt.model_specs(cfg), g, torch.float32, dev)
+    unit_scale(params, cfg.n_layers)
+    weights_gib = sum(t.numel() for _, t in rt.tree_items(params)) * 4 / 2**30
     B, S, P, page, n_slots = 4, 96, 128, 16, 16
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
@@ -812,22 +961,28 @@ def check_full_width_depth_cut(rt, ops, dev) -> None:
                            "dense decode_step", "verify_step",
                            "dense verify_step"), got, want):
         err = float((a - b).abs().max())
-        # A verify window's tokens attend to each other.  At these weights
-        # (std 0.71: the reference's fan-in rule over 2 stacked layers)
-        # their q, k and v reach ~10^2, scores ~10^4, and fp32 rounding in
-        # another summation order moves an attention output by ~5e-5 of
-        # its size, so those logits are held to 1e-4 of the largest one.
-        # A wiring fault moves logits by O(1).
-        atol = 2e-5 + (1e-4 * float(b.abs().max()) if "verify" in name
-                       else 0.0)
+        # 2e-5 was set at granite's d_model of 2048.  A logit sums over
+        # d_model (the unembed, every projection's input) and d_ff, and
+        # the worst-case rounding of an fp32 sum grows with its length:
+        # wider models get 2e-5 x d_model / 2048 (yi-9b 4e-5, starcoder2-7b
+        # 4.5e-5, mistral-large-123b 1.2e-4; a starcoder2-7b decode step
+        # read 2.7e-5 on an H100).  A verify window's tokens attend to
+        # each other; its logits keep the earlier allowance of 1e-4 of the
+        # largest one, set when these weights were drawn at the
+        # reference's own std.  A wiring fault moves logits by O(1).
+        atol = 2e-5 * max(1.0, cfg.d_model / 2048) + (
+            1e-4 * float(b.abs().max()) if "verify" in name else 0.0)
         ok = bool(torch.isfinite(a).all()) and torch.allclose(
             a, b, rtol=2e-5, atol=atol)
-        log(f"  full width x 2 layers fp32 {name:17s} logits {tuple(a.shape)} "
-            f"kernels vs plain max_abs_err={err:.3e} tol={atol:.1e} "
-            f"(max |logit| {float(b.abs().max()):.2f}) "
-            f"{'ok' if ok else 'FAIL'}")
+        log(f"  {arch} x 2 layers fp32 ({weights_gib:.2f} GiB) {name:17s} "
+            f"logits {tuple(a.shape)} kernels vs plain max_abs_err="
+            f"{err:.3e} tol={atol:.1e} (max |logit| "
+            f"{float(b.abs().max()):.2f}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"{name}: kernel path differs from plain")
+            raise AssertionError(f"{arch} {name}: kernel path differs from "
+                                 "plain")
+    del params, got, want
+    torch.cuda.empty_cache()
 
 
 def check_ssm_reference(rt, ops, dev) -> None:
@@ -1293,18 +1448,22 @@ def run_match_dense(rt, ops, engine) -> dict:
     return dict(legs=legs, decode_step_ratio=ratio, n_layers=n)
 
 
-def check_verify_vs_decode(rt, engine) -> dict:
-    """Full width, bf16 and fp32: a decode step's rows alone (M = 4)
-    against the same rows inside a batch of 36 copies (M = 36), and a K =
-    9 window through ``verify_step`` against the same tokens through 9
-    ``decode_step`` calls on a copy of the same state (random K/V, ragged
-    lengths), on the paged and the dense cache.  Every product of these
-    passes goes through the row-invariant decode GEMM and every norm
-    through the row-blocked RMSNorm, and the attention rows are the decode
-    kernel's bits by contract, so each comparison is held to 0.000."""
+def check_verify_vs_decode(rt, engine, dtypes=(torch.bfloat16, torch.float32),
+                           Ks=(9,)) -> dict:
+    """Full width, in each of ``dtypes``: a decode step's rows alone (M =
+    4) against the same rows inside a batch of 36 copies (M = 36), and a
+    K-token window (each K of ``Ks``) through ``verify_step`` against the
+    same tokens through K ``decode_step`` calls on a copy of the same state
+    (random K/V in the engine's cache dtype, ragged lengths), on the paged
+    and the dense cache.  Every product of these passes goes through the
+    row-invariant decode GEMM and every norm through the row-blocked
+    RMSNorm, and the attention rows are the decode kernel's bits by
+    contract (a window of more than ``SPEC_MAX_ROWS`` query rows walked in
+    sub-windows), so each comparison is held to 0.000."""
     cfg = engine.cfg
     dev = engine.params["embed"].device
-    B, K, page, n_slots = 4, 9, 16, 64
+    B, page, n_slots = 4, 16, 64
+    K = 9
     KV, hd, nl = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
     n_pages = B * n_slots + 1
     out = {}
@@ -1316,21 +1475,27 @@ def check_verify_vs_decode(rt, engine) -> dict:
         if not ok:
             raise AssertionError(f"{label}: {err}")
 
-    for dt in (torch.bfloat16, torch.float32):
-        params = _to(engine.params, dt)
+    for dt in dtypes:
+        params = engine.params if dt == engine.params["embed"].dtype else \
+            _to(engine.params, dt)
         g = torch.Generator(dev).manual_seed(6)
         lens = torch.tensor([1000, 517, 16, 3], dtype=torch.int32, device=dev)
-        toks = torch.randint(0, cfg.vocab_size, (B, K), generator=g,
+        toks = torch.randint(0, cfg.vocab_size, (B, max(Ks)), generator=g,
                              device=dev)
         table = torch.randperm(n_pages, generator=g, device=dev)[: B * n_slots]
+        kv_dt = rt.cache_dtype(cfg, "k", dt)
+
+        def kv(*shape):
+            return rt.to_cache(_randn(g, dt, *shape), kv_dt)
         states = {
             "paged": {"len": lens, "pages": table.reshape(B, n_slots).int(),
-                      "k": _randn(g, dt, nl, n_pages, page, KV, hd),
-                      "v": _randn(g, dt, nl, n_pages, page, KV, hd)},
-            "dense": {"len": lens, "k": _randn(g, dt, nl, B, 1024, KV, hd),
-                      "v": _randn(g, dt, nl, B, 1024, KV, hd)},
+                      "k": kv(nl, n_pages, page, KV, hd),
+                      "v": kv(nl, n_pages, page, KV, hd)},
+            "dense": {"len": lens, "k": kv(nl, B, 1024, KV, hd),
+                      "v": kv(nl, B, 1024, KV, hd)},
         }
-        name_dt = str(dt)[6:]
+        name_dt = str(dt)[6:] + ("" if kv_dt == dt else
+                                 f" ({str(kv_dt)[6:]} cache)")
         # decode step 0 of the dense state, rows alone (M = 4) and inside a
         # batch of 36 copies (M = 36)
         dense = states["dense"]
@@ -1346,21 +1511,24 @@ def check_verify_vs_decode(rt, engine) -> dict:
              rows_err, bool(torch.isfinite(alone).all()))
         del wide
         for name, state in states.items():
-            a = {k: v.clone() for k, v in state.items()}
-            b = {k: v.clone() for k, v in state.items()}
-            _, vlog = rt.verify_step(cfg, params, a, toks)
-            dlog = []
-            for j in range(K):
-                b, lj = rt.decode_step(cfg, params, b, toks[:, j:j + 1])
-                dlog.append(lj)
-            dlog = torch.stack(dlog, dim=1)
-            err = float((vlog - dlog).abs().max())
-            out[f"{name} {name_dt}"] = dict(
-                max_abs_err=err, rows_m4_vs_m36=rows_err,
-                max_abs_logit=float(dlog.abs().max()))
-            hold(f"{name} {name_dt} verify_step (K = 9) vs 9 decode_steps "
-                 f"(max |logit| {float(dlog.abs().max()):.2f})", err,
-                 bool(torch.isfinite(vlog).all()))
+            for Kw in Ks:
+                a = {k: v.clone() for k, v in state.items()}
+                b = {k: v.clone() for k, v in state.items()}
+                _, vlog = rt.verify_step(cfg, params, a, toks[:, :Kw])
+                dlog = []
+                for j in range(Kw):
+                    b, lj = rt.decode_step(cfg, params, b, toks[:, j:j + 1])
+                    dlog.append(lj)
+                dlog = torch.stack(dlog, dim=1)
+                err = float((vlog - dlog).abs().max())
+                out[f"{name} {name_dt} K {Kw}"] = dict(
+                    max_abs_err=err, rows_m4_vs_m36=rows_err,
+                    max_abs_logit=float(dlog.abs().max()))
+                hold(f"{name} {name_dt} verify_step (K = {Kw}, "
+                     f"{Kw * cfg.padded_heads // KV} query rows a KV head) vs "
+                     f"{Kw} decode_steps (max |logit| "
+                     f"{float(dlog.abs().max()):.2f})", err,
+                     bool(torch.isfinite(vlog).all()))
         del params, states, a, b
         torch.cuda.empty_cache()
     return out
@@ -1834,10 +2002,305 @@ def run_graph_phase(rt, ops, granite, ssm, base_pairs: dict) -> dict:
                                                  base_pairs))
 
 
+# ---------------------------------------------------------------------------
+# Phase 9b: the rest of the dense family at full width
+# ---------------------------------------------------------------------------
+
+#: the dense configs phase 9b serves at full width in bf16 on one card
+#: (yi-9b 16.45 GiB of weights, starcoder2-7b 19.69 GiB), behind phase 4's
+#: engine settings, one at a time
+DENSE_FAMILY = ("yi-9b", "starcoder2-7b")
+
+
+class CastRecorder:
+    """Stands in for ``layers.to_cache`` while an fp8 engine serves: before
+    each cast into an e4m3 cache it keeps, on the device (so a captured
+    pass records too), the largest |K| and |V| and the count of values
+    above 464, which the cast turns into NaN.  Every write site casts K,
+    then V, so calls alternate between the two."""
+
+    def __init__(self, L, dev):
+        self.L, self.cast = L, L.to_cache
+        self.amax = torch.zeros(2, device=dev)                  # K, V
+        self.over = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.calls = 0
+
+    def __call__(self, x, dtype):
+        if dtype == E4M3 and x.dtype != dtype:
+            i = self.calls % 2
+            self.calls += 1
+            a = x.detach().abs()
+            self.amax[i:i + 1].copy_(torch.maximum(
+                self.amax[i:i + 1], a.max().float().reshape(1)))
+            self.over[i:i + 1] += (a > self.L.E4M3_ROUNDS_FINITE).sum()
+        return self.cast(x, dtype)
+
+    def __enter__(self):
+        self.L.to_cache = self
+        return self
+
+    def __exit__(self, *exc):
+        self.L.to_cache = self.cast
+
+
+def pool_bytes(engine) -> int:
+    return engine.pool.k.nbytes + engine.pool.v.nbytes
+
+
+def fp8_drift(rt, cfg, cfg8, params) -> dict:
+    """``tests/test_quant.py:120-140`` at full width: 2 rows of 16 random
+    tokens prefilled, then one decode step, with a bf16 and with an e4m3
+    cache, each step's logits against ``forward``'s teacher-forced logits
+    at that position; the bound is those logits' standard deviation."""
+    dev = params["embed"].device
+    g = torch.Generator(dev).manual_seed(8)
+    B, S = 2, 16
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         device=dev)
+    logits_tf, _ = rt.forward(cfg, params, {"tokens": toks})
+    err = {}
+    for name, c in (("bf16", cfg), ("e4m3", cfg8)):
+        cache, _ = rt.prefill(c, params, {"tokens": toks[:, :S]},
+                              max_seq=S + 4)
+        _, lg = rt.decode_step(c, params, cache, toks[:, S:S + 1])
+        want = rt.cache_dtype(c, "k", params["embed"].dtype)
+        if cache["k"].dtype != want or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"fp8 drift: {name} cache {cache['k'].dtype}"
+                                 f" (want {want}), or logits not finite")
+        err[name] = float((lg - logits_tf[:, S]).abs().max())
+    return dict(max_abs_err=err, logits_std=float(logits_tf.std()))
+
+
+def hold_fp8_drift(rt, cfg, cfg8, params) -> dict:
+    """The drift bound, held at the block matrices drawn at std
+    1/sqrt(fan-in) (``unit_scale`` on a copy), where the scores stay
+    O(1) as in a trained model; at the reference's own std (0.71, the
+    engine's weights) the scores reach ~10^3-10^4, attention is a hard
+    argmax that one e4m3 rounding of a key can move to another key, and
+    that reading is recorded beside it, not held."""
+    scaled = dict(params, blocks={
+        blk: {n: w.clone() for n, w in leaves.items()}
+        for blk, leaves in params["blocks"].items()})
+    unit_scale(scaled, cfg.n_layers)
+    out = dict(fan_in_scale=fp8_drift(rt, cfg, cfg8, scaled),
+               reference_std=fp8_drift(rt, cfg, cfg8, params))
+    del scaled
+    torch.cuda.empty_cache()
+    r = out["fan_in_scale"]
+    ok = r["max_abs_err"]["e4m3"] < r["logits_std"]
+    for name, d in out.items():
+        log(f"  fp8 drift at full width ({name.replace('_', ' ')} weights): "
+            f"decode-step logits vs forward's teacher forcing max_abs_err "
+            f"e4m3 cache {d['max_abs_err']['e4m3']:.4f}, bf16 cache "
+            f"{d['max_abs_err']['bf16']:.4f}; the logits' std "
+            f"{d['logits_std']:.4f} (tests/test_quant.py:140)"
+            + (f" {'ok' if ok else 'FAIL'}" if d is r else " (recorded)"))
+    if not ok:
+        raise AssertionError(f"fp8 drift {r}")
+    return out
+
+
+def run_fp8(rt, ops, L, engine, base: dict, base_pairs: dict) -> dict:
+    """(c) ``engine``'s weights behind a fresh engine with
+    ``kv_cache_dtype="float8_e4m3fn"``: phase 4's joins at the JAX
+    engine's counts and pairs, half the bf16 run's pool bytes, no NaN in
+    the cache (nor a value above 464 before the cast), the drift bound
+    (``hold_fp8_drift``), and verify == decode bit for bit on e4m3
+    pools."""
+    cfg8 = dataclasses.replace(engine.cfg, kv_cache_dtype="float8_e4m3fn")
+    dev = engine.params["embed"].device
+    eng = rt.Engine(cfg8, engine.params, engine.tokenizer, max_seq=1024,
+                    slots=4)
+    summary, pairs = run_joins(rt, ops, eng, f"{cfg8.name} fp8")
+    hold_counts(f"{cfg8.name} fp8", summary["joins"],
+                EXPECTED[("paged", "base")])
+    if pairs != base_pairs:
+        raise AssertionError("fp8 joins: pairs differ from phase 4's")
+    hold_pass_launches(f"{cfg8.name} fp8", summary, cfg8.n_layers)
+    # the same joins again on a fresh engine, untimed, with every cast into
+    # the cache recorded (the recorder's ops would weigh on the walls)
+    with CastRecorder(L, dev) as rec:
+        eng = rt.Engine(cfg8, engine.params, engine.tokenizer, max_seq=1024,
+                        slots=4)
+        sc = rt.ads_scenario()
+        client = rt.EngineClient(eng, oracle=rt.OracleLLM(
+            sc.predicate, context_limit=1024))
+        rt.block_join(sc.r1, sc.r2, sc.condition, client, 4, 4)
+        rt.adaptive_join(sc.r1, sc.r2, sc.condition, client,
+                         initial_estimate=1e-3)
+        torch.cuda.synchronize()
+    nbytes, nbytes16 = pool_bytes(eng), base["pool_bytes"]
+    nan = int(torch.isnan(eng.pool.k.float()).sum()
+              + torch.isnan(eng.pool.v.float()).sum())
+    amax, over = rec.amax.tolist(), rec.over.tolist()
+    # one byte a value against the activation dtype's (bf16: half)
+    width = engine.params["embed"].element_size()
+    ok = (eng.pool.k.dtype == E4M3 and width * nbytes == nbytes16
+          and nan == 0 and sum(over) == 0 and rec.calls % 2 == 0)
+    log(f"  {cfg8.name} fp8: pool {eng.pool.k.dtype} {nbytes / 2**20:.1f} "
+        f"MiB against the {str(engine.params['embed'].dtype)[6:]} run's "
+        f"{nbytes16 / 2**20:.1f} MiB "
+        f"({nbytes / nbytes16:.3f}x); before the cast max |K| {amax[0]:.2f}"
+        f" max |V| {amax[1]:.2f} ({rec.calls} casts), values above 464 "
+        f"K {over[0]} V {over[1]}; NaN in the pool after the joins {nan} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("fp8 pool: dtype, bytes or NaN count wrong")
+    summary.update(pool_bytes=nbytes, pool_bytes_bf16=nbytes16,
+                   pool_nan=nan, kv_amax_before_cast=amax,
+                   kv_over_464=over, casts=rec.calls)
+    del eng, client
+    summary["drift"] = hold_fp8_drift(rt, engine.cfg, cfg8, engine.params)
+    eng = rt.Engine(cfg8, engine.params, engine.tokenizer, max_seq=1024,
+                    slots=4)
+    summary["verify_vs_decode"] = check_verify_vs_decode(
+        rt, eng, dtypes=(torch.bfloat16,))
+    return summary
+
+
+def time_family_kernels(ops, L, dev, base: dict, spec: dict, fp8: dict,
+                        calls) -> dict:
+    """The kernels of yi-9b's paths at their most frequent shapes (bf16;
+    a full table or prefix, the most work each shape holds), each beside
+    its plain version, its library call and its bound: flash, chunked
+    prefill, paged decode (bf16 and e4m3 pools), verify, rmsnorm, and one
+    pass of the decode GEMM at M 4 (``calls``)."""
+    g = torch.Generator(dev).manual_seed(12)
+    dt = torch.bfloat16
+    top = lambda path, name: path["shapes"][name][0][0]  # noqa: E731
+    fB, fS, fH, fKV, fhd, _ = top(base, "flash_attention")
+    cB, cS, cP, cH, cKV, chd, _ = top(base, "chunked_prefill_attention")
+    dB, dH, dKV, dpg, _, dslots, dhd, _ = top(base, "paged_decode_attention")
+    eB, eH, eKV, epg, _, eslots, ehd, _ = top(fp8, "paged_decode_attention")
+    vB, vK, vH, vKV, vpg, _, vslots, vhd, _ = top(spec,
+                                                  "spec_verify_attention")
+    nrows, nD, _, _ = top(base, "rmsnorm")
+    out = {
+        "flash_attention": time_flash(ops, L, g, dt, fB, fS, fH, fKV, fhd),
+        "chunked_prefill_attention": time_chunked(
+            ops, L, g, dt, cB, cS, cP, cH, cKV, chd, [cP] * cB),
+        "paged_decode_attention": time_decode(
+            ops, L, g, dt, dB, dH, dKV, dhd, dpg, dslots,
+            [dslots * dpg] * dB),
+        "paged_decode_attention e4m3": time_decode(
+            ops, L, g, dt, eB, eH, eKV, ehd, epg, eslots,
+            [eslots * epg] * eB, kv8=L),
+        "spec_verify_attention": time_verify(
+            ops, L, g, dt, vB, vK, vH, vKV, vhd, vpg, vslots,
+            [vslots * vpg - vK] * vB),
+        "rmsnorm": time_rmsnorm(ops, L, g, dt, nrows, nD),
+        "decode_gemm": time_decode_gemm(ops, L, g, calls, 4),
+    }
+    for name, r in out.items():
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        dev_ms = (f" device: kernel={r['device_ms']:.4f} ms library="
+                  f"{r['library_device_ms']:.4f} ms" if "device_ms" in r
+                  else "")
+        log(f"  yi-9b {name:30s} {json.dumps(r['shape'])} kernel="
+            f"{r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms library={lib}"
+            f"{dev_ms} bound={r['bound_ms']:.4f} ms ({r['bound_by']}) "
+            f"kernel/bound={r['ms'] / r['bound_ms']:.1f}x")
+    return out
+
+
+def run_dense_arch(rt, ops, L, dev, arch: str, seed: int, base_pairs: dict,
+                   profile: Path | None) -> tuple:
+    """``arch`` at full width in bf16 (random weights from ``seed``):
+    (a) phase 4's joins, (b) the same with speculation on and verify ==
+    decode bit for bit, (c) on yi-9b an fp8 KV cache and the kernels timed
+    at its shapes; with ``profile`` (a directory) one block join under
+    ``torch.profiler`` too.  Returns ``(record, paths)``; every engine is
+    freed."""
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = rt.build_engine(arch, device=dev, seed=seed, max_seq=1024,
+                             slots=4)
+    torch.cuda.synchronize()
+    cfg = engine.cfg
+    n_params = sum(t.numel() for _, t in rt.tree_items(engine.params))
+    weights_gib = (torch.cuda.memory_allocated() - mem0) / 2 ** 30
+    log(f"  {arch} full width: {n_params:,} parameters in bf16 drawn on the "
+        f"card in {time.perf_counter() - t0:.1f} s, {weights_gib:.2f} GiB; "
+        f"{cfg.n_layers} layers, {cfg.padded_heads} heads "
+        f"({cfg.n_heads} live) over {cfg.n_kv_heads} KV heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}")
+    key = arch.replace("-", "_")
+    paths = {}
+    # (a) phase 4's joins
+    base, pairs = run_joins(rt, ops, engine, f"{arch} block + adaptive")
+    hold_counts(arch, base["joins"], EXPECTED[("paged", "base")])
+    missing = [k for k in ATTENTION if base["launches"][k] == 0]
+    if pairs != base_pairs or missing:
+        raise AssertionError(f"{arch}: pairs differ from phase 4's, or "
+                             f"kernels never launched: {missing}")
+    hold_pass_launches(arch, base, cfg.n_layers)
+    base.update(weights_gib=weights_gib, n_params=n_params,
+                pool_bytes=pool_bytes(engine),
+                other_engines_gib=mem0 / 2 ** 30)
+    log(f"  {arch}: peak {base['max_memory_allocated_gib']:.2f} GiB "
+        f"allocated over the joins, of which {mem0 / 2 ** 30:.2f} GiB are "
+        f"the earlier phases' engines (granite-3-2b, mamba2-130m); weights "
+        f"{weights_gib:.2f} GiB, KV pool {base['pool_bytes'] / 2 ** 20:.1f} "
+        f"MiB")
+    paths[key] = base
+    # (b) speculation on
+    eng = rt.Engine(cfg, engine.params, engine.tokenizer, max_seq=1024,
+                    slots=4, spec_decode=True)
+    spec, spec_pairs = run_joins(rt, ops, eng, f"{arch} spec")
+    del eng
+    hold_counts(f"{arch} spec", spec["joins"], EXPECTED[("paged", "spec")])
+    counts = spec["launches"]
+    if (spec_pairs != base_pairs
+            or spec["decode_steps"] >= base["decode_steps"]
+            or not counts["spec_verify_attention"]
+            or counts["paged_decode_attention"]):
+        raise AssertionError(f"{arch} spec: pairs, decode steps or launches "
+                             f"wrong ({counts})")
+    hold_pass_launches(f"{arch} spec", spec, cfg.n_layers)
+    paths[key + "_spec"] = spec
+    # a window of 13 is more query rows than one verify launch takes at
+    # G 12 (starcoder2-7b): the walked path
+    G = cfg.padded_heads // cfg.n_kv_heads
+    Ks = (9, 13) if 13 * G > ops.SPEC_MAX_ROWS else (9,)
+    spec["verify_vs_decode"] = check_verify_vs_decode(
+        rt, engine, dtypes=(torch.bfloat16,), Ks=Ks)
+    record = dict(base=base, spec=spec)
+    if profile is not None:
+        sc = rt.ads_scenario()
+        c = warm_client(rt, engine, sc)
+        record["profile"] = profile_one(
+            f"{arch} block join", f"{key}_block_join", profile,
+            lambda: rt.block_join(sc.r1, sc.r2, sc.condition, c, 4, 4))
+        del c
+    if arch == "yi-9b":
+        fp8 = run_fp8(rt, ops, L, engine, base, base_pairs)
+        paths[key + "_fp8"] = fp8
+        record["fp8"] = fp8
+        record["timing"] = time_family_kernels(
+            ops, L, dev, base, spec, fp8, pass_calls(engine.params, cfg))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, paths
+
+
+def run_dense_family(rt, ops, L, dev, seed: int, base_pairs: dict,
+                     profile: Path | None) -> tuple:
+    """Phase 9b: each of ``DENSE_FAMILY`` in turn; ``(records, paths)``."""
+    records, paths = {}, {}
+    for arch in DENSE_FAMILY:
+        records[arch], p = run_dense_arch(rt, ops, L, dev, arch, seed,
+                                          base_pairs, profile)
+        paths.update(p)
+    return records, paths
+
+
 def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
     """Every kernel against its plain version again, in bf16, at each
-    shape the main path gave it (ragged lengths; these launches come after
-    the main path's counts were read)."""
+    shape the paths gave it (ragged lengths; these launches come after
+    the paths' counts were read); the decode-side kernels over e4m3 pools
+    where a path's fp8 cache gave them those (dtype codes 2 and 3)."""
     g = torch.Generator(dev).manual_seed(3)
     dt = torch.bfloat16
     for (B, S, H, KV, hd, _), _ in shapes["flash_attention"]:
@@ -1852,13 +2315,15 @@ def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
                        f"main path B,S,P,H,KV,hd={(B, S, P, H, KV, hd)}",
                        ops.chunked_prefill_attention(*x),
                        L.chunked_prefill_attention(*x), dt, main=True)
-    for (B, H, KV, pg, _, n_slots, hd, _), _ in \
+    kv8 = lambda code: L if code >= 2 else None  # noqa: E731
+    for (B, H, KV, pg, _, n_slots, hd, code), _ in \
             shapes["paged_decode_attention"]:
         lens = ([n_slots * pg - 1, n_slots * pg * 7 // 8, pg, 1] * B)[:B]
-        x = decode_inputs(g, dt, B, H, KV, hd, pg, n_slots, lens)
+        x = decode_inputs(g, dt, B, H, KV, hd, pg, n_slots, lens, kv8(code))
         checks.compare("paged_decode_attention",
                        f"main path B,H,KV,hd,page,slots="
-                       f"{(B, H, KV, hd, pg, n_slots)}",
+                       f"{(B, H, KV, hd, pg, n_slots)}"
+                       f"{' e4m3' if code >= 2 else ''}",
                        ops.paged_decode_attention(*x),
                        L.paged_decode_attention(*x), dt, main=True)
     for (M, N, D, k), _ in shapes["topk_similarity"]:
@@ -1866,14 +2331,17 @@ def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
         checks.compare_topk(f"prefilter path M,N,D,k={(M, N, D, k)}",
                             ops.topk_similarity(e1, e2, k=k),
                             L.topk_similarity(e1, e2, k), 0.0, main=True)
-    for (B, K, H, KV, pg, _, n_slots, hd, _), _ in \
+    for (B, K, H, KV, pg, _, n_slots, hd, code), _ in \
             shapes["spec_verify_attention"]:
         cap = n_slots * pg
         lens = ([cap - K, cap * 7 // 8, pg - 1, 0] * B)[:B]
         x = verify_inputs(g, dt, B, K, H, KV, hd, pg, n_slots, lens)
+        if code >= 2:
+            x = (x[0],) + e4m3(L, x[1:3]) + x[3:]
         checks.compare("spec_verify_attention",
                        f"spec path B,K,H,KV,hd,slots="
-                       f"{(B, K, H, KV, hd, n_slots)}",
+                       f"{(B, K, H, KV, hd, n_slots)}"
+                       f"{' e4m3' if code >= 2 else ''}",
                        ops.spec_verify_attention(*x),
                        L.spec_verify_attention_paged(*x), dt, main=True)
     for (B, H, KV, Skv, hd, _), _ in shapes["decode_attention"]:
@@ -1919,15 +2387,7 @@ def profile_joins(rt, engine, ssm_engine, out: Path) -> dict:
                                     seed=5)
 
     def client(scenario, base=engine, **mode):
-        eng = rt.Engine(base.cfg, base.params, base.tokenizer, max_seq=1024,
-                        slots=4, **mode)
-        # warm and capture the engine's graph, so that no profile holds
-        # a capture; then a cold prefix cache
-        eng.generate(["warm the decode graph: " * 8], max_tokens=4)
-        empty_prefix_cache(eng)
-        torch.cuda.synchronize()
-        return rt.EngineClient(eng, oracle=rt.OracleLLM(
-            scenario.predicate, context_limit=1_000_000))
+        return warm_client(rt, base, scenario, **mode)
 
     shares = {}
     for label, name, c in (
@@ -1944,6 +2404,19 @@ def profile_joins(rt, engine, ssm_engine, out: Path) -> dict:
         lambda: rt.prefilter_join(small.r1, small.r2, small.condition, cp,
                                   rt.HashEmbedder(), k=4))
     return shares
+
+
+def warm_client(rt, base, scenario, **mode):
+    """A client over a fresh engine on ``base``'s weights, its decode (or
+    verify) graph warmed and captured, so that no profile holds a
+    capture, and its prefix cache then emptied."""
+    eng = rt.Engine(base.cfg, base.params, base.tokenizer, max_seq=1024,
+                    slots=4, **mode)
+    eng.generate(["warm the decode graph: " * 8], max_tokens=4)
+    empty_prefix_cache(eng)
+    torch.cuda.synchronize()
+    return rt.EngineClient(eng, oracle=rt.OracleLLM(
+        scenario.predicate, context_limit=1_000_000))
 
 
 def profile_one(label: str, name: str, out: Path, run) -> dict:
@@ -2137,25 +2610,32 @@ def time_chunked(ops, L, g, dtype, B, S, P, H, KV, hd, plens, cores=None):
                           .abs().max()))
 
 
-def time_decode(ops, L, g, dtype, B, H, KV, hd, page, n_slots, lens):
-    mk = lambda: decode_inputs(g, dtype, B, H, KV, hd, page, n_slots, lens)  # noqa
+def time_decode(ops, L, g, dtype, B, H, KV, hd, page, n_slots, lens,
+                kv8=None):
+    """The paged decode kernel; with ``kv8`` (``layers``) over an e4m3
+    pool, whose yardstick then reads the cache widened to the query's
+    dtype (SDPA takes no e4m3), gathered beforehand as for bf16."""
+    def mk():
+        return decode_inputs(g, dtype, B, H, KV, hd, page, n_slots, lens, kv8)
     x0 = mk()
     q, kp, vp, table, clen = x0
-    per_set = _nbytes(q) + 2 * sum(lens) * KV * hd * q.element_size()
+    es = kp.element_size()
+    per_set = _nbytes(q) + 2 * sum(lens) * KV * hd * es
     sets = [x0] + [mk() for _ in range(n_sets(per_set) - 1)]
     # the yardstick reads a dense cache gathered from the pages beforehand
     Skv = n_slots * page
     valid = torch.arange(Skv, device=q.device)[None] < clen[:, None]
     mask = valid[:, None, None, :]
     lib_sets = [(s[0],) + tuple(p[s[3].long()].reshape(B, Skv, KV, hd)
-                                for p in (s[1], s[2])) for s in sets]
+                                .to(dtype) for p in (s[1], s[2]))
+                for s in sets]
     call = sdpa()
     used_slots = sum(-(-n // page) for n in lens)
-    b_ms, b_by = bound(2 * _nbytes(q) + 2 * sum(lens) * KV * hd * q.element_size()
-                   + 4 * (used_slots + B), 4 * hd * H * sum(lens), dtype)
+    b_ms, b_by = bound(2 * _nbytes(q) + 2 * sum(lens) * KV * hd * es
+                       + 4 * (used_slots + B), 4 * hd * H * sum(lens), dtype)
     return dict(
         shape=dict(B=B, H=H, KV=KV, hd=hd, page=page, n_slots=n_slots,
-                   cache_len=lens),
+                   cache_len=lens, kv_dtype=str(kp.dtype)[6:]),
         ms=time_ms(ops.paged_decode_attention, sets, 50),
         device_ms=device_ms(ops.paged_decode_attention, sets, 50),
         library_device_ms=device_ms(
@@ -2278,15 +2758,23 @@ def ssd_flops(B, S, H, P, N, chunk, split: int = 1) -> int:
 def kernels_queued(fn, args, calls: int) -> dict:
     """``{name: (device us, launches)}`` a call of ``fn(*args)`` (after
     one call unprofiled) queues on the device, kernel by kernel (copies
-    and memsets too), from ``torch.profiler`` over ``calls`` calls."""
+    and memsets too), from ``torch.profiler`` over ``calls`` calls.  The
+    trace starts with one warm-up call that is not counted, and each call
+    waits 5 ms after its step begins: the kernels of an eager pass's first
+    ops, issued right after the trace or a step starts, were missing from
+    it on some H100 hosts (a replay's were not)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls,
+                                   repeat=1)) as prof:
+        for _ in range(1 + calls):
+            time.sleep(0.005)
             fn(*args)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
     return {e.key: (e.self_device_time_total / calls, e.count / calls)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA}
@@ -2390,10 +2878,11 @@ def host_cost(kernel, args) -> dict:
 
 
 def pass_calls(params, cfg) -> list:
-    """The calls of one granite decode pass to the decode GEMM, in the
-    order the pass makes them, each the weights of one launch as
+    """The calls of one decode pass to the decode GEMM, in the order the
+    pass makes them, each the weights of one launch as
     ``decode_linear_group`` takes them: per layer {wq, wk, wv}, wo,
-    {w_gate, w_up}, w_down, then the unembed (161 calls, 281 products)."""
+    {w_gate, w_up}, w_down, then the unembed (tied or not; granite-3-2b:
+    161 calls, 281 products)."""
     D, H, hd = cfg.d_model, cfg.padded_heads, cfg.resolved_head_dim
     a, m = params["blocks"]["attn"], params["blocks"]["mlp"]
     out = []
@@ -2402,7 +2891,8 @@ def pass_calls(params, cfg) -> list:
                  a["wv"][i].reshape(D, -1)),
                 (a["wo"][i].reshape(H * hd, -1),),
                 (m["w_gate"][i], m["w_up"][i]), (m["w_down"][i],)]
-    return out + [(params["embed"].t(),)]
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return out + [(table.t(),)]
 
 
 def _copy(w):
@@ -2689,9 +3179,11 @@ def port() -> types.SimpleNamespace:
     from repro_torch.data.scenarios import marketplace_scenario
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.launch.serve import build_engine
-    from repro_torch.models import (chunked_prefill, decode_step, encode,
+    from repro_torch.models import (cache_dtype, chunked_prefill,
+                                    decode_step, encode, forward,
                                     init_params, model_specs, prefill,
                                     verify_step)
+    from repro_torch.models.layers import to_cache
     from repro_torch.models.params import tree_items
     from repro_torch.serve import Engine, EngineClient, EngineEmbedder
 
@@ -2705,7 +3197,8 @@ def main() -> int:
                     help="directory for chip_smoke.json (the full record)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile the block join on the paged, spec, "
-                         "dense and ssm engines and prefilter leg (b) with "
+                         "dense and ssm engines and on yi-9b and "
+                         "starcoder2-7b, and prefilter leg (b), with "
                          "torch.profiler")
     args = ap.parse_args()
 
@@ -2739,9 +3232,12 @@ def main() -> int:
     times = build.build()
     log(f"  built {sorted(times)} in {time.perf_counter() - t:.1f} s "
         f"(per source: {({k: round(v, 1) for k, v in times.items()})})")
+    out = Path(args.out)
+    (out / "ptxas").mkdir(parents=True, exist_ok=True)
     for name in build.SOURCES:   # nvcc -Xptxas -v, one entry per template
         ptxas = build.library_path(name).with_suffix(".log")
         text = ptxas.read_text() if ptxas.is_file() else ""
+        (out / "ptxas" / f"{name}.log").write_text(text)   # the full report
         regs = re.findall(r"Used (\d+) registers", text)
         spills = sorted(set(re.findall(r"(\d+) bytes spill stores", text)))
         log(f"  {name}: registers per instantiation {regs}, spill stores "
@@ -2756,7 +3252,8 @@ def main() -> int:
 
     log("== phase 3: small inputs against a reference")
     check_small_engine(rt, dev)
-    check_full_width_depth_cut(rt, ops, dev)
+    for arch in DEPTH_CUTS:
+        check_full_width_depth_cut(rt, ops, dev, arch)
     check_ssm_reference(rt, ops, dev)
 
     log("== phase 4: main path, full-width granite-3-2b bf16, block + "
@@ -2783,9 +3280,16 @@ def main() -> int:
                                  max_seq=1024, slots=4)
     graphs = run_graph_phase(rt, ops, engine, ssm_engine, pairs)
 
+    log("== phase 9b: the rest of the dense family at full width, bf16: "
+        "yi-9b and starcoder2-7b joins, speculation on, yi-9b with an fp8 "
+        "KV cache")
+    family, family_paths = run_dense_family(
+        rt, ops, L, dev, args.seed, pairs, out if args.profile else None)
+
     paths = dict(block_adaptive=summary, prefilter=prefilter, spec=spec,
                  dense=dense, ssm=ssm)
-    every = {name: merge_shapes(paths.values(), name)
+    every = {name: merge_shapes(list(paths.values())
+                                + list(family_paths.values()), name)
              for name in summary["shapes"]}
     log("== phase 10: every kernel at each shape its paths gave it, then "
         "kernel times (CUDA events; attention, scan and norm bf16, top-k "
@@ -2795,8 +3299,6 @@ def main() -> int:
         k.name] for k in ops.KERNELS}
     timing = time_kernels(ops, L, dev, home, paths, cuda_core_prefill(build),
                           pass_calls(engine.params, engine.cfg))
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
     profiles = None
     if args.profile:
         log("== profile: the block join on the paged, spec, dense and ssm "
@@ -2832,12 +3334,22 @@ def main() -> int:
                 {**t["shape"], **{x: t[x] for x in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
                 for t in (r, r["other_direction"])])
+        yi = family["yi-9b"]["timing"].get(k.name)
+        if yi is not None:   # yi-9b's shapes, per launch as above
+            n = yi["shape"]["launches"] if k.name == "decode_gemm" else 1
+            extra["yi_9b"] = dict(
+                shape=yi["shape"], ms=yi["ms"] / n,
+                plain_ms=yi["plain_ms"] / n,
+                library_ms=(None if yi["library_ms"] is None
+                            else yi["library_ms"] / n),
+                bound_ms=yi["bound_ms"] / n, bound_by=yi["bound_by"])
         kernels.append(dict(
             name=k.name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{k.source}.cu",
             replaces=k.replaces, launches=path["launches"][k.name],
             launches_by_path={name: pth["launches"][k.name]
-                              for name, pth in paths.items()},
+                              for name, pth in {**paths,
+                                                **family_paths}.items()},
             max_abs_err=max(checks.max_err[k.name], r["max_abs_err"]),
             ms=r["ms"] / per, plain_ms=r["plain_ms"] / per,
             bound_ms=r["bound_ms"] / per, bound_by=r["bound_by"],
@@ -2846,7 +3358,7 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, build_s=times, main_path=summary,
         prefilter_path=prefilter, spec_path=spec, dense_path=dense,
-        ssm_path=ssm, graphs=graphs, profiles=profiles,
+        ssm_path=ssm, graphs=graphs, dense_family=family, profiles=profiles,
         timing=timing, kernels=kernels), indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())

@@ -1,5 +1,5 @@
-// Shared pieces of the attention kernels: fp32 loads from fp32 or bf16
-// tensors, warp reductions, the per-query-row online softmax over one
+// Shared pieces of the attention kernels: fp32 loads from fp32, bf16 or
+// e4m3 tensors, warp reductions, the per-query-row online softmax over one
 // shared-memory tile of keys, the fp32 tile load of the CUDA-core
 // prefill body, and the split-context body of the three decode-side
 // kernels (below).
@@ -22,9 +22,12 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace repro_attn {
 
@@ -34,6 +37,9 @@ constexpr unsigned kFullMask = 0xffffffffu;
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
+}
+__device__ __forceinline__ float load_f(const __nv_fp8_e4m3* p) {
+  return static_cast<float>(*p);
 }
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
@@ -168,10 +174,17 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst,
 //
 // Tiles stay in their own dtype in shared memory, 16-byte cp.async rows
 // in two stages, each row padded by 16 bytes (an odd number of 16-byte
-// chunks a row, so the 8 lanes of a 16-byte read phase hit 8 distinct
-// bank groups); fold_tile widens each element to fp32 as it reads it,
-// which is exact for bf16.  A paged position resolves its page once per
-// 16-byte chunk.
+// chunks a row at HD 128, so the 8 lanes of a 16-byte read phase hit 8
+// distinct bank groups); fold_tile widens each element to fp32 as it
+// reads it, which is exact for bf16 and for e4m3.  A paged position
+// resolves its page once per 16-byte chunk.
+//
+// K/V may be e4m3 (an fp8 KV cache) under a bf16 or fp32 query: the
+// query, the output and every step of the fold keep the query's types,
+// and a 16-byte chunk holds 16 keys' dims instead of 8 (bf16) or 4
+// (fp32).  The JAX package converts an e4m3 cache to the query's dtype
+// on load; e4m3 -> bf16 and e4m3 -> fp32 are both exact, so the values
+// folded are the same.
 constexpr int kChunk = 256;   // positions per chunk
 static_assert(kChunk > 0 && kChunk % kTile == 0, "whole tiles a chunk");
 
@@ -233,6 +246,19 @@ __device__ __forceinline__ void widen16(const __nv_bfloat16* p,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void widen16(const __nv_fp8_e4m3* p,
+                                        float (&v)[16]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_fp8x2_storage_t* h =
+      reinterpret_cast<const __nv_fp8x2_storage_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {   // e4m3 -> fp16 -> fp32, both exact
+    const float2 f = __half22float2(
+        __half2(__nv_cvt_fp8x2_to_halfraw2(h[i], __NV_E4M3)));
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
@@ -469,6 +495,35 @@ int launch_combine(const float* part, const int* cache_len, void* out, int B,
 inline long long split_partial_floats(int B, int KV, int cap, int rows,
                                       int hd) {
   return (long long)B * KV * ((cap + kChunk - 1) / kChunk) * rows * (hd + 2);
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// The launchers' dtype codes: 0 fp32, 1 bf16 (q, K/V and the output in
+// one dtype); 2 and 3 an fp32 or a bf16 query and output over e4m3 K/V.
+// Calls launch(Tag<TQ>, Tag<TKV>, integral_constant<int, HD>) for the
+// code and head dim, or returns cudaErrorInvalidValue.
+template <typename Launch>
+int dispatch_split(int dtype, int hd, Launch&& launch) {
+  auto by_hd = [&](auto tq, auto tkv) -> int {
+    switch (hd) {
+      case 16: return launch(tq, tkv, std::integral_constant<int, 16>{});
+      case 32: return launch(tq, tkv, std::integral_constant<int, 32>{});
+      case 64: return launch(tq, tkv, std::integral_constant<int, 64>{});
+      case 128: return launch(tq, tkv, std::integral_constant<int, 128>{});
+    }
+    return (int)cudaErrorInvalidValue;
+  };
+  switch (dtype) {
+    case 0: return by_hd(Tag<float>{}, Tag<float>{});
+    case 1: return by_hd(Tag<__nv_bfloat16>{}, Tag<__nv_bfloat16>{});
+    case 2: return by_hd(Tag<float>{}, Tag<__nv_fp8_e4m3>{});
+    case 3: return by_hd(Tag<__nv_bfloat16>{}, Tag<__nv_fp8_e4m3>{});
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace repro_attn

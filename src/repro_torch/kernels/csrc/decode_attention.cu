@@ -1,6 +1,7 @@
 // Dense decode attention: one query token per row of the batch against
 // that row's contiguous K/V cache (B, Skv, KV, HD), masked by cache_len,
-// fp32 or bf16, on sm_90a.
+// fp32 or bf16, with the cache in the query's dtype or in e4m3, on
+// sm_90a.
 //
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention (the
 // Pallas TPU kernel over grid (B, KV, Skv blocks) that skips the blocks
@@ -32,9 +33,9 @@
 
 namespace repro_attn {
 
-template <typename T, int HD>
+template <typename TQ, typename T, int HD>
 __global__ void __launch_bounds__(1024)
-dense_decode_kernel(const T* __restrict__ q,          // (B, 1, H, HD)
+dense_decode_kernel(const TQ* __restrict__ q,         // (B, 1, H, HD)
                     const T* __restrict__ k_cache,    // (B, Skv, KV, HD)
                     const T* __restrict__ v_cache,
                     const int* __restrict__ cache_len,  // (B,)
@@ -57,7 +58,7 @@ dense_decode_kernel(const T* __restrict__ q,          // (B, 1, H, HD)
   if (c0 >= len) return;
   const int c1 = min(c0 + kChunk, len);
 
-  const T* qb = q + ((size_t)b * H + (size_t)kvh * G) * HD;
+  const TQ* qb = q + ((size_t)b * H + (size_t)kvh * G) * HD;
   for (int idx = threadIdx.x; idx < G * HD; idx += blockDim.x)
     Qs[idx] = load_f(qb + idx);
   const size_t row_stride = (size_t)KV * HD;
@@ -78,14 +79,14 @@ dense_decode_kernel(const T* __restrict__ q,          // (B, 1, H, HD)
                     acc, lane);
 }
 
-template <typename T, int HD>
+template <typename TQ, typename T, int HD>
 int launch_dense_decode_t(const void* q, const void* k_cache,
                           const void* v_cache, const int* cache_len,
                           void* out, float* part, int B, int H, int KV,
                           int Skv, cudaStream_t stream) {
   const int G = H / KV;
   const size_t smem = split_tile_bytes<T, HD>() + sizeof(float) * G * HD;
-  auto kernel = dense_decode_kernel<T, HD>;
+  auto kernel = dense_decode_kernel<TQ, T, HD>;
   // the largest this instance takes, set once (a decode pass launches
   // it 40 times)
   static bool smem_set = false;
@@ -98,20 +99,21 @@ int launch_dense_decode_t(const void* q, const void* k_cache,
   }
   const dim3 grid(KV, B, (Skv + kChunk - 1) / kChunk);
   kernel<<<grid, 32 * G, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_cache),
+      static_cast<const TQ*>(q), static_cast<const T*>(k_cache),
       static_cast<const T*>(v_cache), cache_len, part, H, KV, Skv,
       1.0f / sqrtf((float)HD));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_combine<T, HD>(part, cache_len, out, B, 1, H, KV, Skv, 0,
-                               stream);
+  return launch_combine<TQ, HD>(part, cache_len, out, B, 1, H, KV, Skv, 0,
+                                stream);
 }
 
 }  // namespace repro_attn
 
-// dtype: 0 = float32, 1 = bfloat16.  part: part_floats fp32 of scratch,
-// at least split_partial_floats(B, KV, Skv, H / KV, hd).  Returns a
-// cudaError_t code.
+// dtype: a code of dispatch_split (0 fp32, 1 bf16; 2 / 3 an fp32 / bf16
+// query over an e4m3 cache).  part: part_floats fp32 of scratch, at least
+// split_partial_floats(B, KV, Skv, H / KV, hd).  Returns a cudaError_t
+// code.
 extern "C" int repro_decode_attention(const void* q, const void* k_cache,
                                       const void* v_cache,
                                       const void* cache_len, void* out,
@@ -120,28 +122,17 @@ extern "C" int repro_decode_attention(const void* q, const void* k_cache,
                                       int part_floats, void* stream) {
   using namespace repro_attn;
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || H / KV > 32 ||
-      Skv <= 0 || (dtype != 0 && dtype != 1) ||
-      part_floats < split_partial_floats(B, KV, Skv, H / KV, hd))
+      Skv <= 0 || part_floats < split_partial_floats(B, KV, Skv, H / KV, hd))
     return (int)cudaErrorInvalidValue;
   if (!aligned16(k_cache) || !aligned16(v_cache))
     return (int)cudaErrorMisalignedAddress;
   const int* lens = static_cast<const int*>(cache_len);
   float* p = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_DENSE_DECODE_CASE(HD)                                          \
-  case HD:                                                                   \
-    return dtype == 1 ? launch_dense_decode_t<__nv_bfloat16, HD>(            \
-                            q, k_cache, v_cache, lens, out, p, B, H, KV, Skv, \
-                            s)                                                \
-                      : launch_dense_decode_t<float, HD>(                     \
-                            q, k_cache, v_cache, lens, out, p, B, H, KV, Skv, \
-                            s);
-  switch (hd) {
-    REPRO_DENSE_DECODE_CASE(16)
-    REPRO_DENSE_DECODE_CASE(32)
-    REPRO_DENSE_DECODE_CASE(64)
-    REPRO_DENSE_DECODE_CASE(128)
-  }
-#undef REPRO_DENSE_DECODE_CASE
-  return (int)cudaErrorInvalidValue;
+  return dispatch_split(dtype, hd, [&](auto tq, auto tkv, auto hd_c) {
+    return launch_dense_decode_t<typename decltype(tq)::type,
+                                 typename decltype(tkv)::type,
+                                 decltype(hd_c)::value>(
+        q, k_cache, v_cache, lens, out, p, B, H, KV, Skv, s);
+  });
 }

@@ -424,7 +424,10 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
 // The tensor map of a bf16 weight whose rows hold `inner` elements
 // (`outer` rows), in 64 x 64 boxes with the 128-byte swizzle and zeros
 // past its edges.  Weights do not move, so maps are cached by (pointer,
-// inner, outer): the same key always encodes the same map.
+// inner, outer): the same key always encodes the same map, so a slot may
+// be taken over by another key, whose weight's map is then encoded
+// again.  A launch copies its maps into its parameters (a captured graph
+// keeps its own copies).
 int weight_map(const bf16* w, int inner, int outer, CUtensorMap* out) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
@@ -438,35 +441,42 @@ int weight_map(const bf16* w, int inner, int outer, CUtensorMap* out) {
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
   struct Entry { const bf16* w; int inner, outer; CUtensorMap map; };
-  constexpr int kSlots = 1024;   // a granite pass has 281 weights
+  // a granite pass has 281 weights, yi-9b's 337, starcoder2-7b's 225
+  constexpr int kSlots = 4096;
+  constexpr int kProbes = 8;
   static Entry cache[kSlots];
   const uint64_t key = reinterpret_cast<uintptr_t>(w) ^
                        ((uint64_t)inner << 40) ^ ((uint64_t)outer << 20);
-  const int h = (int)((key * 0x9E3779B97F4A7C15ull) >> 54);   // 10 bits
-  for (int i = 0; i < 8; ++i) {
+  const int h = (int)((key * 0x9E3779B97F4A7C15ull) >> 52);   // 12 bits
+  Entry* slot = &cache[h];   // taken over if the neighbourhood is full
+  for (int i = 0; i < kProbes; ++i) {
     Entry& e = cache[(h + i) % kSlots];
     if (e.w == w && e.inner == inner && e.outer == outer) {
       *out = e.map;
       return 0;
     }
-    if (e.w != nullptr) continue;
-    const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-    const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(bf16)};
-    const cuuint32_t box[2] = {kBK, kBN};
-    const cuuint32_t elem[2] = {1, 1};
-    if (encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-               const_cast<bf16*>(w), dims, strides, box, elem,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return (int)cudaErrorInvalidValue;
-    e.w = w;
-    e.inner = inner;
-    e.outer = outer;
-    *out = e.map;
-    return 0;
+    if (e.w == nullptr) {
+      slot = &e;
+      break;
+    }
   }
-  return (int)cudaErrorMemoryAllocation;   // the cache's neighbourhood is full
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(bf16)};
+  const cuuint32_t box[2] = {kBK, kBN};
+  const cuuint32_t elem[2] = {1, 1};
+  if (encode(&slot->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<bf16*>(w), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    slot->w = nullptr;   // no half-written entry is ever matched
+    return (int)cudaErrorInvalidValue;
+  }
+  slot->w = w;
+  slot->inner = inner;
+  slot->outer = outer;
+  *out = slot->map;
+  return 0;
 }
 
 // How one launch of Mc rows stages x, the rows its accumulators hold,

@@ -1,6 +1,7 @@
 // Paged decode attention: one query token per row of the batch against
 // K/V held in a shared page pool and read through the row's page table,
-// fp32 or bf16, on sm_90a.
+// fp32 or bf16, with the pool in the query's dtype or in e4m3 (an fp8 KV
+// cache), on sm_90a.
 //
 // Replaces: src/repro/kernels/paged_decode_attention.py::
 // paged_decode_attention (the Pallas TPU kernel whose scalar-prefetched
@@ -28,9 +29,9 @@
 
 namespace repro_attn {
 
-template <typename T, int HD>
+template <typename TQ, typename T, int HD>
 __global__ void __launch_bounds__(1024)
-paged_decode_kernel(const T* __restrict__ q,         // (B, 1, H, HD)
+paged_decode_kernel(const TQ* __restrict__ q,        // (B, 1, H, HD)
                     const T* __restrict__ k_pool,    // (n_pages, page, KV, HD)
                     const T* __restrict__ v_pool,
                     const int* __restrict__ table,   // (B, n_slots)
@@ -56,7 +57,7 @@ paged_decode_kernel(const T* __restrict__ q,         // (B, 1, H, HD)
   if (c0 >= len) return;
   const int c1 = min(c0 + kChunk, len);
 
-  const T* qb = q + ((size_t)b * H + (size_t)kvh * G) * HD;
+  const TQ* qb = q + ((size_t)b * H + (size_t)kvh * G) * HD;
   for (int idx = threadIdx.x; idx < G * HD; idx += blockDim.x)
     Qs[idx] = load_f(qb + idx);
   const int* trow = table + (size_t)b * n_slots;
@@ -76,7 +77,7 @@ paged_decode_kernel(const T* __restrict__ q,         // (B, 1, H, HD)
                     acc, lane);
 }
 
-template <typename T, int HD>
+template <typename TQ, typename T, int HD>
 int launch_decode_t(const void* q, const void* k_pool, const void* v_pool,
                     const int* table, const int* cache_len, void* out,
                     float* part, int B, int H, int KV, int page, int n_pages,
@@ -84,7 +85,7 @@ int launch_decode_t(const void* q, const void* k_pool, const void* v_pool,
   const int G = H / KV;
   const int cap = n_slots * page;
   const size_t smem = split_tile_bytes<T, HD>() + sizeof(float) * G * HD;
-  auto kernel = paged_decode_kernel<T, HD>;
+  auto kernel = paged_decode_kernel<TQ, T, HD>;
   // the largest this instance takes, set once (a decode pass launches
   // it 40 times)
   static bool smem_set = false;
@@ -97,20 +98,21 @@ int launch_decode_t(const void* q, const void* k_pool, const void* v_pool,
   }
   const dim3 grid(KV, B, (cap + kChunk - 1) / kChunk);
   kernel<<<grid, 32 * G, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
+      static_cast<const TQ*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), table, cache_len, part, H, KV, page,
       n_pages, n_slots, 1.0f / sqrtf((float)HD));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_combine<T, HD>(part, cache_len, out, B, 1, H, KV, cap, 0,
-                               stream);
+  return launch_combine<TQ, HD>(part, cache_len, out, B, 1, H, KV, cap, 0,
+                                stream);
 }
 
 }  // namespace repro_attn
 
-// dtype: 0 = float32, 1 = bfloat16.  part: part_floats fp32 of scratch
-// for the chunks' partials, at least split_partial_floats(B, KV, n_slots
-// * page, H / KV, hd).  Returns a cudaError_t code.
+// dtype: a code of dispatch_split (0 fp32, 1 bf16; 2 / 3 an fp32 / bf16
+// query over an e4m3 pool).  part: part_floats fp32 of scratch for the
+// chunks' partials, at least split_partial_floats(B, KV, n_slots * page,
+// H / KV, hd).  Returns a cudaError_t code.
 extern "C" int repro_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* cache_len, void* out, void* part,
@@ -119,7 +121,6 @@ extern "C" int repro_paged_decode_attention(
   using namespace repro_attn;
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || H / KV > 32 ||
       page <= 0 || n_pages <= 0 || n_slots <= 0 ||
-      (dtype != 0 && dtype != 1) ||
       part_floats < split_partial_floats(B, KV, n_slots * page, H / KV, hd))
     return (int)cudaErrorInvalidValue;
   if (!aligned16(k_pool) || !aligned16(v_pool))
@@ -128,21 +129,10 @@ extern "C" int repro_paged_decode_attention(
   const int* lens = static_cast<const int*>(cache_len);
   float* p = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_DECODE_CASE(HD)                                                \
-  case HD:                                                                   \
-    return dtype == 1                                                        \
-               ? launch_decode_t<__nv_bfloat16, HD>(q, k_pool, v_pool, table, \
-                                                    lens, out, p, B, H, KV,   \
-                                                    page, n_pages, n_slots, s) \
-               : launch_decode_t<float, HD>(q, k_pool, v_pool, table, lens,   \
-                                            out, p, B, H, KV, page, n_pages,  \
-                                            n_slots, s);
-  switch (hd) {
-    REPRO_DECODE_CASE(16)
-    REPRO_DECODE_CASE(32)
-    REPRO_DECODE_CASE(64)
-    REPRO_DECODE_CASE(128)
-  }
-#undef REPRO_DECODE_CASE
-  return (int)cudaErrorInvalidValue;
+  return dispatch_split(dtype, hd, [&](auto tq, auto tkv, auto hd_c) {
+    return launch_decode_t<typename decltype(tq)::type,
+                           typename decltype(tkv)::type, decltype(hd_c)::value>(
+        q, k_pool, v_pool, table, lens, out, p, B, H, KV, page, n_pages,
+        n_slots, s);
+  });
 }

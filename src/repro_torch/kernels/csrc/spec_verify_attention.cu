@@ -1,7 +1,7 @@
 // Speculative-verification attention: a window of K query tokens per row
 // of the batch against K/V held in a shared page pool and read through
-// the row's page table, causal inside the window, fp32 or bf16, on
-// sm_90a.  Query j of row b sees positions < cache_len[b] + j + 1, where
+// the row's page table, causal inside the window, fp32 or bf16, with the
+// pool in the query's dtype or in e4m3, on sm_90a.  Query j of row b sees positions < cache_len[b] + j + 1, where
 // cache_len is the row's length BEFORE the window (the window's own K/V
 // are already in the pool).
 //
@@ -51,9 +51,9 @@ __device__ __forceinline__ int clamp_len(int n, int cap) {
   return n < 0 ? 0 : (n > cap ? cap : n);
 }
 
-template <typename T, int HD>
+template <typename TQ, typename T, int HD>
 __global__ void __launch_bounds__(1024)
-spec_verify_kernel(const T* __restrict__ q,          // (B, K, H, HD)
+spec_verify_kernel(const TQ* __restrict__ q,         // (B, K, H, HD)
                    const T* __restrict__ k_pool,     // (n_pages, page, KV, HD)
                    const T* __restrict__ v_pool,
                    const int* __restrict__ table,    // (B, n_slots)
@@ -125,7 +125,7 @@ spec_verify_kernel(const T* __restrict__ q,          // (B, K, H, HD)
   }
 }
 
-template <typename T, int HD>
+template <typename TQ, typename T, int HD>
 int launch_verify_t(const void* q, const void* k_pool, const void* v_pool,
                     const int* table, const int* cache_len, void* out,
                     float* part, int B, int K, int H, int KV, int page,
@@ -134,7 +134,7 @@ int launch_verify_t(const void* q, const void* k_pool, const void* v_pool,
   const int n_warps = rows < kMaxWarps ? rows : kMaxWarps;
   const int cap = n_slots * page;
   const size_t smem = split_tile_bytes<T, HD>() + sizeof(float) * rows * HD;
-  auto kernel = spec_verify_kernel<T, HD>;
+  auto kernel = spec_verify_kernel<TQ, T, HD>;
   // the largest this instance takes, set once (a decode pass launches
   // it 40 times)
   static bool smem_set = false;
@@ -148,21 +148,23 @@ int launch_verify_t(const void* q, const void* k_pool, const void* v_pool,
   }
   const dim3 grid(KV, B, (cap + kChunk - 1) / kChunk);
   kernel<<<grid, 32 * n_warps, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
+      static_cast<const TQ*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), table, cache_len, part, K, H, KV, page,
       n_pages, n_slots, 1.0f / sqrtf((float)HD));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_combine<T, HD>(part, cache_len, out, B, K, H, KV, cap, 1,
-                               stream);
+  return launch_combine<TQ, HD>(part, cache_len, out, B, K, H, KV, cap, 1,
+                                stream);
 }
 
 }  // namespace repro_attn
 
-// dtype: 0 = float32, 1 = bfloat16.  K * (H / KV) query rows per block,
-// at most 32 warps x kMaxRowsPerWarp.  part: part_floats fp32 of scratch,
-// at least split_partial_floats(B, KV, n_slots * page, K * H / KV, hd).
-// Returns a cudaError_t code.
+// dtype: a code of dispatch_split (0 fp32, 1 bf16; 2 / 3 an fp32 / bf16
+// query over an e4m3 pool).  K * (H / KV) query rows per block, at most
+// 32 warps x kMaxRowsPerWarp (the wrapper walks a longer window in
+// sub-windows).  part: part_floats fp32 of scratch, at least
+// split_partial_floats(B, KV, n_slots * page, K * H / KV, hd).  Returns a
+// cudaError_t code.
 extern "C" int repro_spec_verify_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* cache_len, void* out, void* part,
@@ -171,7 +173,7 @@ extern "C" int repro_spec_verify_attention(
   using namespace repro_attn;
   if (B <= 0 || K <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       K * (H / KV) > kMaxWarps * kMaxRowsPerWarp || page <= 0 ||
-      n_pages <= 0 || n_slots <= 0 || (dtype != 0 && dtype != 1) ||
+      n_pages <= 0 || n_slots <= 0 ||
       part_floats <
           split_partial_floats(B, KV, n_slots * page, K * (H / KV), hd))
     return (int)cudaErrorInvalidValue;
@@ -181,21 +183,10 @@ extern "C" int repro_spec_verify_attention(
   const int* lens = static_cast<const int*>(cache_len);
   float* p = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_VERIFY_CASE(HD)                                                 \
-  case HD:                                                                    \
-    return dtype == 1                                                         \
-               ? launch_verify_t<__nv_bfloat16, HD>(q, k_pool, v_pool, table,  \
-                                                    lens, out, p, B, K, H, KV, \
-                                                    page, n_pages, n_slots, s) \
-               : launch_verify_t<float, HD>(q, k_pool, v_pool, table, lens,    \
-                                            out, p, B, K, H, KV, page,         \
-                                            n_pages, n_slots, s);
-  switch (hd) {
-    REPRO_VERIFY_CASE(16)
-    REPRO_VERIFY_CASE(32)
-    REPRO_VERIFY_CASE(64)
-    REPRO_VERIFY_CASE(128)
-  }
-#undef REPRO_VERIFY_CASE
-  return (int)cudaErrorInvalidValue;
+  return dispatch_split(dtype, hd, [&](auto tq, auto tkv, auto hd_c) {
+    return launch_verify_t<typename decltype(tq)::type,
+                           typename decltype(tkv)::type, decltype(hd_c)::value>(
+        q, k_pool, v_pool, table, lens, out, p, B, K, H, KV, page, n_pages,
+        n_slots, s);
+  });
 }

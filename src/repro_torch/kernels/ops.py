@@ -31,6 +31,10 @@ dispatches on the device of its tensors:
   the call raises.  There is no fallback: a shape, dtype or layout the
   kernel does not take is an error, and so is a failed launch.
 
+Tensors are fp32 or bf16; the three decode-side kernels also take K/V in
+e4m3 (an fp8 KV cache, ``cfg.kv_cache_dtype="float8_e4m3fn"``) under an
+fp32 or bf16 query, widened exactly to fp32 as a tile is read.
+
 Every wrapper counts its launches in ``launches`` (a plain int), and in
 ``shapes`` by the launch's integer arguments (the decode GEMM by
 product: a grouped launch counts each of its products there), so a run
@@ -50,8 +54,10 @@ from repro_torch.kernels import build
 from repro_torch.models import layers as L
 
 HEAD_DIMS = (16, 32, 64, 128)
-#: the most window query rows K * (H / KV) the verify kernel takes (32
-#: warps of 4 rows each in csrc/spec_verify_attention.cu)
+#: the most window query rows K * (H / KV) one launch of the verify kernel
+#: takes (32 warps of 4 rows each in csrc/spec_verify_attention.cu); the
+#: wrapper walks a longer window in sub-windows of SPEC_MAX_ROWS // G
+#: positions
 SPEC_MAX_ROWS = 128
 #: the largest k' = min(k, N) the top-k kernel takes (kMaxK in
 #: csrc/topk_sim.cu): 4 query rows a block keep two 2048-long lists in
@@ -72,6 +78,10 @@ DECODE_MAX_ROWS = 128
 #: at most 256 (kTargetBlocks / 2 in csrc/decode_gemm.cu)
 _GEMM_COUNTERS = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the decode-side kernels also take K/V in e4m3 (an fp8 KV cache) under an
+#: fp32 or bf16 query: dtype code 2 + q's code (dispatch_split in
+#: csrc/attention_common.cuh)
+_E4M3 = torch.float8_e4m3fn
 #: (x's, w's) dtype codes of the RMSNorm kernel, by their dtypes
 _NORM_CODES = {(a, b): (_DTYPES[a], _DTYPES[b]) for a in _DTYPES
                for b in _DTYPES}
@@ -192,6 +202,24 @@ def _check(name: str, tensors: Sequence[torch.Tensor],
     return _DTYPES[dtype]
 
 
+def _check_split(name: str, q: torch.Tensor, kv: Sequence[torch.Tensor],
+                 hd: int) -> int:
+    """The dtype code of a decode-side kernel: q fp32 or bf16; K/V in
+    q's dtype (code 0 or 1) or in e4m3 (2 or 3); all contiguous."""
+    dt = _check(name, (q,), hd)
+    kv_dtype = kv[0].dtype
+    if kv_dtype not in (q.dtype, _E4M3):
+        raise TypeError(f"{name}: K/V dtype {kv_dtype} under a {q.dtype} "
+                        f"query (the query's dtype or {_E4M3})")
+    for t in kv:
+        if t.dtype != kv_dtype:
+            raise TypeError(f"{name}: mixed K/V dtypes {t.dtype} and "
+                            f"{kv_dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    return dt + (2 if kv_dtype == _E4M3 else 0)
+
+
 def _int32(t: torch.Tensor, device) -> torch.Tensor:
     return t.to(device=device, dtype=torch.int32).contiguous()
 
@@ -259,7 +287,7 @@ class _PagedDecodeAttention(_SplitDecode):
                 or H % KV or H // KV > 32):
             raise ValueError("paged_decode_attention: shapes do not fit "
                              "(or more than 32 query heads per KV head)")
-        dt = _check(self.name, (q, k_pool, v_pool), hd)
+        dt = _check_split(self.name, q, (k_pool, v_pool), hd)
         table = _int32(page_table, q.device)
         lens = _int32(cache_len, q.device)
         out = torch.empty_like(q)
@@ -278,7 +306,11 @@ class _SpecVerifyAttention(_SplitDecode):
         """A window of K queries ``(B,K,H,hd)`` over pool ``(n_pages,page,
         KV,hd)`` through ``page_table (B,n_slots)``; ``cache_len (B,)`` is
         the length before the window, and query ``j`` sees positions
-        ``< cache_len + j + 1``."""
+        ``< cache_len + j + 1``.  A window of more than
+        :data:`SPEC_MAX_ROWS` query rows ``K * H / KV`` goes in
+        sub-windows of ``SPEC_MAX_ROWS // (H / KV)`` positions, one launch
+        each, sub-window ``[k0, k1)`` with ``cache_len + k0``: a row's fold
+        does not depend on the other rows, so its bits do not change."""
         if _on_cpu(q, k_pool, v_pool, page_table, cache_len):
             return self.plain(q, k_pool, v_pool, page_table, cache_len)
         B, K, H, hd = q.shape
@@ -286,23 +318,36 @@ class _SpecVerifyAttention(_SplitDecode):
         n_slots = page_table.shape[1]
         if (k_pool.shape[3] != hd or v_pool.shape != k_pool.shape
                 or page_table.shape != (B, n_slots) or cache_len.shape != (B,)
-                or H % KV):
+                or H % KV or H // KV > SPEC_MAX_ROWS):
             raise ValueError("spec_verify_attention: shapes do not fit")
-        if K * (H // KV) > SPEC_MAX_ROWS:
-            raise ValueError(f"spec_verify_attention: K * H / KV = "
-                             f"{K * (H // KV)} window rows, above the "
-                             f"kernel's cap of {SPEC_MAX_ROWS}")
-        dt = _check(self.name, (q, k_pool, v_pool), hd)
+        dt = _check_split(self.name, q, (k_pool, v_pool), hd)
         table = _int32(page_table, q.device)
         lens = _int32(cache_len, q.device)
         out = torch.empty_like(q)
-        if out.numel() and n_slots:
-            part = self.partials(B, KV, n_slots * page, K * (H // KV), hd,
-                                 q.device)
-            ints = (B, K, H, KV, page, n_pages, n_slots, hd, dt)
-            self._launch((q, k_pool, v_pool, table, lens, out, part),
-                         ints + (part.numel(),), key=ints)
+        if not (out.numel() and n_slots):
+            return out
+        step = SPEC_MAX_ROWS // (H // KV)
+        if K <= step:
+            self._window(q, k_pool, v_pool, table, lens, out, dt)
+            return out
+        for k0 in range(0, K, step):
+            k1 = min(K, k0 + step)
+            sub = torch.empty_like(q[:, k0:k1])
+            self._window(q[:, k0:k1].contiguous(), k_pool, v_pool, table,
+                         lens + k0, sub, dt)
+            out[:, k0:k1] = sub
         return out
+
+    def _window(self, q, k_pool, v_pool, table, lens, out, dt) -> None:
+        """One launch over a window of at most :data:`SPEC_MAX_ROWS` rows."""
+        B, K, H, hd = q.shape
+        n_pages, page, KV, _ = k_pool.shape
+        n_slots = table.shape[1]
+        part = self.partials(B, KV, n_slots * page, K * (H // KV), hd,
+                             q.device)
+        ints = (B, K, H, KV, page, n_pages, n_slots, hd, dt)
+        self._launch((q, k_pool, v_pool, table, lens, out, part),
+                     ints + (part.numel(),), key=ints)
 
 
 class _DecodeAttention(_SplitDecode):
@@ -320,7 +365,7 @@ class _DecodeAttention(_SplitDecode):
                 or H % KV or H // KV > 32):
             raise ValueError("decode_attention: shapes do not fit "
                              "(or more than 32 query heads per KV head)")
-        dt = _check(self.name, (q, k_cache, v_cache), hd)
+        dt = _check_split(self.name, q, (k_cache, v_cache), hd)
         lens = _int32(cache_len, q.device)
         out = torch.empty_like(q)
         if out.numel() and Skv:

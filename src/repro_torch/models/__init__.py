@@ -1,5 +1,5 @@
-"""The dense GQA decoder (granite-3-2b) and the Mamba2 SSM (mamba2-130m)
-in PyTorch."""
+"""The dense GQA decoder (granite-3-2b, yi-9b, starcoder2-7b,
+mistral-large-123b) and the Mamba2 SSM (mamba2-130m) in PyTorch."""
 
 from repro_torch.models.model import (
     KV_ONLY_FAMILIES,
@@ -8,6 +8,7 @@ from repro_torch.models.model import (
     chunked_prefill,
     decode_step,
     encode,
+    forward,
     model_specs,
     prefill,
     verify_step,
@@ -21,6 +22,6 @@ from repro_torch.models.params import (
 
 __all__ = [
     "KV_ONLY_FAMILIES", "cache_dtype", "cache_specs", "chunked_prefill",
-    "decode_step", "encode", "model_specs", "prefill", "Spec", "from_numpy",
-    "init_params", "param_count", "verify_step",
+    "decode_step", "encode", "forward", "model_specs", "prefill", "Spec",
+    "from_numpy", "init_params", "param_count", "verify_step",
 ]

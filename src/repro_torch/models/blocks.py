@@ -131,8 +131,8 @@ def attn_decode(cfg: ModelConfig, p, x: torch.Tensor, k_cache: torch.Tensor,
     q, k, v = _qkv(cfg, p, x, positions, decode=True)
     rows = torch.arange(x.shape[0], device=x.device)
     at = (rows, cache_len.long().clamp(0, k_cache.shape[1] - 1))
-    k_cache.index_put_(at, k[:, 0].to(k_cache.dtype))
-    v_cache.index_put_(at, v[:, 0].to(v_cache.dtype))
+    k_cache.index_put_(at, L.to_cache(k[:, 0], k_cache.dtype))
+    v_cache.index_put_(at, L.to_cache(v[:, 0], v_cache.dtype))
     o = ops.decode_attention(q, k_cache, v_cache, cache_len + 1)
     return _out_proj(cfg, p, o, decode=True), k_cache, v_cache
 
@@ -143,7 +143,7 @@ def _write_window(cache: torch.Tensor, write_at: tuple, keep: torch.Tensor,
     cells ``write_at`` (two ``(B, K)`` index tensors).  A cell that
     ``keep`` leaves out writes the value its target cell already holds,
     so the write has a fixed shape and changes no bit there."""
-    new = torch.where(keep[..., None, None], new.to(cache.dtype),
+    new = torch.where(keep[..., None, None], L.to_cache(new, cache.dtype),
                       cache[write_at])
     cache.index_put_(write_at, new)
 
@@ -193,8 +193,10 @@ def attn_decode_paged(cfg: ModelConfig, p, x: torch.Tensor,
     # The append is an in-place index_put_ into the engine's pool: the
     # JAX engine donates the pool to the jitted decode step for the same
     # effect (engine.py:471-478) -- one copy of the KV cache, never two.
-    k_pool.index_put_((write_page, write_off), k[:, 0].to(k_pool.dtype))
-    v_pool.index_put_((write_page, write_off), v[:, 0].to(v_pool.dtype))
+    k_pool.index_put_((write_page, write_off), L.to_cache(k[:, 0],
+                                                          k_pool.dtype))
+    v_pool.index_put_((write_page, write_off), L.to_cache(v[:, 0],
+                                                          v_pool.dtype))
     o = ops.paged_decode_attention(q, k_pool, v_pool, page_table,
                                    cache_len + 1)
     return _out_proj(cfg, p, o, decode=True), k_pool, v_pool

@@ -83,6 +83,29 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
+#: e4m3's largest finite value is 448; the JAX package's cast (ml_dtypes)
+#: rounds to nearest even and gives NaN above 464, the midpoint between
+#: 448 and the next step, 480, where torch's own cast on the CPU saturates
+#: to 448
+E4M3_ROUNDS_FINITE = 464.0
+
+
+def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as the KV cache stores it in ``dtype``: every write of K/V
+    into a cache goes through here.  For e4m3 this is the JAX package's
+    ``astype(float8_e4m3fn)`` bit for bit on either device: round to
+    nearest even, and NaN (the sign kept) where ``|x| > 464`` in ``x``'s
+    own dtype; other dtypes are a plain cast."""
+    if x.dtype == dtype:
+        return x
+    y = x.to(dtype)
+    if dtype != torch.float8_e4m3fn:
+        return y
+    bits = y.view(torch.uint8)
+    return torch.where(x.abs() > E4M3_ROUNDS_FINITE, bits | 0x7F,
+                       bits).view(dtype)
+
+
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 

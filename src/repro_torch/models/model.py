@@ -4,6 +4,7 @@
 Public surface (plain functions of ``(cfg, params, ...)``):
 
 * :func:`model_specs`     — parameter spec tree (scan-stacked layers)
+* :func:`forward`         — teacher-forcing logits over whole sequences
 * :func:`cache_specs`     — cache tree: K/V (dense or paged), or the
   ssm family's conv and SSM states
 * :func:`prefill`         — ragged bucketed prefill → (cache, logits)
@@ -24,7 +25,10 @@ stand for, bit for bit, on the card as on the CPU.
 
 The JAX package scans the stacked layer weights with ``lax.scan``; here a
 Python loop takes layer ``i``'s views ``leaf[i]``.  Two families are
-ported: ``dense`` (granite-3-2b; attention layers over a KV cache) and
+ported: ``dense`` (granite-3-2b, yi-9b, starcoder2-7b with its padded
+heads, mistral-large-123b; attention layers over a KV cache, in the
+activation dtype or, with ``cfg.kv_cache_dtype="float8_e4m3fn"``, in
+e4m3, every write through :func:`layers.to_cache`) and
 ``ssm`` (mamba2-130m; Mamba2 layers over a conv and an SSM state, which
 ``chunked_prefill`` and ``verify_step`` refuse as the JAX package does).
 MoE, hybrid and embedding-input families wait for later slices
@@ -50,6 +54,9 @@ from repro_torch.models.params import Spec, stack_specs
 #: the reference's KV-only families the port runs ``dense`` alone; a slice
 #: that ports ``moe``, ``audio`` or ``vlm`` adds it here.
 KV_ONLY_FAMILIES = ("dense",)
+
+#: the K/V storage dtypes ``cfg.kv_cache_dtype`` may name besides "auto"
+_KV_CACHE_DTYPES = {"float8_e4m3fn": torch.float8_e4m3fn}
 
 
 def _family(cfg: ModelConfig) -> str:
@@ -139,14 +146,18 @@ def cache_dtype(cfg: ModelConfig, name: str, dtype) -> torch.dtype:
     """The dtype of cache leaf ``name`` for activations in ``dtype``, as
     the JAX package's prefill produces them: lengths int32, the SSM
     state fp32 (a recurrence is never rounded to bf16), K/V and the conv
-    state in the activation dtype."""
+    state in the activation dtype, unless ``cfg.kv_cache_dtype`` names
+    K/V's (``float8_e4m3fn``: an fp8 cache, which the decode-side kernels
+    widen on load).  SSM and conv states are never quantised."""
     if name == "len":
         return torch.int32
     if name == "ssm":
         return torch.float32
     if name in ("k", "v") and cfg.kv_cache_dtype != "auto":
-        raise NotImplementedError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r} is not yet ported")
+        if cfg.kv_cache_dtype not in _KV_CACHE_DTYPES:
+            raise ValueError(f"kv_cache_dtype={cfg.kv_cache_dtype!r}: "
+                             f"'auto' or one of {sorted(_KV_CACHE_DTYPES)}")
+        return _KV_CACHE_DTYPES[cfg.kv_cache_dtype]
     return dtype
 
 
@@ -202,15 +213,30 @@ def _backbone(cfg: ModelConfig, params, x: torch.Tensor,
                                    return_kv=True)
         x = x + out
         if ks is not None:
-            ks[i, :, :S] = k
-            vs[i, :, :S] = v
+            ks[i, :, :S] = L.to_cache(k, ks.dtype)
+            vs[i, :, :S] = L.to_cache(v, vs.dtype)
         x = x + B.mlp_apply(cfg, lp["mlp"], x)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
-# Prefill and encode
+# Forward, prefill and encode
 # ---------------------------------------------------------------------------
+
+
+def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forcing logits over the full sequence → ``(logits (B, S,
+    vocab) fp32, aux)``, after ``repro.models.model.forward``: embed, the
+    layers, the final norm, the unembed.  ``aux`` is a zero fp32 scalar:
+    neither ported family has an auxiliary loss."""
+    tokens = batch["tokens"]
+    x = L.embed(tokens, params["embed"])
+    Bsz, S = tokens.shape
+    positions = torch.arange(S, device=x.device).expand(Bsz, S)
+    x = _backbone(cfg, params, x, positions)
+    logits = L.unembed(x, _unembed_table(cfg, params))
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def prefill(
@@ -394,8 +420,8 @@ def chunked_prefill(
         by decode."""
         buf = torch.zeros((Bsz, max_seq + S, KV, hd), dtype=dt,
                           device=x.device)
-        buf[:, :P] = prefix
-        buf[rows, positions] = suffix.to(dt)
+        buf[:, :P] = L.to_cache(prefix, dt)
+        buf[rows, positions] = L.to_cache(suffix, dt)
         dst.copy_(buf[:, :max_seq])
 
     for i in range(cfg.n_layers):
@@ -405,8 +431,8 @@ def chunked_prefill(
             prefix_len)
         x = x + out
         if paged:
-            ks[i] = k
-            vs[i] = v
+            ks[i] = L.to_cache(k, dt)
+            vs[i] = L.to_cache(v, dt)
         else:
             place(ks[i], k, prefix_k[i])
             place(vs[i], v, prefix_v[i])

@@ -48,6 +48,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models import layers
+
 
 class PagedKVPool:
     """Fixed-capacity pool of refcounted KV pages.
@@ -163,8 +165,8 @@ class PagedKVPool:
         the same effect)."""
         ids = torch.as_tensor(np.asarray(list(page_ids), np.int64),
                               device=self.k.device)
-        self.k[:, ids] = k_pages.to(self.k.dtype)
-        self.v[:, ids] = v_pages.to(self.v.dtype)
+        self.k[:, ids] = layers.to_cache(k_pages, self.k.dtype)
+        self.v[:, ids] = layers.to_cache(v_pages, self.v.dtype)
 
     def gather(self, page_ids: np.ndarray
                ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -80,7 +80,10 @@ def _randn(g, dtype, *shape):
     # 128; G = H / KV 1, 2, 4
     (2, 1, 8, 2, 64), (2, 63, 8, 8, 32), (1, 64, 8, 4, 128),
     (3, 65, 8, 2, 16), (2, 127, 8, 4, 64), (2, 129, 4, 4, 128),
-    (1, 129, 6, 3, 32)])
+    (1, 129, 6, 3, 32),
+    # yi-9b (G 8), starcoder2-7b (48 padded heads, G 12) over KV 4 and
+    # mistral-large-123b (G 12 over KV 8) at hd 128
+    (2, 130, 32, 4, 128), (1, 65, 48, 4, 128), (1, 64, 96, 8, 128)])
 def test_flash_kernel_on_card(cuda, dtype, B, S, H, KV, hd):
     g = torch.Generator(cuda).manual_seed(S)
     q = _randn(g, dtype, B, S, H, hd)
@@ -104,7 +107,9 @@ def test_flash_kernel_on_card(cuda, dtype, B, S, H, KV, hd):
     (4, 129, 1000, 8, 2, 128, [65, 1000, 0, 64]),
     (3, 1, 1000, 4, 4, 16, [1000, 0, 63]),
     (2, 127, 1000, 8, 2, 64, [999, 0]),
-    (3, 64, 64, 6, 3, 32, [0, 64, 65])])
+    (3, 64, 64, 6, 3, 32, [0, 64, 65]),
+    # G 8 and 12 over KV 4 at hd 128
+    (2, 129, 200, 32, 4, 128, [150, 0]), (2, 64, 300, 48, 4, 128, [300, 0])])
 def test_chunked_prefill_kernel_on_card(cuda, dtype, B, S, P, H, KV, hd,
                                         plens):
     g = torch.Generator(cuda).manual_seed(P)
@@ -128,7 +133,8 @@ def test_chunked_prefill_kernel_on_card(cuda, dtype, B, S, P, H, KV, hd,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KV,hd,page,n_slots", [
-    (4, 32, 8, 64, 16, 64), (2, 4, 1, 128, 16, 8), (3, 8, 2, 16, 8, 6)])
+    (4, 32, 8, 64, 16, 64), (2, 4, 1, 128, 16, 8), (3, 8, 2, 16, 8, 6),
+    (4, 32, 4, 128, 16, 64), (4, 48, 4, 128, 16, 64), (2, 96, 8, 128, 16, 8)])
 def test_paged_decode_kernel_on_card(cuda, dtype, B, H, KV, hd, page,
                                      n_slots):
     n_pages = B * n_slots + 1
@@ -164,12 +170,18 @@ def _pool(g, dtype, B, H, KV, hd, page, n_slots):
 @pytest.mark.parametrize("B,K,H,KV,hd,page,n_slots", [
     (4, 1, 32, 8, 64, 16, 64), (4, 9, 32, 8, 64, 16, 64),
     (4, 13, 32, 8, 64, 16, 96), (2, 5, 4, 1, 128, 16, 8),
-    (3, 32, 4, 1, 16, 8, 6)])
+    (3, 32, 4, 1, 16, 8, 6),
+    # G 8 (72 rows) and 12 (108 rows; 156 at K 13, walked in two
+    # launches) over KV 4, and G 12 over KV 8, at hd 128
+    (4, 9, 32, 4, 128, 16, 64), (4, 9, 48, 4, 128, 16, 64),
+    (2, 13, 48, 4, 128, 16, 64), (2, 9, 96, 8, 128, 16, 8)])
 def test_spec_verify_kernel_on_card(cuda, dtype, B, K, H, KV, hd, page,
                                     n_slots):
     """Against the plain version; every row ``j`` against the paged decode
     kernel at ``cache_len + j + 1`` bit for bit; table slots past the
-    window (dump page, out-of-range ids) never read."""
+    window (dump page, out-of-range ids) never read.  A window of more
+    than ``SPEC_MAX_ROWS`` query rows goes in one launch per sub-window
+    of ``SPEC_MAX_ROWS // G`` positions."""
     g = torch.Generator(cuda).manual_seed(K * n_slots)
     q = _randn(g, dtype, B, K, H, hd)
     kp, vp, table = _pool(g, dtype, B, H, KV, hd, page, n_slots)
@@ -178,7 +190,8 @@ def test_spec_verify_kernel_on_card(cuda, dtype, B, K, H, KV, hd, page,
     before = ops.spec_verify_attention.launches
     out = ops.spec_verify_attention(q, kp, vp, table, clen)
     torch.cuda.synchronize()
-    assert ops.spec_verify_attention.launches == before + 1
+    step = ops.SPEC_MAX_ROWS // (H // KV)
+    assert ops.spec_verify_attention.launches == before + -(-K // step)
     torch.testing.assert_close(
         out.float(),
         L.spec_verify_attention_paged(q, kp, vp, table, clen).float(),
@@ -196,7 +209,8 @@ def test_spec_verify_kernel_on_card(cuda, dtype, B, K, H, KV, hd, page,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KV,hd,Skv", [
-    (4, 32, 8, 64, 1024), (2, 4, 1, 128, 128), (3, 8, 2, 16, 96)])
+    (4, 32, 8, 64, 1024), (2, 4, 1, 128, 128), (3, 8, 2, 16, 96),
+    (4, 32, 4, 128, 1024), (4, 48, 4, 128, 1024), (2, 96, 8, 128, 128)])
 def test_dense_decode_kernel_on_card(cuda, dtype, B, H, KV, hd, Skv):
     """Against the plain version, and bit for bit against the paged decode
     kernel on the same rows laid out as pages."""
@@ -218,13 +232,90 @@ def test_dense_decode_kernel_on_card(cuda, dtype, B, H, KV, hd, Skv):
         atol=0)
 
 
-def test_spec_verify_kernel_rejects_too_many_rows(cuda):
-    q = torch.zeros(1, 33, 8, 16, device=cuda)      # 33 x 4 = 132 rows
+def test_spec_verify_walks_156_rows_bit_for_bit(cuda):
+    """starcoder2-7b's G = 12 (48 padded heads over 4 KV heads), bf16: a
+    K = 13 window holds 156 query rows, which one launch does not take;
+    the wrapper walks it in two launches ([0, 10) and [10, 13), the second
+    at cache_len + 10), and every row equals the paged decode kernel at
+    its length, bit for bit."""
+    g = torch.Generator(cuda).manual_seed(156)
+    B, K, H, KV, hd, page, n_slots = 3, 13, 48, 4, 128, 16, 64
+    q = _randn(g, torch.bfloat16, B, K, H, hd)
+    kp, vp, table = _pool(g, torch.bfloat16, B, H, KV, hd, page, n_slots)
+    clen = torch.tensor([1000, 255, 3], device=cuda)
+    before = ops.spec_verify_attention.launches
+    out = ops.spec_verify_attention(q, kp, vp, table, clen)
+    torch.cuda.synchronize()
+    assert ops.spec_verify_attention.launches == before + 2
+    for j in range(K):
+        dec = ops.paged_decode_attention(q[:, j:j + 1].contiguous(), kp, vp,
+                                         table, clen + j + 1)
+        assert torch.equal(out[:, j:j + 1], dec), j
+
+
+E4M3 = torch.float8_e4m3fn
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,hd", [(32, 4, 128), (48, 4, 128),
+                                     (96, 8, 128), (32, 8, 64), (8, 2, 16)])
+def test_decode_side_kernels_take_e4m3_pools(cuda, dtype, H, KV, hd):
+    """An fp8 KV cache: pools in e4m3 (rounded by ``layers.to_cache``)
+    under an fp32 or bf16 query.  Paged decode, dense decode and verify
+    against their plain versions (which widen on load, as the JAX package
+    does); dense decode == paged decode, and every verify row == paged
+    decode at its length, bit for bit, at lengths around the context
+    chunk and in a window walked in sub-windows."""
+    page = 16
+    C, n_slots, lens = _chunk_lens(page)
+    B = len(lens)
+    g = torch.Generator(cuda).manual_seed(H + hd)
+    kp, vp, table = _pool(g, torch.float32, B, H, KV, hd, page, n_slots)
+    kp, vp = (L.to_cache(p * 4, E4M3) for p in (kp, vp))
+    q = _randn(g, dtype, B, 1, H, hd)
+    clen = torch.tensor(lens, device=cuda)
+    out = ops.paged_decode_attention(q, kp, vp, table, clen)
+    assert out.dtype == dtype
+    torch.testing.assert_close(
+        out.float(), L.paged_decode_attention(q, kp, vp, table, clen).float(),
+        **_tol(dtype))
+    Skv = n_slots * page
+    kc, vc = (p[table.long()].reshape(B, Skv, KV, hd).contiguous()
+              for p in (kp, vp))
+    dense = ops.decode_attention(q, kc, vc, clen)
+    torch.testing.assert_close(
+        dense.float(), L.decode_attention(q, kc, vc, clen).float(),
+        **_tol(dtype))
+    assert torch.equal(dense, out)
+    K = ops.SPEC_MAX_ROWS // (H // KV) + 3      # two launches
+    qv = _randn(g, dtype, B, K, H, hd)
+    base = torch.tensor([C - 4, C - 1, C, 4 * C + 7 - K, Skv - K],
+                        device=cuda)
+    ver = ops.spec_verify_attention(qv, kp, vp, table, base)
+    torch.testing.assert_close(
+        ver.float(),
+        L.spec_verify_attention_paged(qv, kp, vp, table, base).float(),
+        **_tol(dtype))
+    for j in range(K):
+        dec = ops.paged_decode_attention(qv[:, j:j + 1].contiguous(), kp, vp,
+                                         table, base + j + 1)
+        assert torch.equal(ver[:, j:j + 1], dec), j
+    torch.cuda.synchronize()
+
+
+def test_decode_side_kernels_reject_mixed_kv_dtypes(cuda):
+    q = torch.zeros(1, 1, 4, 16, device=cuda)
     pool = torch.zeros(4, 16, 2, 16, device=cuda)
     table = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="cap of 128"):
-        ops.spec_verify_attention(q, pool, pool, table,
-                                  torch.zeros(1, device=cuda))
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="mixed K/V"):
+        ops.paged_decode_attention(q, pool.to(E4M3), pool, table, lens)
+    with pytest.raises(TypeError, match="query"):
+        ops.paged_decode_attention(q, pool.bfloat16(), pool.bfloat16(),
+                                   table, lens)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.flash_attention(*(torch.zeros(1, 8, 2, 16, device=cuda,
+                                          dtype=E4M3),) * 3)
 
 
 @pytest.mark.parametrize("M,N,D,k,inputs", [
@@ -390,12 +481,16 @@ def test_ssd_scan_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("shape", [(8, 32), (4, 33, 64), (2, 5, 7, 128),
                                    (4096, 768), (4, 768), (4, 1536),
                                    (4, 2048), (36, 2048), (3, 8192),
-                                   (6, 33), (3, 770), (2, 4, 1001)])
+                                   (6, 33), (3, 770), (2, 4, 1001),
+                                   (4, 4096), (4, 4608), (36, 4608),
+                                   (4, 12288), (36, 12288)])
 def test_rmsnorm_kernel_on_card(cuda, dtype, shape):
     """Against the plain version at tests/test_kernels.py:13 tolerances
     (2e-5 fp32, 2e-2 bf16): the sweep of tests/test_kernels.py, the port's
-    norm shapes, a row of 8192, and rows whose D is not a multiple of the
-    kernel's 16-byte vector (33, 770, 1001)."""
+    norm shapes (granite-3-2b's and mamba2-130m's; yi-9b's 4096,
+    starcoder2-7b's 4608 and mistral-large-123b's 12288 at a decode step's
+    and a verify pass's rows), a row of 8192, and rows whose D is not a
+    multiple of the kernel's 16-byte vector (33, 770, 1001)."""
     g = torch.Generator(cuda).manual_seed(shape[-1])
     x = _randn(g, dtype, *shape)
     w = _randn(g, torch.float32, shape[-1])
@@ -561,10 +656,17 @@ def test_ssm_engine_on_card_matches_cpu(cuda):
 # of their context chunks
 # ---------------------------------------------------------------------------
 
-#: granite-3-2b's decode products (K, N): the attention projections, the
-#: MLP and the tied unembed
+#: the decode products (K, N) of granite-3-2b (the attention projections,
+#: the MLP and the tied unembed), then of yi-9b, starcoder2-7b (q over 48
+#: padded heads) and mistral-large-123b, each with its untied unembed
 GEMM_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
-               (2048, 49168)]
+               (2048, 49168),
+               (4096, 4096), (4096, 512), (4096, 11008), (11008, 4096),
+               (4096, 64000),
+               (4608, 6144), (4608, 512), (6144, 4608), (4608, 18432),
+               (18432, 4608), (4608, 49152),
+               (12288, 12288), (12288, 1024), (12288, 28672),
+               (28672, 12288), (12288, 32768)]
 
 
 def _weights(g, dtype, K, N, layout):
@@ -631,6 +733,21 @@ def test_decode_gemm_group_equals_single_products(cuda, dtype, K, Ns):
         assert sum(ops.decode_gemm.shapes.values()) == products + len(ws)
         for a, b in zip(group, singles):
             assert torch.equal(a, b), (M, tuple(a.shape))
+
+
+def test_decode_gemm_takes_more_weights_than_its_map_cache(cuda):
+    """bf16 weights are read through tensor maps cached by (pointer,
+    shape) in 4,096 slots, 8 probes a key; more distinct weights than
+    that (granite-3-2b, yi-9b and starcoder2-7b in one process hold 843)
+    take slots over, and every product stays right, the first weights'
+    again after theirs were evicted."""
+    g = torch.Generator(cuda).manual_seed(12)
+    x = _randn(g, torch.bfloat16, 4, 64)
+    ws = [_weights(g, torch.bfloat16, 64, 64, "kn") for _ in range(5000)]
+    for w in ws + ws[:64]:
+        torch.testing.assert_close(ops.decode_linear(x, w).float(),
+                                   L.matmul(x, w).float(),
+                                   **_tol(torch.bfloat16))
 
 
 def test_decode_gemm_rejects_what_it_does_not_take(cuda):

@@ -287,3 +287,25 @@ def test_wrappers_reject_mixed_devices():
     with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
         ops.flash_attention(q, torch.zeros(1, 4, 2, 16, device="meta"),
                             torch.zeros(1, 4, 2, 16))
+
+
+def test_spec_verify_walk_equals_its_sub_windows_bitwise():
+    """G = 12 (starcoder2-7b's 48 padded heads over 4 KV heads): a K = 13
+    window holds 156 query rows, more than one launch of the verify kernel
+    takes (``SPEC_MAX_ROWS``), so the wrapper walks it on the card as
+    ``[0, 10)`` and ``[10, 13)``, the second with ``cache_len + 10``.  A
+    row's fold does not depend on the other rows: the plain verify of the
+    window equals its two sub-windows' bit for bit."""
+    B, K, H, KV, hd, page, n_slots = 2, 13, 12, 1, 16, 8, 6
+    step = ops.SPEC_MAX_ROWS // (H // KV)
+    assert K * (H // KV) > ops.SPEC_MAX_ROWS and step == 10
+    q, kp, vp, table, lens = _verify_inputs(B, K, H, KV, hd, page, n_slots)
+    q, kp, vp, table = map(torch.from_numpy, (q, kp, vp, table))
+    for clen in map(torch.from_numpy, lens):
+        whole = ops.spec_verify_attention(q, kp, vp, table, clen)
+        parts = torch.cat([
+            ops.spec_verify_attention(q[:, :step].contiguous(), kp, vp, table,
+                                      clen),
+            ops.spec_verify_attention(q[:, step:].contiguous(), kp, vp, table,
+                                      clen + step)], dim=1)
+        assert torch.equal(whole, parts)
