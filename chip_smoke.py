@@ -5,7 +5,9 @@
 
 The port has nine CUDA kernels on five paths, over the dense family
 (granite-3-2b; yi-9b and starcoder2-7b in phase 9b; mistral-large-123b
-cut to two layers in phase 3) and the ssm family: the three attention
+cut to two layers in phase 3), the MoE family (grok-1-314b and
+arctic-480b cut in depth, phase 9c), the embedding-input families
+(musicgen-large and pixtral-12b, phase 9c) and the ssm family: the three attention
 kernels of the paged engine (flash, chunked prefill, paged decode) carry
 the block and adaptive joins; flash, chunked prefill and the top-k
 similarity kernel carry the prefilter path (embedding, candidates,
@@ -145,6 +147,32 @@ no result line:
    pools; then flash, chunked prefill, paged decode (bf16 and e4m3),
    verify, ``rmsnorm`` and one pass of ``decode_gemm`` timed at yi-9b's
    most frequent shapes; weights and peak memory printed for each;
+9c. the MoE family and the embedding-input families: grok-1-314b cut to 4
+   of its 64 layers (39.66 GiB), then arctic-480b cut to 2 of 35 (51.61
+   GiB), each at full width in bf16 (random weights from ``--seed``)
+   behind phase 4's engine settings, one at a time and freed after: (a)
+   phase 4's joins at ``EXPECTED`` and phase 4's pairs (the capacity
+   couples the rows of a pass, but teacher-forced counts still do not
+   depend on the logits: ``tests/test_torch_moe.py``), every attention
+   kernel launched, the GEMM and the norm on every decode pass
+   (``pass_launches``); (b) the same with speculation on; (c) a replay of
+   the decode and the verify graph held to an eager pass (``check_replay``
+   in ``bench_pass``); (d) its engines freed, the kernels against their
+   plain versions on a prefill, a chunked prefill, decode steps and
+   verify windows at ``MOE_FAMILY``'s fp32 depth (``unit_scale``; the
+   plain run takes the kernel run's routing, ``RoutingTape``); (e)
+   recorded, not held: verify against decode (the capacity routes a
+   verify window's 36 tokens together and a decode step's 4, so they
+   differ, in the reference too), the routed choices the capacity dropped
+   by pass kind, weights, pool and peak memory, the join walls, the expert
+   products' share of a decode pass's device time, and the kernels timed
+   at the arch's most frequent shapes.  Then musicgen-large and
+   pixtral-12b whole (``EMBED_RUN``): a ragged prefill from seeded
+   embeddings of 4 x 512 and 8 decode steps, through the kernels against
+   the plain versions, in fp32 at phase 3's tolerance grown by the square
+   root of the depth, then in bf16 (the launches, the wall, and each
+   path's distance from the fp32 one, recorded); no join (the engine
+   prefills token prompts and refuses them);
 10. every kernel against its plain version again at each shape the paths
    gave it (phase 9b's e4m3 pools included); then each kernel's time
    (CUDA events, inputs rotated past the 50 MB L2) at its path's most
@@ -173,15 +201,16 @@ no result line:
    bodies; so are the decode-side kernels' launches x ms on each path.
    ``--profile`` adds one block join and prefilter leg (b) under
    ``torch.profiler`` (device busy share, device time by kernel), and
-   one block join on each of the spec, dense and ssm paths and, in phase
-   9b, on yi-9b and starcoder2-7b, graphs on (each engine's graph
-   captured before its profile).
+   one block join on each of the spec, dense and ssm paths and, in phases
+   9b and 9c, on yi-9b, starcoder2-7b, grok-1-314b and arctic-480b,
+   graphs on (each engine's graph captured before its profile).
 
 Each phase sets its engine's mode itself; ``REPRO_SPEC_DECODE``,
 ``REPRO_PAGED_KV`` and ``REPRO_PREFIX_CACHE`` are dropped if set.  The
 last lines are the ``{"kernels": [...]}`` summary (launches on each
-kernel's own path, and by path; the six kernels of phase 9b's paths also
-timed at yi-9b's shapes, ``yi_9b``), the card's name and power limit, and
+kernel's own path, and by path; the six kernels of phase 9b's and 9c's
+paths also timed at yi-9b's, grok-1-314b's and arctic-480b's shapes,
+``yi_9b``, ``grok_1_314b``, ``arctic_480b``), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
 the repository's ``src/`` beside it.
 """
@@ -472,11 +501,14 @@ def verify_inputs(g, dtype, B, K, H, KV, hd, page, n_slots, lens):
 
 def dense_inputs(g, dtype, B, H, KV, hd, Skv, lens):
     """One query over a dense cache ``(B, Skv, KV, hd)``, and the same
-    rows as pages of a pool through a permuted table (page 16)."""
-    x = decode_inputs(g, dtype, B, H, KV, hd, 16, Skv // 16, lens)
+    rows as pages of a pool through a permuted table (page 16; a row of
+    ``Skv`` not a whole number of pages is the pages' first ``Skv``
+    positions)."""
+    n_slots = -(-Skv // 16)
+    x = decode_inputs(g, dtype, B, H, KV, hd, 16, n_slots, lens)
     q, kp, vp, table, clen = x
-    kc, vc = (p[table.long()].reshape(B, Skv, KV, hd).contiguous()
-              for p in (kp, vp))
+    kc, vc = (p[table.long()].reshape(B, n_slots * 16, KV, hd)[:, :Skv]
+              .contiguous() for p in (kp, vp))
     return (q, kc, vc, clen), x
 
 
@@ -883,8 +915,9 @@ DEPTH_CUTS = ("granite-3-2b", "yi-9b", "starcoder2-7b", "mistral-large-123b")
 
 
 #: the input dims each stacked block matrix contracts over (after its
-#: ``layers`` axis): q/k/v and the MLP's in-projections read d_model, the
-#: out projection (heads, head_dim), the down projection d_ff
+#: ``layers`` axis, and an MoE block's ``experts`` axis): q/k/v and the
+#: MLP's in-projections read d_model, the out projection (heads,
+#: head_dim), the down projection d_ff
 CONTRACTED = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1,
               "w_down": 1}
 
@@ -892,25 +925,72 @@ CONTRACTED = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1,
 def unit_scale(params, n_layers: int) -> None:
     """Rescale each stacked block matrix, in place, from the reference's
     draw (std 1/sqrt(n_layers): its fan-in rule reads the stacked
-    ``layers`` axis) to std 1/sqrt(its own fan-in).  At the reference's
-    std (0.71 for 2 layers) q, k and v reach ~10^2 at d_model 4096 and
-    scores ~10^4, where softmax is a hard argmax and two keys within a few
-    units of each other take weights that any two fp32 summation orders
-    move apart: a comparison there measures rounding, not wiring."""
-    for leaves in params["blocks"].values():
+    ``layers`` axis) to std 1/sqrt(its own fan-in); the MoE block's
+    expert stacks ``(layers, experts, ...)`` and arctic's dense residual
+    too (the router keeps its own std of 0.02).  At the reference's std
+    (0.71 for 2 layers) q, k and v reach ~10^2 at d_model 4096 and scores
+    ~10^4, where softmax is a hard argmax and two keys within a few units
+    of each other take weights that any two fp32 summation orders move
+    apart: a comparison there measures rounding, not wiring."""
+    def scale(leaves, lead):
         for name, w in leaves.items():
-            if name in CONTRACTED:
-                fan = math.prod(w.shape[1:1 + CONTRACTED[name]])
+            if isinstance(w, dict):         # arctic's moe/dense
+                scale(w, 1)
+            elif name in CONTRACTED:
+                fan = math.prod(w.shape[lead:lead + CONTRACTED[name]])
                 w.mul_(math.sqrt(n_layers / fan))
+    for blk, leaves in params["blocks"].items():
+        scale(leaves, 2 if blk == "moe" else 1)
 
 
-def check_full_width_depth_cut(rt, ops, dev, arch: str) -> None:
-    """``arch``'s widths, 2 layers, fp32, the block matrices at std
-    1/sqrt(fan-in) (``unit_scale``): prefill, chunked prefill, a paged
+class RoutingTape:
+    """Stands in for ``blocks.moe_dispatch`` around a kernels-against-
+    plain comparison of the MoE family: in ``record`` each call's routing
+    is kept; in ``replay`` the calls, in the same order, are handed the
+    recorded routing, and the dispatch entries that their own routing
+    would set otherwise are counted.  Both runs then send every token to
+    the same experts: two fp32 summation orders can move a gate across a
+    near-tie, and the comparison would read that flip (an O(1) change in
+    one token's FFN), not a kernel.  Idle for the other families."""
+
+    def __init__(self, blocks):
+        self.blocks, self.dispatch = blocks, blocks.moe_dispatch
+        self.tape, self.differ, self.entries = [], 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        self.blocks.moe_dispatch = fn
+        try:
+            yield self
+        finally:
+            self.blocks.moe_dispatch = self.dispatch
+
+    def record(self):
+        def rec(*args):
+            self.tape.append(self.dispatch(*args))
+            return self.tape[-1]
+        return self._patched(rec)
+
+    def replay(self):
+        taped = iter(self.tape)
+
+        def rep(*args):
+            own, out = self.dispatch(*args), next(taped)
+            self.differ += int((own[0] != out[0]).sum())
+            self.entries += own[0].numel()
+            return out
+        return self._patched(rep)
+
+
+def check_full_width_depth_cut(rt, ops, dev, arch: str,
+                               layers: int = 2) -> None:
+    """``arch``'s widths, ``layers`` layers, fp32, the block matrices at
+    std 1/sqrt(fan-in) (``unit_scale``): prefill, chunked prefill, a paged
     and a dense decode step and a paged and a dense K = 9 verify step give
     the same logits through the kernels as through the plain versions
-    (2e-5, the fp32 kernel tolerance)."""
-    cfg = dataclasses.replace(rt.get_config(arch), n_layers=2)
+    (2e-5, the fp32 kernel tolerance).  An MoE config's plain run takes
+    the kernel run's routing (``RoutingTape``)."""
+    cfg = dataclasses.replace(rt.get_config(arch), n_layers=layers)
     g = torch.Generator(dev).manual_seed(1)
     params = rt.init_params(rt.model_specs(cfg), g, torch.float32, dev)
     unit_scale(params, cfg.n_layers)
@@ -920,14 +1000,15 @@ def check_full_width_depth_cut(rt, ops, dev, arch: str) -> None:
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
     vlen = torch.tensor([96, 50, 1, 17], dtype=torch.int32, device=dev)
     plen = torch.tensor([128, 64, 0, 100], dtype=torch.int32, device=dev)
-    kp = torch.randn(2, B, P, KV, hd, generator=g, device=dev)
-    vp = torch.randn(2, B, P, KV, hd, generator=g, device=dev)
+    kp = torch.randn(layers, B, P, KV, hd, generator=g, device=dev)
+    vp = torch.randn(layers, B, P, KV, hd, generator=g, device=dev)
     n_pages = B * n_slots + 1
-    pool = torch.randn(2, 2, n_pages, page, KV, hd, generator=g, device=dev)
+    pool = torch.randn(2, layers, n_pages, page, KV, hd, generator=g,
+                       device=dev)
     table = torch.randperm(n_pages, generator=g, device=dev)[: B * n_slots]
     cache_len = torch.tensor([200, 15, 16, 0], dtype=torch.int32, device=dev)
     active = torch.tensor([True, True, True, False], device=dev)
-    dense = torch.randn(2, 2, B, n_slots * page, KV, hd, generator=g,
+    dense = torch.randn(2, layers, B, n_slots * page, KV, hd, generator=g,
                         device=dev)
     window = torch.randint(0, cfg.vocab_size, (B, 9), generator=g, device=dev)
 
@@ -954,9 +1035,15 @@ def check_full_width_depth_cut(rt, ops, dev, arch: str) -> None:
         _, lvd = rt.verify_step(cfg, params, rows(), window)
         return lp, lc, ld[:3], ldd[:3], lv, lvd
 
-    got = run()
-    with plain_kernels(ops):
+    tape = RoutingTape(rt.blocks)
+    with tape.record():
+        got = run()
+    with plain_kernels(ops), tape.replay():
         want = run()
+    if tape.entries:
+        log(f"  {arch} x {layers} layers fp32: the plain run takes the kernel"
+            f" run's routing; its own would set {tape.differ} of "
+            f"{tape.entries} dispatch entries otherwise")
     for name, a, b in zip(("prefill", "chunked_prefill", "decode_step",
                            "dense decode_step", "verify_step",
                            "dense verify_step"), got, want):
@@ -974,7 +1061,8 @@ def check_full_width_depth_cut(rt, ops, dev, arch: str) -> None:
             1e-4 * float(b.abs().max()) if "verify" in name else 0.0)
         ok = bool(torch.isfinite(a).all()) and torch.allclose(
             a, b, rtol=2e-5, atol=atol)
-        log(f"  {arch} x 2 layers fp32 ({weights_gib:.2f} GiB) {name:17s} "
+        log(f"  {arch} x {layers} layers fp32 ({weights_gib:.2f} GiB) "
+            f"{name:17s} "
             f"logits {tuple(a.shape)} kernels vs plain max_abs_err="
             f"{err:.3e} tol={atol:.1e} (max |logit| "
             f"{float(b.abs().max()):.2f}) {'ok' if ok else 'FAIL'}")
@@ -1149,15 +1237,31 @@ def gemm_products(path: dict) -> int:
     return sum(n for _, n in path["shapes"]["decode_gemm"])
 
 
-def hold_pass_launches(label: str, summary: dict, n_layers: int) -> None:
-    """Every decode (or verify) pass of a granite path sent its products
-    through decode_gemm (7 a layer and the unembed: 281) in 4 launches a
-    layer and one for the unembed (161), and its norms through rmsnorm (2
-    a layer and the final one: 81)."""
+def pass_launches(cfg) -> dict:
+    """The decode GEMM's launches and products and the norms of one
+    decode (or verify) pass of ``cfg``.  A layer: the attention block's
+    {wq, wk, wv} and wo (2 launches, 4 products) and its norm; a dense
+    MLP's {w_gate, w_up} and w_down (2, 3) and its norm; or the MoE
+    block's router (1, 1) and its norm, and arctic's dense residual (an
+    MLP) beside it.  Then the final norm and the unembed (granite-3-2b:
+    161 launches, 281 products, 81 norms)."""
+    moe = cfg.family == "moe"
+    mlp = (not moe) or cfg.moe_dense_residual
+    launches = 2 + (1 if moe else 0) + (2 if mlp else 0)
+    products = 4 + (1 if moe else 0) + (3 if mlp else 0)
+    norms = 1 + (1 if moe else 0) + (1 if mlp else 0)
+    n = cfg.n_layers
+    return dict(decode_gemm=launches * n + 1, products=products * n + 1,
+                rmsnorm=norms * n + 1)
+
+
+def hold_pass_launches(label: str, summary: dict, cfg) -> None:
+    """Every decode (or verify) pass of a path sent its products through
+    decode_gemm and its norms through rmsnorm as ``pass_launches(cfg)``
+    counts them (granite: 281 products in 161 launches, 81 norms)."""
     steps = summary["decode_steps"]
     got = dict(summary["launches"], products=gemm_products(summary))
-    per_pass = dict(decode_gemm=4 * n_layers + 1, products=7 * n_layers + 1,
-                    rmsnorm=2 * n_layers + 1)
+    per_pass = pass_launches(cfg)
     bad = {k: (got[k], n * steps) for k, n in per_pass.items()
            if got[k] != n * steps}
     log(f"  {label}: {steps} decode passes, decode_gemm {got['products']} "
@@ -1187,7 +1291,7 @@ def run_main_path(rt, ops, dev, seed: int) -> tuple:
     if missing:
         raise AssertionError(f"kernels never launched on the block + "
                              f"adaptive path: {missing}")
-    hold_pass_launches("block + adaptive", summary, engine.cfg.n_layers)
+    hold_pass_launches("block + adaptive", summary, engine.cfg)
     return summary, pairs, engine
 
 
@@ -1379,7 +1483,7 @@ def run_spec_path(rt, ops, dev, engine, base: dict,
         raise AssertionError(f"spec path: {summary['decode_steps']} decode "
                              f"steps (phase 4: {base['decode_steps']}), "
                              f"launches {counts}")
-    hold_pass_launches("spec", summary, cfg.n_layers)
+    hold_pass_launches("spec", summary, cfg)
     summary["match_dense"] = run_match_dense(rt, ops, engine)
     summary["verify_vs_decode"] = check_verify_vs_decode(rt, engine)
     summary["greedy_agreement"] = greedy_agreement(rt, engine)
@@ -1449,7 +1553,7 @@ def run_match_dense(rt, ops, engine) -> dict:
 
 
 def check_verify_vs_decode(rt, engine, dtypes=(torch.bfloat16, torch.float32),
-                           Ks=(9,)) -> dict:
+                           Ks=(9,), held: bool = True) -> dict:
     """Full width, in each of ``dtypes``: a decode step's rows alone (M =
     4) against the same rows inside a batch of 36 copies (M = 36), and a
     K-token window (each K of ``Ks``) through ``verify_step`` against the
@@ -1459,7 +1563,10 @@ def check_verify_vs_decode(rt, engine, dtypes=(torch.bfloat16, torch.float32),
     row-invariant decode GEMM and every norm through the row-blocked
     RMSNorm, and the attention rows are the decode kernel's bits by
     contract (a window of more than ``SPEC_MAX_ROWS`` query rows walked in
-    sub-windows), so each comparison is held to 0.000."""
+    sub-windows), so each comparison is held to 0.000.  With ``held``
+    false (the MoE family, whose capacity routes a pass's rows together,
+    so neither holds in the reference either) the differences are
+    recorded, not held."""
     cfg = engine.cfg
     dev = engine.params["embed"].device
     B, page, n_slots = 4, 16, 64
@@ -1469,6 +1576,12 @@ def check_verify_vs_decode(rt, engine, dtypes=(torch.bfloat16, torch.float32),
     out = {}
 
     def hold(label, err, finite):
+        if not held:
+            log(f"  {label}: max_abs_err={err:.3e} (recorded, not held: the "
+                f"capacity couples the rows){'' if finite else ' NOT FINITE'}")
+            if not finite:
+                raise AssertionError(f"{label}: logits not finite")
+            return
         ok = finite and err == 0.0
         log(f"  {label}: max_abs_err={err:.3e} tol=0 (bit for bit) "
             f"{'ok' if ok else 'FAIL'}")
@@ -1638,7 +1751,7 @@ def run_dense_path(rt, ops, dev, engine, base: dict, base_pairs: dict,
                         spec_decode=mode == "spec")
         summary, pairs = run_joins(rt, ops, eng, f"dense {mode}")
         launches.update(summary["launches"])
-        hold_pass_launches(f"dense {mode}", summary, cfg.n_layers)
+        hold_pass_launches(f"dense {mode}", summary, cfg)
         hold_counts(f"dense {mode}", summary["joins"],
                     EXPECTED[("dense", mode)])
         for name in ("block", "adaptive"):
@@ -1964,7 +2077,7 @@ def graph_walls(rt, ops, granite, base_pairs: dict) -> dict:
             label = f"{'graph' if graphs else 'eager'} run {len(runs) + 1}"
             summary, pairs = run_joins(rt, ops, eng, label)
             hold_counts(label, summary["joins"], EXPECTED[("paged", "base")])
-            hold_pass_launches(label, summary, eng.cfg.n_layers)
+            hold_pass_launches(label, summary, eng.cfg)
             if pairs != base_pairs:
                 raise AssertionError(f"{label}: pairs differ from phase 4's")
             runs.append(dict(graphs=graphs, wall_s=summary["wall_s"],
@@ -2116,7 +2229,7 @@ def run_fp8(rt, ops, L, engine, base: dict, base_pairs: dict) -> dict:
                 EXPECTED[("paged", "base")])
     if pairs != base_pairs:
         raise AssertionError("fp8 joins: pairs differ from phase 4's")
-    hold_pass_launches(f"{cfg8.name} fp8", summary, cfg8.n_layers)
+    hold_pass_launches(f"{cfg8.name} fp8", summary, cfg8)
     # the same joins again on a fresh engine, untimed, with every cast into
     # the cache recorded (the recorder's ops would weigh on the walls)
     with CastRecorder(L, dev) as rec:
@@ -2158,20 +2271,20 @@ def run_fp8(rt, ops, L, engine, base: dict, base_pairs: dict) -> dict:
     return summary
 
 
-def time_family_kernels(ops, L, dev, base: dict, spec: dict, fp8: dict,
-                        calls) -> dict:
-    """The kernels of yi-9b's paths at their most frequent shapes (bf16;
-    a full table or prefix, the most work each shape holds), each beside
-    its plain version, its library call and its bound: flash, chunked
-    prefill, paged decode (bf16 and e4m3 pools), verify, rmsnorm, and one
-    pass of the decode GEMM at M 4 (``calls``)."""
+def time_family_kernels(ops, L, dev, base: dict, spec: dict, fp8, calls,
+                        label: str = "yi-9b", layer_calls: int = 4) -> dict:
+    """The kernels of ``label``'s paths at their most frequent shapes
+    (bf16; a full table or prefix, the most work each shape holds), each
+    beside its plain version, its library call and its bound: flash,
+    chunked prefill, paged decode (bf16, and e4m3 pools where ``fp8``
+    holds a path with an fp8 cache), verify, rmsnorm, and one pass of the
+    decode GEMM at M 4 (``calls``, ``layer_calls`` of them a layer)."""
     g = torch.Generator(dev).manual_seed(12)
     dt = torch.bfloat16
     top = lambda path, name: path["shapes"][name][0][0]  # noqa: E731
     fB, fS, fH, fKV, fhd, _ = top(base, "flash_attention")
     cB, cS, cP, cH, cKV, chd, _ = top(base, "chunked_prefill_attention")
     dB, dH, dKV, dpg, _, dslots, dhd, _ = top(base, "paged_decode_attention")
-    eB, eH, eKV, epg, _, eslots, ehd, _ = top(fp8, "paged_decode_attention")
     vB, vK, vH, vKV, vpg, _, vslots, vhd, _ = top(spec,
                                                   "spec_verify_attention")
     nrows, nD, _, _ = top(base, "rmsnorm")
@@ -2182,21 +2295,24 @@ def time_family_kernels(ops, L, dev, base: dict, spec: dict, fp8: dict,
         "paged_decode_attention": time_decode(
             ops, L, g, dt, dB, dH, dKV, dhd, dpg, dslots,
             [dslots * dpg] * dB),
-        "paged_decode_attention e4m3": time_decode(
-            ops, L, g, dt, eB, eH, eKV, ehd, epg, eslots,
-            [eslots * epg] * eB, kv8=L),
         "spec_verify_attention": time_verify(
             ops, L, g, dt, vB, vK, vH, vKV, vhd, vpg, vslots,
             [vslots * vpg - vK] * vB),
         "rmsnorm": time_rmsnorm(ops, L, g, dt, nrows, nD),
-        "decode_gemm": time_decode_gemm(ops, L, g, calls, 4),
+        "decode_gemm": time_decode_gemm(ops, L, g, calls, 4, layer_calls),
     }
+    if fp8 is not None:
+        eB, eH, eKV, epg, _, eslots, ehd, _ = top(fp8,
+                                                  "paged_decode_attention")
+        out["paged_decode_attention e4m3"] = time_decode(
+            ops, L, g, dt, eB, eH, eKV, ehd, epg, eslots,
+            [eslots * epg] * eB, kv8=L)
     for name, r in out.items():
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         dev_ms = (f" device: kernel={r['device_ms']:.4f} ms library="
                   f"{r['library_device_ms']:.4f} ms" if "device_ms" in r
                   else "")
-        log(f"  yi-9b {name:30s} {json.dumps(r['shape'])} kernel="
+        log(f"  {label} {name:30s} {json.dumps(r['shape'])} kernel="
             f"{r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms library={lib}"
             f"{dev_ms} bound={r['bound_ms']:.4f} ms ({r['bound_by']}) "
             f"kernel/bound={r['ms'] / r['bound_ms']:.1f}x")
@@ -2234,7 +2350,7 @@ def run_dense_arch(rt, ops, L, dev, arch: str, seed: int, base_pairs: dict,
     if pairs != base_pairs or missing:
         raise AssertionError(f"{arch}: pairs differ from phase 4's, or "
                              f"kernels never launched: {missing}")
-    hold_pass_launches(arch, base, cfg.n_layers)
+    hold_pass_launches(arch, base, cfg)
     base.update(weights_gib=weights_gib, n_params=n_params,
                 pool_bytes=pool_bytes(engine),
                 other_engines_gib=mem0 / 2 ** 30)
@@ -2257,7 +2373,7 @@ def run_dense_arch(rt, ops, L, dev, arch: str, seed: int, base_pairs: dict,
             or counts["paged_decode_attention"]):
         raise AssertionError(f"{arch} spec: pairs, decode steps or launches "
                              f"wrong ({counts})")
-    hold_pass_launches(f"{arch} spec", spec, cfg.n_layers)
+    hold_pass_launches(f"{arch} spec", spec, cfg)
     paths[key + "_spec"] = spec
     # a window of 13 is more query rows than one verify launch takes at
     # G 12 (starcoder2-7b): the walked path
@@ -2293,6 +2409,325 @@ def run_dense_family(rt, ops, L, dev, seed: int, base_pairs: dict,
         records[arch], p = run_dense_arch(rt, ops, L, dev, arch, seed,
                                           base_pairs, profile)
         paths.update(p)
+    return records, paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 9c: the MoE family by depth cut, the embedding-input families whole
+# ---------------------------------------------------------------------------
+
+#: the MoE configs phase 9c serves at full width in bf16 on one card, each
+#: cut in depth to fit it (grok-1-314b 39.66 GiB at 4 of 64 layers,
+#: arctic-480b 51.61 GiB at 2 of 35), and the depth of each one's fp32
+#: kernels-against-plain check, (d)
+MOE_FAMILY = (("grok-1-314b", 4, 2), ("arctic-480b", 2, 1))
+#: the embedding-input configs phase 9c runs whole (musicgen-large 6.02
+#: GiB in bf16, pixtral-12b 22.81 GiB; 12.03 and 45.63 GiB in fp32): rows
+#: x positions of seeded embeddings, the ragged lengths, and the decode
+#: steps after the prefill
+EMBED_FAMILY = ("musicgen-large", "pixtral-12b")
+EMBED_RUN = dict(B=4, S=512, lens=(512, 389, 130, 1), steps=8)
+
+
+class DropRecorder:
+    """Stands in for ``blocks.moe_dispatch`` while an MoE engine serves:
+    each routing adds its kept and routed choices to device counters by
+    pass kind (a decode pass routes ``slots`` tokens, a verify pass
+    ``slots x window``, a prefill or chunked prefill pass ``slots x
+    bucket``: pad rows included), so a pass captured as a CUDA graph adds
+    them at every replay too.  The counters must outlive the graphs
+    captured under the recorder."""
+
+    KINDS = ("prefill", "decode", "verify")
+
+    def __init__(self, blocks, dev, slots: int, window: int):
+        self.blocks, self.dispatch = blocks, blocks.moe_dispatch
+        self.tokens = {slots: 1, slots * window: 2}
+        self.kept = torch.zeros(3, dtype=torch.float64, device=dev)
+        self.routed = torch.zeros(3, dtype=torch.float64, device=dev)
+
+    def __call__(self, cfg, gates, C):
+        out = self.dispatch(cfg, gates, C)
+        i = self.tokens.get(gates.shape[0] * gates.shape[1], 0)
+        self.kept[i:i + 1] += out[2].sum()
+        self.routed[i:i + 1] += gates.shape[0] * gates.shape[1] * \
+            cfg.experts_per_token
+        return out
+
+    def __enter__(self):
+        self.blocks.moe_dispatch = self
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.moe_dispatch = self.dispatch
+
+    def shares(self) -> dict:
+        kept, routed = self.kept.tolist(), self.routed.tolist()
+        return {k: dict(routed=int(r), dropped=int(r - n),
+                        dropped_share=(r - n) / r if r else None)
+                for k, n, r in zip(self.KINDS, kept, routed)}
+
+
+def expert_share(rt, L, engine) -> dict:
+    """The expert products' share of an eager paged decode pass's device
+    time (full-width layers, 4 rows at ragged lengths, random K/V): the
+    pass, then the three batched expert products of each layer alone at
+    the pass's shapes (``E`` experts x ``G C`` slots, the weights read
+    once a product, cold by size), each behind a sleep kernel
+    (``device_ms``), and their bytes bound."""
+    cfg, params = engine.cfg, engine.params
+    dev = params["embed"].device
+    dt = params["embed"].dtype
+    g = torch.Generator(dev).manual_seed(13)
+    B, page, n_slots = engine.slots, 16, 64
+    KV, hd, nl = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
+    n_pages = B * n_slots + 1
+    table = torch.randperm(n_pages, generator=g, device=dev)[: B * n_slots]
+    state = {"len": torch.tensor([1000, 517, 16, 3], dtype=torch.int32,
+                                 device=dev),
+             "pages": table.reshape(B, n_slots).int(),
+             "k": _randn(g, dt, nl, n_pages, page, KV, hd),
+             "v": _randn(g, dt, nl, n_pages, page, KV, hd)}
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=g, device=dev)
+    G, C = rt.blocks.moe_groups(cfg, B)
+    E, D = cfg.n_experts, cfg.d_model
+    xe = _randn(g, dt, E, G * C, D)
+    moe = params["blocks"]["moe"]
+
+    def experts():
+        for i in range(nl):
+            h = L.swiglu_gate(xe @ moe["w_gate"][i], xe @ moe["w_up"][i])
+            h @ moe["w_down"][i]
+
+    pass_ms = device_ms(lambda: rt.decode_step(cfg, params, state, toks),
+                        [()], 3)
+    experts_ms = device_ms(experts, [()], 3)
+    nbytes = sum(moe[w].numel() * moe[w].element_size()
+                 for w in ("w_gate", "w_up", "w_down"))
+    out = dict(pass_ms=pass_ms, experts_ms=experts_ms,
+               share=experts_ms / pass_ms, expert_gb=nbytes / 1e9,
+               experts_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               slots=G * C, experts=E)
+    log(f"  {cfg.name} x {nl}: expert products {experts_ms:.3f} ms of an "
+        f"eager decode pass's {pass_ms:.3f} ms device time "
+        f"({100 * out['share']:.1f}%; {E} experts x {G * C} slots, "
+        f"{out['expert_gb']:.2f} GB of expert weights, bound "
+        f"{out['experts_bound_ms']:.3f} ms)")
+    return out
+
+
+def run_moe_arch(rt, ops, L, dev, arch: str, layers: int, check_layers: int,
+                 seed: int, base_pairs: dict, profile: Path | None) -> tuple:
+    """``arch`` at full width, cut to ``layers`` layers, in bf16 (random
+    weights from ``seed``): (a) phase 4's joins, (b) the same with
+    speculation on, (c) a replay of its decode and verify graphs against
+    an eager pass (``bench_pass``), (e) recorded, not held: verify against
+    decode, the routed choices dropped by pass kind, weights, pool and
+    peak memory, the join walls, the expert products' share of a decode
+    pass, and the kernels timed at its shapes; then, its engines freed,
+    (d) the kernels against their plain versions at ``check_layers``
+    layers in fp32 (``check_full_width_depth_cut``).  Returns ``(record,
+    paths)``."""
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = rt.build_engine(arch, device=dev, seed=seed, max_seq=1024,
+                             slots=4, layers=layers)
+    torch.cuda.synchronize()
+    cfg = engine.cfg
+    n_params = sum(t.numel() for _, t in rt.tree_items(engine.params))
+    weights_gib = (torch.cuda.memory_allocated() - mem0) / 2 ** 30
+    log(f"  {arch} full width x {layers} layers: {n_params:,} parameters in "
+        f"bf16 drawn on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{weights_gib:.2f} GiB; {cfg.padded_heads} heads ({cfg.n_heads} "
+        f"live) over {cfg.n_kv_heads} KV heads of {cfg.resolved_head_dim}, "
+        f"{cfg.n_experts} experts top-{cfg.experts_per_token} of d_ff "
+        f"{cfg.d_ff}{' + a dense residual' if cfg.moe_dense_residual else ''}"
+        f", vocab {cfg.padded_vocab}")
+    key = arch.replace("-", "_")
+    paths = {}
+    drops = DropRecorder(rt.blocks, dev, engine.slots, engine.spec_k + 1)
+    # (a) phase 4's joins
+    with drops:
+        base, pairs = run_joins(rt, ops, engine, f"{arch} block + adaptive")
+    hold_counts(arch, base["joins"], EXPECTED[("paged", "base")])
+    missing = [k for k in ATTENTION if base["launches"][k] == 0]
+    if pairs != base_pairs or missing:
+        raise AssertionError(f"{arch}: pairs differ from phase 4's, or "
+                             f"kernels never launched: {missing}")
+    hold_pass_launches(arch, base, cfg)
+    base.update(weights_gib=weights_gib, n_params=n_params, layers=layers,
+                pool_bytes=pool_bytes(engine),
+                other_engines_gib=mem0 / 2 ** 30)
+    log(f"  {arch}: peak {base['max_memory_allocated_gib']:.2f} GiB "
+        f"allocated over the joins, of which {mem0 / 2 ** 30:.2f} GiB are "
+        f"the earlier phases' engines; weights {weights_gib:.2f} GiB, KV "
+        f"pool {base['pool_bytes'] / 2 ** 20:.1f} MiB")
+    paths[key] = base
+    # (b) speculation on
+    eng = rt.Engine(cfg, engine.params, engine.tokenizer, max_seq=1024,
+                    slots=4, spec_decode=True)
+    with drops:
+        spec, spec_pairs = run_joins(rt, ops, eng, f"{arch} spec")
+    hold_counts(f"{arch} spec", spec["joins"], EXPECTED[("paged", "spec")])
+    counts = spec["launches"]
+    if (spec_pairs != base_pairs
+            or spec["decode_steps"] >= base["decode_steps"]
+            or not counts["spec_verify_attention"]
+            or counts["paged_decode_attention"]):
+        raise AssertionError(f"{arch} spec: pairs, decode steps or launches "
+                             f"wrong ({counts})")
+    hold_pass_launches(f"{arch} spec", spec, cfg)
+    paths[key + "_spec"] = spec
+    del eng
+    record = dict(base=base, spec=spec, drops=drops.shares())
+    log(f"  {arch}: routed choices dropped by the capacity, by pass kind "
+        "(pad rows and inactive slots included): " + "; ".join(
+            f"{k} {d['dropped']} of {d['routed']}"
+            + (f" ({100 * d['dropped_share']:.2f}%)" if d['routed'] else "")
+            for k, d in record["drops"].items()))
+
+    # (c) each captured pass kind replayed against an eager pass
+    def fresh(**mode):
+        return rt.Engine(cfg, engine.params, engine.tokenizer, max_seq=1024,
+                         slots=4, **mode)
+    record["passes"] = {
+        "paged decode": bench_pass(ops, fresh(), "decode",
+                                   f"{arch} paged decode, M 4"),
+        "verify": bench_pass(ops, fresh(spec_decode=True), "verify",
+                             f"{arch} paged verify, K 9 (M 36)")}
+    # (e) recorded, not held
+    record["verify_vs_decode"] = check_verify_vs_decode(
+        rt, engine, dtypes=(torch.bfloat16,), held=False)
+    record["experts"] = expert_share(rt, L, engine)
+    calls = pass_calls(engine.params, cfg)
+    record["timing"] = time_family_kernels(
+        ops, L, dev, base, spec, None, calls, arch,
+        (len(calls) - 1) // cfg.n_layers)
+    if profile is not None:
+        sc = rt.ads_scenario()
+        c = warm_client(rt, engine, sc)
+        record["profile"] = profile_one(
+            f"{arch} block join", f"{key}_block_join", profile,
+            lambda: rt.block_join(sc.r1, sc.r2, sc.condition, c, 4, 4))
+        del c
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the kernels against their plain versions, fp32
+    check_full_width_depth_cut(rt, ops, dev, arch, check_layers)
+    return record, paths
+
+
+def _cast_(tree: dict, dtype) -> None:
+    """Cast every leaf of ``tree`` to ``dtype`` in place, leaf by leaf, so
+    the two copies never coexist beyond one leaf."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _cast_(v, dtype)
+        else:
+            tree[k] = v.to(dtype)
+
+
+def run_embed_arch(rt, ops, dev, arch: str, seed: int) -> dict:
+    """``arch`` whole (random weights from ``seed``, the block matrices at
+    std 1/sqrt(fan-in) as in phase 3): a ragged prefill from seeded
+    embeddings (``EMBED_RUN``) and ``steps`` decode steps on seeded
+    tokens, through the kernels and through their plain versions.  In
+    fp32 every step's logits are held to phase 3's tolerance, which
+    grows as the square root of the depth past phase 3's 2 layers (the
+    roundings of the layers add as independent errors); then the same
+    weights cast to bf16, the serving dtype, the path's launches and
+    shapes, its wall and its finite logits, and the distances of the bf16
+    kernel and plain paths from the fp32 plain one (recorded, not held:
+    a bf16 rounding of each of 40-48 layers' outputs apart)."""
+    t0 = time.perf_counter()
+    cfg = rt.get_config(arch)
+    g = torch.Generator(dev).manual_seed(seed)
+    params = rt.init_params(rt.model_specs(cfg), g, torch.float32, dev)
+    unit_scale(params, cfg.n_layers)
+    n_params = sum(t.numel() for _, t in rt.tree_items(params))
+    B, S, steps = EMBED_RUN["B"], EMBED_RUN["S"], EMBED_RUN["steps"]
+    embeds = torch.randn(B, S, cfg.d_model, generator=g, device=dev)
+    vlen = torch.tensor(EMBED_RUN["lens"], dtype=torch.int32, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (B, steps), generator=g,
+                         device=dev)
+
+    def run():
+        x = embeds.to(params["embed"].dtype)
+        cache, lg = rt.prefill(cfg, params, {"embeds": x},
+                               max_seq=S + steps, valid_len=vlen)
+        out = [lg]
+        for j in range(steps):
+            cache, lg = rt.decode_step(cfg, params, cache, toks[:, j:j + 1])
+            out.append(lg)
+        return torch.stack(out, dim=1)
+
+    got32 = run()
+    with plain_kernels(ops):
+        want32 = run()
+    err32 = float((got32 - want32).abs().max())
+    atol = 2e-5 * max(1.0, cfg.d_model / 2048) * math.sqrt(cfg.n_layers / 2)
+    ok = bool(torch.isfinite(got32).all()) and torch.allclose(
+        got32, want32, rtol=2e-5, atol=atol)
+    log(f"  {arch} whole ({cfg.n_layers} layers, {n_params:,} parameters) "
+        f"fp32: prefill from embeddings {B} x {S} (lengths "
+        f"{list(EMBED_RUN['lens'])}) and {steps} decode steps, logits "
+        f"{tuple(got32.shape)} kernels vs plain max_abs_err={err32:.3e} "
+        f"tol={atol:.1e}+2e-5*|ref| (max |logit| "
+        f"{float(want32.abs().max()):.2f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{arch} fp32: kernel path differs from plain")
+    del got32
+    _cast_(params, torch.bfloat16)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = ops.launch_counts()
+    shapes = {k.name: k.shapes.most_common() for k in ops.KERNELS}
+    with plain_kernels(ops):
+        want = run()
+    err = {"kernels vs plain": float((got - want).abs().max()),
+           "kernels vs fp32": float((got.float() - want32).abs().max()),
+           "plain vs fp32": float((want.float() - want32).abs().max())}
+    need = ("flash_attention", "decode_attention", "decode_gemm", "rmsnorm")
+    missing = [k for k in need if not launches.get(k)]
+    ok = bool(torch.isfinite(got).all()) and not missing
+    log(f"  {arch} whole bf16 ({n_params * 2 / 2 ** 30:.2f} GiB; drawn and run"
+        f" twice in each dtype in {time.perf_counter() - t0:.1f} s): the "
+        f"same run in {wall:.3f} s; max_abs_err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + f" (recorded, not held); launches "
+        f"{ {k: n for k, n in launches.items() if n} } "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{arch} bf16: logits not finite, or kernels "
+                             f"never launched: {missing}")
+    out = dict(n_params=n_params, wall_s=wall, max_abs_err_fp32=err32,
+               tol_fp32=atol, max_abs_err_bf16=err, launches=launches,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               shapes=shapes)
+    del params, got, want, want32
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_moe_family(rt, ops, L, dev, seed: int, base_pairs: dict,
+                   profile: Path | None) -> tuple:
+    """Phase 9c: each of ``MOE_FAMILY`` in turn, then ``EMBED_FAMILY``;
+    ``(records, paths)``."""
+    records, paths = {}, {}
+    for arch, layers, check_layers in MOE_FAMILY:
+        records[arch], p = run_moe_arch(rt, ops, L, dev, arch, layers,
+                                        check_layers, seed, base_pairs,
+                                        profile)
+        paths.update(p)
+    for arch in EMBED_FAMILY:
+        records[arch] = run_embed_arch(rt, ops, dev, arch, seed)
+        paths[arch.replace("-", "_")] = records[arch]
     return records, paths
 
 
@@ -2880,17 +3315,24 @@ def host_cost(kernel, args) -> dict:
 def pass_calls(params, cfg) -> list:
     """The calls of one decode pass to the decode GEMM, in the order the
     pass makes them, each the weights of one launch as
-    ``decode_linear_group`` takes them: per layer {wq, wk, wv}, wo,
-    {w_gate, w_up}, w_down, then the unembed (tied or not; granite-3-2b:
-    161 calls, 281 products)."""
+    ``decode_linear_group`` takes them: per layer {wq, wk, wv}, wo, then
+    {w_gate, w_up}, w_down, or the MoE block's router (and arctic's dense
+    residual's {w_gate, w_up}, w_down), then the unembed (tied or not;
+    granite-3-2b: 161 calls, 281 products)."""
     D, H, hd = cfg.d_model, cfg.padded_heads, cfg.resolved_head_dim
-    a, m = params["blocks"]["attn"], params["blocks"]["mlp"]
+    blocks = params["blocks"]
+    a = blocks["attn"]
+    moe = blocks.get("moe")
+    m = blocks["mlp"] if moe is None else moe.get("dense")
     out = []
     for i in range(cfg.n_layers):
         out += [(a["wq"][i].reshape(D, -1), a["wk"][i].reshape(D, -1),
                  a["wv"][i].reshape(D, -1)),
-                (a["wo"][i].reshape(H * hd, -1),),
-                (m["w_gate"][i], m["w_up"][i]), (m["w_down"][i],)]
+                (a["wo"][i].reshape(H * hd, -1),)]
+        if moe is not None:
+            out.append((moe["router"][i],))
+        if m is not None:
+            out += [(m["w_gate"][i], m["w_up"][i]), (m["w_down"][i],)]
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return out + [(table.t(),)]
 
@@ -2909,7 +3351,7 @@ def in_turns(timer, first, second, *args) -> tuple:
     return [a1, a2], [b1, b2]
 
 
-def time_decode_gemm(ops, L, g, calls, M):
+def time_decode_gemm(ops, L, g, calls, M, layer_calls: int = 4):
     """One granite pass at M rows (4: a decode step, 36: a verify pass),
     one x per width, the weights (5.07 GB) cold by size: the kernel as the
     model calls it (161 calls, the products of one input grouped), its
@@ -2917,7 +3359,8 @@ def time_decode_gemm(ops, L, g, calls, M):
     version: one library call per product), and the bound; kernel and
     library in turns.  Then each call of a layer and the unembed, kernel
     against ``torch.matmul`` on its products, with copies of the weights
-    rotated past the 50 MB L2 so each launch finds them cold."""
+    rotated past the 50 MB L2 so each launch finds them cold
+    (``layer_calls``: the calls of one layer)."""
     weights = [w for ws in calls for w in ws]
     dtype = weights[0].dtype
     xs = {K: _randn(g, dtype, M, K) for K in {w.shape[0] for w in weights}}
@@ -2938,7 +3381,7 @@ def time_decode_gemm(ops, L, g, calls, M):
     del got
     # each call of a layer (and the unembed) alone, weights cold
     by_call = {}
-    for ws in calls[:4] + calls[-1:]:
+    for ws in calls[:layer_calls] + calls[-1:]:
         key = " + ".join(f"{tuple(w.shape)}{'' if w.is_contiguous() else 'T'}"
                          for w in ws)
         copies = [tuple(_copy(w) for w in ws) for _ in range(n_sets(
@@ -3179,6 +3622,7 @@ def port() -> types.SimpleNamespace:
     from repro_torch.data.scenarios import marketplace_scenario
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.launch.serve import build_engine
+    from repro_torch.models import blocks
     from repro_torch.models import (cache_dtype, chunked_prefill,
                                     decode_step, encode, forward,
                                     init_params, model_specs, prefill,
@@ -3197,9 +3641,9 @@ def main() -> int:
                     help="directory for chip_smoke.json (the full record)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile the block join on the paged, spec, "
-                         "dense and ssm engines and on yi-9b and "
-                         "starcoder2-7b, and prefilter leg (b), with "
-                         "torch.profiler")
+                         "dense and ssm engines, on yi-9b, starcoder2-7b, "
+                         "grok-1-314b and arctic-480b, and prefilter leg "
+                         "(b), with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3286,6 +3730,13 @@ def main() -> int:
     family, family_paths = run_dense_family(
         rt, ops, L, dev, args.seed, pairs, out if args.profile else None)
 
+    log("== phase 9c: the MoE family at full width by depth cut, bf16: "
+        "grok-1-314b and arctic-480b joins, speculation on, graphs; "
+        "musicgen-large and pixtral-12b whole from embeddings")
+    moe, moe_paths = run_moe_family(rt, ops, L, dev, args.seed, pairs,
+                                    out if args.profile else None)
+    family_paths.update(moe_paths)
+
     paths = dict(block_adaptive=summary, prefilter=prefilter, spec=spec,
                  dense=dense, ssm=ssm)
     every = {name: merge_shapes(list(paths.values())
@@ -3334,15 +3785,23 @@ def main() -> int:
                 {**t["shape"], **{x: t[x] for x in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
                 for t in (r, r["other_direction"])])
-        yi = family["yi-9b"]["timing"].get(k.name)
-        if yi is not None:   # yi-9b's shapes, per launch as above
-            n = yi["shape"]["launches"] if k.name == "decode_gemm" else 1
-            extra["yi_9b"] = dict(
-                shape=yi["shape"], ms=yi["ms"] / n,
-                plain_ms=yi["plain_ms"] / n,
-                library_ms=(None if yi["library_ms"] is None
-                            else yi["library_ms"] / n),
-                bound_ms=yi["bound_ms"] / n, bound_by=yi["bound_by"])
+        for arch, rec in (("yi-9b", family["yi-9b"]),
+                          ("grok-1-314b", moe["grok-1-314b"]),
+                          ("arctic-480b", moe["arctic-480b"])):
+            t = rec["timing"].get(k.name)
+            if t is None:
+                continue
+            # the arch's shapes, per launch as above, with the launches
+            # of its block + adaptive path
+            n = t["shape"]["launches"] if k.name == "decode_gemm" else 1
+            extra[arch.replace("-", "_")] = dict(
+                shape=t["shape"], ms=t["ms"] / n,
+                plain_ms=t["plain_ms"] / n,
+                library_ms=(None if t["library_ms"] is None
+                            else t["library_ms"] / n),
+                bound_ms=t["bound_ms"] / n, bound_by=t["bound_by"],
+                launches=rec["base"]["launches"][k.name],
+                launches_spec=rec["spec"]["launches"][k.name])
         kernels.append(dict(
             name=k.name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{k.source}.cu",
@@ -3358,7 +3817,8 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, build_s=times, main_path=summary,
         prefilter_path=prefilter, spec_path=spec, dense_path=dense,
-        ssm_path=ssm, graphs=graphs, dense_family=family, profiles=profiles,
+        ssm_path=ssm, graphs=graphs, dense_family=family, moe_family=moe,
+        profiles=profiles,
         timing=timing, kernels=kernels), indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())

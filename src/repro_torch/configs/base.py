@@ -24,7 +24,8 @@ _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 #: Architectures whose config module the PyTorch port carries so far; the
 #: rest wait for the port of their model family (ROADMAP.md queue A).
 PORTED_ARCH_IDS = ["granite-3-2b", "mamba2-130m", "yi-9b", "starcoder2-7b",
-                   "mistral-large-123b"]
+                   "mistral-large-123b", "grok-1-314b", "arctic-480b",
+                   "musicgen-large", "pixtral-12b"]
 
 
 def _round_up(x: int, m: int) -> int:

@@ -12,13 +12,18 @@ teacher-forces the answers, so every prefill, cache write and decode step
 runs for real with honest token accounting.  The engine runs on ``cuda``
 in bf16 unless ``--device cpu`` is given (fp32 there).  The tuple join
 answers each pair by decoding, or with ``REPRO_SCORE_JOIN=1`` by scoring
-Yes/No from one prefill pass (zero decode steps).  Replicas and tensor
+Yes/No from one prefill pass (zero decode steps).  grok-1-314b and
+arctic-480b fit one card only cut in depth (``build_engine(layers=)``),
+so the launcher serves them with ``--smoke``.  The embedding-input archs
+(musicgen-large, pixtral-12b) take embeddings, which the engine does not
+prefill: it refuses them.  Replicas and tensor
 parallelism (``--replicas``/``--tp`` above 1) are not yet ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import Optional, Sequence
 
 import torch
@@ -34,12 +39,16 @@ from repro_torch.serve import Engine, EngineClient
 
 
 def build_engine(arch: str, *, smoke: bool = False, device="cuda",
-                 seed: int = 0, max_seq: int = 1024, slots: int = 4) -> Engine:
+                 seed: int = 0, max_seq: int = 1024, slots: int = 4,
+                 layers: Optional[int] = None) -> Engine:
     """An engine over random weights drawn on ``device`` from ``seed``:
-    bf16 on the card, fp32 on the CPU."""
+    bf16 on the card, fp32 on the CPU; ``layers`` cuts the config's
+    depth (grok-1-314b and arctic-480b fit one card only so)."""
     device = resolve_device(device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(model_specs(cfg), gen, dtype, device)
     return Engine(cfg, params, ByteTokenizer(cfg.vocab_size),

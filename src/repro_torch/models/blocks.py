@@ -1,5 +1,5 @@
-"""Transformer blocks of the dense family: pre-norm GQA attention with
-RoPE and a pre-norm SwiGLU FFN (specs + apply), after
+"""Transformer blocks: pre-norm GQA attention with RoPE, a pre-norm
+SwiGLU FFN and the MoE family's routed-expert FFN (specs + apply), after
 ``repro.models.blocks``.
 
 Attention goes through the kernel wrappers of
@@ -18,7 +18,8 @@ has no meaning here.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -253,3 +254,124 @@ def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor,
         return L.swiglu(xn, p["w_gate"], p["w_up"], p["w_down"])
     g, u = ops.decode_linear_group(xn, (p["w_gate"], p["w_up"]))
     return ops.decode_linear(L.swiglu_gate(g, u), p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN block -- GShard-style token-dropping dispatch
+# ---------------------------------------------------------------------------
+
+
+def moe_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    specs = {
+        "norm": Spec((D,), ("embed",), init="ones"),
+        "router": Spec((D, E), ("embed", "experts"), scale=0.02),
+        "w_gate": Spec((E, D, F), ("experts", "embed", "expert_mlp")),
+        "w_up": Spec((E, D, F), ("experts", "embed", "expert_mlp")),
+        "w_down": Spec((E, F, D), ("experts", "expert_mlp", "embed")),
+    }
+    if cfg.moe_dense_residual:  # arctic: parallel dense FFN
+        specs["dense"] = mlp_specs(cfg)
+    return specs
+
+
+def moe_groups(cfg: ModelConfig, T: int) -> Tuple[int, int]:
+    """``(G, C)`` of a pass over ``T`` tokens: ``cfg.moe_groups`` or one
+    group per 512 tokens, lowered until it divides ``T``, and each
+    expert's capacity ``ceil(N k capacity_factor / E)`` in a group of
+    ``N = T / G`` tokens."""
+    G = cfg.moe_groups or max(1, T // 512)
+    while T % G:
+        G -= 1
+    N = T // G
+    C = math.ceil(N * cfg.experts_per_token * cfg.capacity_factor
+                  / cfg.n_experts)
+    return G, max(int(C), 1)
+
+
+def top_k(gates: torch.Tensor, k: int) -> Tuple[torch.Tensor,
+                                                 torch.Tensor]:
+    """The ``k`` largest of each row of ``gates (..., E)`` in descending
+    order, equal values to the lower index, as ``jax.lax.top_k`` takes
+    them → ``(values, indices)`` ``(..., k)``.  Each entry's rank is the
+    count of entries ahead of it; the entry of rank ``j`` is choice
+    ``j``.  Elementwise ops and sums only (a sort copies its input with
+    a device-to-device memcpy, which a CUDA graph replays as a kernel of
+    another name)."""
+    E = gates.shape[-1]
+    idx = torch.arange(E, device=gates.device)
+    row, col = gates[..., :, None], gates[..., None, :]
+    ahead = (col > row) | ((col == row) & (idx[None, :] < idx[:, None]))
+    rank = ahead.sum(dim=-1)                                  # (..., E)
+    pick = rank[..., None] == torch.arange(k, device=gates.device)
+    # one entry of each column is picked: the sums are exact
+    values = (gates[..., None] * pick).sum(dim=-2)
+    indices = (idx[:, None] * pick).sum(dim=-2)
+    return values, indices
+
+
+def moe_dispatch(cfg: ModelConfig, gates: torch.Tensor, C: int):
+    """The capacity assignment of ``gates (G, N, E)`` fp32 →
+    ``(dispatch, combine, keep)``: ``dispatch``/``combine`` ``(G, N, E,
+    C)`` (combine weighted by the renormalised top-k gates) and ``keep``
+    ``(G, N * k, E)``, the routed choices that found a slot.
+
+    Each token takes its top ``k`` experts, ties to the lower index
+    (:func:`top_k`); choices take slots in token-major, choice-major
+    order through an exclusive cumsum, and a choice past ``C`` is
+    dropped.  Every step is a fixed-shape tensor op (one-hots by
+    comparison with an ``arange``), so a captured pass holds it."""
+    G, N, E = gates.shape
+    k = cfg.experts_per_token
+    topv, topi = top_k(gates, k)                             # (G,N,k)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    experts = torch.arange(E, device=gates.device)
+    flat = (topi[..., None] == experts).to(torch.float32).reshape(G, N * k, E)
+    pos = torch.cumsum(flat, dim=1) - flat                  # exclusive
+    keep = (pos < C).to(torch.float32) * flat               # (G,N*k,E)
+    slots = torch.arange(C, device=gates.device, dtype=pos.dtype)
+    slot = (pos[..., None] == slots).to(torch.float32)      # (G,N*k,E,C)
+    dispatch = (keep[..., None] * slot).reshape(G, N, k, E, C)
+    combine = (dispatch * topv[..., None, None]).sum(dim=2)
+    return dispatch.sum(dim=2), combine, keep
+
+
+def moe_apply(cfg: ModelConfig, p, x: torch.Tensor,
+              decode: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed experts with capacity-bounded one-hot dispatch →
+    ``(out, aux)``, ``aux`` the Switch load-balance loss (fp32 scalar).
+
+    The tokens of the whole pass are routed together (``moe_groups``), so
+    a row's output depends on the pass's other rows, pad and inactive
+    rows included.  The block's norm and the router product go through
+    :func:`row_ops` (the row-invariant kernels on the decode and verify
+    passes); the router's softmax is fp32.  ``dispatch`` and ``combine``
+    are cast to ``x.dtype`` before their products, as the JAX package
+    casts them (bf16 gate weights on the card).  The expert products are
+    batched matmuls over all ``E`` experts and ``C`` slots, empty slots
+    included.  arctic's dense residual is :func:`mlp_apply` on ``x``."""
+    Bsz, S, D = x.shape
+    T = Bsz * S
+    E = cfg.n_experts
+    G, C = moe_groups(cfg, T)
+    N = T // G
+    norm, mm = row_ops(decode)
+    xg = norm(x, p["norm"], cfg.norm_eps).reshape(G, N, D)
+    gates = torch.softmax(mm(xg, p["router"]).float(), dim=-1)  # (G,N,E)
+    dispatch, combine, keep = moe_dispatch(cfg, gates, C)
+    dt = x.dtype
+    # "gnd,gnec->gecd": each group's slots gather their tokens
+    xe = dispatch.to(dt).reshape(G, N, E * C).transpose(1, 2) @ xg
+    xe = xe.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+    h = L.swiglu_gate(xe @ p["w_gate"], xe @ p["w_up"])         # (E,GC,F)
+    ye = (h @ p["w_down"]).reshape(E, G, C, D).transpose(0, 1)  # (G,E,C,D)
+    # "gecd,gnec->gnd": each token sums its slots' outputs
+    y = combine.to(dt).reshape(G, N, E * C) @ ye.reshape(G, E * C, D)
+    out = y.reshape(Bsz, S, D)
+    # Switch aux loss: E * sum_e (share routed to e) * (mean gate of e)
+    k = cfg.experts_per_token
+    frac = keep.reshape(G, N, k, E).sum(dim=(1, 2)) / (N * k)  # (G,E)
+    aux = E * torch.mean(torch.sum(frac * gates.mean(dim=1), dim=-1))
+    if cfg.moe_dense_residual:
+        out = out + mlp_apply(cfg, p["dense"], x, decode)
+    return out, aux

@@ -1,5 +1,5 @@
-"""Decoder assembly of the dense and ssm families, after
-``repro.models.model``.
+"""Decoder assembly of the dense, MoE, ssm and embedding-input families,
+after ``repro.models.model``.
 
 Public surface (plain functions of ``(cfg, params, ...)``):
 
@@ -17,22 +17,29 @@ Public surface (plain functions of ``(cfg, params, ...)``):
 * :func:`verify_step`     — one pass over a K-token speculative window,
   dense or paged
 
-On the dense family's decode and verify passes every norm and product
-goes through the row-invariant kernels (``ops.rmsnorm``,
-``ops.decode_linear``): a row's logits do not depend on how many rows
-the pass holds, so a verify window's rows equal the decode steps they
-stand for, bit for bit, on the card as on the CPU.
+On the decode and verify passes every norm and dense product goes
+through the row-invariant kernels (``ops.rmsnorm``,
+``ops.decode_linear``): a dense-family row's logits do not depend on how
+many rows the pass holds, so a verify window's rows equal the decode
+steps they stand for, bit for bit, on the card as on the CPU.  The MoE
+family routes the tokens of a whole pass together under a capacity
+(:func:`blocks.moe_apply`), so its rows are coupled and a verify window
+is not its decode steps, in the reference too (ROADMAP.md §C).
 
 The JAX package scans the stacked layer weights with ``lax.scan``; here a
-Python loop takes layer ``i``'s views ``leaf[i]``.  Two families are
-ported: ``dense`` (granite-3-2b, yi-9b, starcoder2-7b with its padded
-heads, mistral-large-123b; attention layers over a KV cache, in the
-activation dtype or, with ``cfg.kv_cache_dtype="float8_e4m3fn"``, in
-e4m3, every write through :func:`layers.to_cache`) and
-``ssm`` (mamba2-130m; Mamba2 layers over a conv and an SSM state, which
-``chunked_prefill`` and ``verify_step`` refuse as the JAX package does).
-MoE, hybrid and embedding-input families wait for later slices
-(ROADMAP.md queue A items 10, 11 and 12).
+Python loop takes layer ``i``'s views ``leaf[i]``.  Ported families:
+``dense`` (granite-3-2b, yi-9b, starcoder2-7b with its padded heads,
+mistral-large-123b; attention layers over a KV cache, in the activation
+dtype or, with ``cfg.kv_cache_dtype="float8_e4m3fn"``, in e4m3, every
+write through :func:`layers.to_cache`), ``moe`` (grok-1-314b,
+arctic-480b with its dense residual and padded heads: the dense layers
+with the MoE block for the MLP), ``audio`` and ``vlm`` (musicgen-large,
+pixtral-12b: the dense layers over ``batch["embeds"]`` in prefill,
+``forward`` and ``encode``; decode and verify embed tokens, as in the
+reference) and ``ssm`` (mamba2-130m; Mamba2 layers over a conv and an SSM
+state, which ``chunked_prefill`` and ``verify_step`` refuse as the JAX
+package does).  The hybrid family waits for a later slice (ROADMAP.md
+queue A item 11).
 """
 
 from __future__ import annotations
@@ -45,30 +52,32 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
-from repro_torch.models.params import Spec, stack_specs
+from repro_torch.models.params import Spec, stack_specs, tree_map
 
 #: Families whose per-request state is a pure KV cache — the only ones the
 #: engine pages, prefix-caches and speculates for.  An SSM state
 #: summarizes the whole prefix into a fixed-size vector that cannot be
-#: re-anchored mid-sequence or rolled back (``repro.models.model``).  Of
-#: the reference's KV-only families the port runs ``dense`` alone; a slice
-#: that ports ``moe``, ``audio`` or ``vlm`` adds it here.
-KV_ONLY_FAMILIES = ("dense",)
+#: re-anchored mid-sequence or rolled back (``repro.models.model``).
+KV_ONLY_FAMILIES = ("dense", "audio", "vlm", "moe")
+
+#: the families the port runs, by input mode
+_PORTED = {"tokens": ("dense", "moe", "ssm"),
+           "embeddings": ("audio", "vlm")}
 
 #: the K/V storage dtypes ``cfg.kv_cache_dtype`` may name besides "auto"
 _KV_CACHE_DTYPES = {"float8_e4m3fn": torch.float8_e4m3fn}
 
 
 def _family(cfg: ModelConfig) -> str:
-    """``cfg.family`` if the port runs it (``dense`` or ``ssm`` on token
-    inputs); raises ``NotImplementedError`` naming the ROADMAP.md item
-    otherwise."""
-    if cfg.family in ("dense", "ssm") and cfg.input_mode == "tokens":
+    """``cfg.family`` if the port runs it (``dense``, ``moe`` or ``ssm``
+    on token inputs, ``audio`` or ``vlm`` on embeddings); raises
+    ``NotImplementedError`` otherwise."""
+    if cfg.family in _PORTED.get(cfg.input_mode, ()):
         return cfg.family
     raise NotImplementedError(
-        f"family {cfg.family!r} (input_mode {cfg.input_mode!r}) is not "
-        "yet ported to repro_torch: MoE is ROADMAP.md queue A item 10, "
-        "hybrid item 11, embedding inputs item 12")
+        f"family {cfg.family!r} on input_mode {cfg.input_mode!r} is not "
+        f"ported to repro_torch (ported: {_PORTED}); the hybrid family is "
+        "ROADMAP.md queue A item 11")
 
 
 def _require_kv(cfg: ModelConfig, what: str) -> None:
@@ -85,8 +94,11 @@ def _require_kv(cfg: ModelConfig, what: str) -> None:
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     D, V = cfg.d_model, cfg.padded_vocab
-    if _family(cfg) == "ssm":
+    fam = _family(cfg)
+    if fam == "ssm":
         block = {"mamba": M.mamba_specs(cfg)}
+    elif fam == "moe":
+        block = {"attn": B.attn_specs(cfg), "moe": B.moe_specs(cfg)}
     else:
         block = {"attn": B.attn_specs(cfg), "mlp": B.mlp_specs(cfg)}
     specs: Dict[str, Any] = {
@@ -167,9 +179,33 @@ def cache_dtype(cfg: ModelConfig, name: str, dtype) -> torch.dtype:
 
 
 def _layer(params, i: int):
-    """Layer ``i``'s weights: views into the stacked leaves."""
-    return {blk: {name: w[i] for name, w in leaves.items()}
-            for blk, leaves in params["blocks"].items()}
+    """Layer ``i``'s weights: views into the stacked leaves (arctic's
+    ``moe/dense`` sub-tree included)."""
+    return tree_map(lambda w: w[i], params["blocks"])
+
+
+def _ffn(cfg: ModelConfig, lp, x: torch.Tensor, decode: bool = False):
+    """The layer's FFN → ``(out, aux)``: the MoE block with its aux loss,
+    or the dense MLP (``aux`` None)."""
+    if "moe" in lp:
+        return B.moe_apply(cfg, lp["moe"], x, decode)
+    return B.mlp_apply(cfg, lp["mlp"], x, decode), None
+
+
+def _embed_inputs(cfg: ModelConfig, params,
+                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The first hidden states of a prefill-shaped pass: ``batch["embeds"]``
+    ``(B, S, D)`` for ``input_mode == "embeddings"`` (musicgen's EnCodec
+    frames, pixtral's patches; the frontends are stubs, as in the
+    reference), else the embedded ``batch["tokens"]``."""
+    if cfg.input_mode == "embeddings":
+        return batch["embeds"]
+    return L.embed(batch["tokens"], params["embed"])
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    Bsz, S = x.shape[0], x.shape[1]
+    return torch.arange(S, device=x.device).expand(Bsz, S)
 
 
 def _unembed_table(cfg: ModelConfig, params) -> torch.Tensor:
@@ -198,12 +234,16 @@ def _last_logits(cfg: ModelConfig, params, x: torch.Tensor,
 
 def _backbone(cfg: ModelConfig, params, x: torch.Tensor,
               positions: torch.Tensor, ks: Optional[torch.Tensor] = None,
-              vs: Optional[torch.Tensor] = None) -> torch.Tensor:
+              vs: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layers over full sequences (causal: flash attention, or the
-    SSD scan), then the final norm.  With ``ks``/``vs`` ``(layers, B, >=
-    S, KV, hd)`` each layer's K/V land at ``[i, :, :S]``; without them
-    nothing is kept."""
+    SSD scan), then the final norm → ``(hidden, aux)``, ``aux`` the sum of
+    the MoE layers' aux losses (a zero fp32 scalar for the other
+    families), as the JAX scan carries it.  With ``ks``/``vs`` ``(layers,
+    B, >= S, KV, hd)`` each layer's K/V land at ``[i, :, :S]``; without
+    them nothing is kept."""
     S = x.shape[1]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         if _family(cfg) == "ssm":
@@ -215,8 +255,11 @@ def _backbone(cfg: ModelConfig, params, x: torch.Tensor,
         if ks is not None:
             ks[i, :, :S] = L.to_cache(k, ks.dtype)
             vs[i, :, :S] = L.to_cache(v, vs.dtype)
-        x = x + B.mlp_apply(cfg, lp["mlp"], x)
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        out, a = _ffn(cfg, lp, x)
+        x = x + out
+        if a is not None:
+            aux = aux + a
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 # ---------------------------------------------------------------------------
@@ -227,16 +270,14 @@ def _backbone(cfg: ModelConfig, params, x: torch.Tensor,
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forcing logits over the full sequence → ``(logits (B, S,
-    vocab) fp32, aux)``, after ``repro.models.model.forward``: embed, the
-    layers, the final norm, the unembed.  ``aux`` is a zero fp32 scalar:
-    neither ported family has an auxiliary loss."""
-    tokens = batch["tokens"]
-    x = L.embed(tokens, params["embed"])
-    Bsz, S = tokens.shape
-    positions = torch.arange(S, device=x.device).expand(Bsz, S)
-    x = _backbone(cfg, params, x, positions)
+    vocab) fp32, aux)``, after ``repro.models.model.forward``: embed (or
+    ``batch["embeds"]``), the layers, the final norm, the unembed.
+    ``aux`` is the sum of the MoE layers' Switch losses (fp32; zero for
+    the other families)."""
+    x = _embed_inputs(cfg, params, batch)
+    x, aux = _backbone(cfg, params, x, _positions(x))
     logits = L.unembed(x, _unembed_table(cfg, params))
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def prefill(
@@ -251,12 +292,13 @@ def prefill(
     after the row's last valid position (:func:`_mamba_prefill`;
     ``max_seq`` is not used).  ``valid_len`` (B,) makes ragged rows exact
     and selects each row's last valid position for the logits;
-    ``all_logits=True`` returns ``(B, S, vocab)`` instead.
+    ``all_logits=True`` returns ``(B, S, vocab)`` instead.  The inputs are
+    ``batch["tokens"]``, or ``batch["embeds"]`` ``(B, S, D)`` for an
+    embedding-input config.
     """
-    tokens = batch["tokens"]
-    x = L.embed(tokens, params["embed"])
-    Bsz, S = tokens.shape
-    positions = torch.arange(S, device=x.device).expand(Bsz, S)
+    x = _embed_inputs(cfg, params, batch)
+    Bsz, S = x.shape[0], x.shape[1]
+    positions = _positions(x)
     if _family(cfg) == "ssm":
         cache, x = _mamba_layers(cfg, params, x, positions, valid_len)
     else:
@@ -265,7 +307,7 @@ def prefill(
         shape = (cfg.n_layers, Bsz, max_seq, KV, hd)
         cache = {"k": torch.zeros(shape, dtype=dt, device=x.device),
                  "v": torch.zeros(shape, dtype=dt, device=x.device)}
-        x = _backbone(cfg, params, x, positions, cache["k"], cache["v"])
+        x, _ = _backbone(cfg, params, x, positions, cache["k"], cache["v"])
     if all_logits:
         logits = L.unembed(x, _unembed_table(cfg, params))
     else:
@@ -369,11 +411,9 @@ def encode(
     stays out of every position ``< valid_len``, and only those are
     pooled.
     """
-    tokens = batch["tokens"]
-    x = L.embed(tokens, params["embed"])
-    Bsz, S = tokens.shape
-    positions = torch.arange(S, device=x.device).expand(Bsz, S)
-    xf = _backbone(cfg, params, x, positions).float()
+    x = _embed_inputs(cfg, params, batch)
+    positions = _positions(x)
+    xf = _backbone(cfg, params, x, positions)[0].float()
     if valid_len is None:
         return xf.mean(dim=1)
     mask = (positions < valid_len.to(x.device)[:, None]).float()   # (B, S)
@@ -400,9 +440,8 @@ def chunked_prefill(
     prefix cache off for them).
     """
     _require_kv(cfg, "chunked prefill")
-    tokens = batch["tokens"]
-    x = L.embed(tokens, params["embed"])
-    Bsz, S = tokens.shape
+    x = _embed_inputs(cfg, params, batch)
+    Bsz, S = x.shape[0], x.shape[1]
     positions = (prefix_len.long()[:, None]
                  + torch.arange(S, device=x.device)[None])
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
@@ -436,7 +475,7 @@ def chunked_prefill(
         else:
             place(ks[i], k, prefix_k[i])
             place(vs[i], v, prefix_v[i])
-        x = x + B.mlp_apply(cfg, lp["mlp"], x)
+        x = x + _ffn(cfg, lp, x)[0]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if all_logits:
         logits = L.unembed(x, _unembed_table(cfg, params))
@@ -505,7 +544,7 @@ def decode_step(
             out, _, _ = B.attn_decode(cfg, lp["attn"], x, k_all[i], v_all[i],
                                       cache_len)
         x = x + out
-        x = x + B.mlp_apply(cfg, lp["mlp"], x, decode=True)
+        x = x + _ffn(cfg, lp, x, decode=True)[0]
     logits = _decode_logits(cfg, params, x)[:, 0]
     return dict(cache, len=cache_len + step), logits
 
@@ -566,6 +605,6 @@ def verify_step(
             out, _, _ = B.attn_verify(cfg, lp["attn"], x, k_all[i], v_all[i],
                                       cache_len, write_at, keep)
         x = x + out
-        x = x + B.mlp_apply(cfg, lp["mlp"], x, decode=True)
+        x = x + _ffn(cfg, lp, x, decode=True)[0]
     logits = _decode_logits(cfg, params, x)   # (B, K, vocab)
     return dict(cache), logits

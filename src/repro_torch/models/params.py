@@ -39,6 +39,12 @@ class Spec:
 
 SpecTree = Any  # nested dicts of Spec
 
+#: a normal leaf of up to this many elements is drawn in one fp32 call
+#: (every leaf of the dense and ssm families); a larger one in slices of
+#: ``_DRAW_SLICE`` elements, in order
+_DRAW_WHOLE = 2 ** 32
+_DRAW_SLICE = 2 ** 28
+
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks
@@ -89,9 +95,21 @@ def _init_one(spec: Spec, generator: torch.Generator, dtype,
     if spec.init == "normal":
         fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
         std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
-        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return (x * std).to(dtype)
+        n = math.prod(spec.shape)
+        if n <= _DRAW_WHOLE:
+            x = torch.randn(spec.shape, generator=generator,
+                            dtype=torch.float32, device=device)
+            return x.mul_(std).to(dtype)
+        # an expert stack (grok-1-314b at 4 layers: 24 GiB in fp32) is
+        # drawn in slices, so the fp32 draw never holds more than one
+        out = torch.empty(spec.shape, dtype=dtype, device=device)
+        flat = out.view(-1)
+        for i in range(0, n, _DRAW_SLICE):
+            m = min(_DRAW_SLICE, n - i)
+            flat[i:i + m] = torch.randn(m, generator=generator,
+                                        dtype=torch.float32,
+                                        device=device).mul_(std)
+        return out
     raise ValueError(f"unknown init {spec.init}")
 
 

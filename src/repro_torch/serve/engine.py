@@ -44,6 +44,11 @@ What carries over unchanged from the JAX engine:
   per-position logits, zero decode steps, pages released right after.
 * **The embedding surface** (:meth:`Engine.embed_rows`) — a bucketed,
   cache-free encode pass returning mean-pooled fp32 hidden states.
+* **The MoE family** (grok-1-314b, arctic-480b) — served as ``dense``,
+  with paging, the prefix cache, speculation and graphs.  Its experts
+  route every pass's tokens together under a capacity, so the port
+  builds each pass at the JAX engine's padded shapes (slots x bucket,
+  pad rows of one token, inactive slots fed as the executor feeds them).
 * **The ssm family** (mamba2) — the same slot API over per-slot conv and
   SSM states (:class:`DecodeState`, every leaf at its own batch axis and
   dtype); paging, the prefix cache and speculation are gated off, as the
@@ -309,9 +314,16 @@ class Engine:
         mesh: Any = None,
         quant: Optional[bool] = None,
     ):
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.input_mode != "tokens":
+            raise ValueError(
+                f"the engine prefills token prompts; {cfg.name} "
+                f"({cfg.family!r} family) takes embeddings "
+                f"(input_mode={cfg.input_mode!r}), which the JAX engine "
+                "cannot serve either: run it through repro_torch.models "
+                "(forward, prefill from embeds, decode_step)")
+        if cfg.family not in ("dense", "moe", "ssm"):
             raise _not_ported(f"serving the {cfg.family!r} family",
-                              "queue A items 10-12")
+                              "queue A item 11")
         if mesh is not None:
             raise _not_ported("a tensor-parallel engine (mesh=)",
                               "queue A item 13")

@@ -24,7 +24,9 @@ launch of any number of rows, and the SSD scan a batch row the bits of
 that row launched alone; both give the same bits whether their inputs
 are staged by 16-byte vectors or, off the 16-byte grid, by scalar loads.
 Each pass kind the engine captures as a CUDA graph (paged and dense
-decode and verify, mamba2 decode) gives, replayed, the eager pass's
+decode and verify, mamba2 decode, and the MoE family's paged decode and
+verify, its capacity routing inside the graph) gives, replayed, the
+eager pass's
 logits and cache writes bit for bit, with new inputs at every replay and
 after a wrapper's scratch buffer was replaced.
 """
@@ -83,7 +85,12 @@ def _randn(g, dtype, *shape):
     (1, 129, 6, 3, 32),
     # yi-9b (G 8), starcoder2-7b (48 padded heads, G 12) over KV 4 and
     # mistral-large-123b (G 12 over KV 8) at hd 128
-    (2, 130, 32, 4, 128), (1, 65, 48, 4, 128), (1, 64, 96, 8, 128)])
+    (2, 130, 32, 4, 128), (1, 65, 48, 4, 128), (1, 64, 96, 8, 128),
+    # grok-1-314b (G 6), arctic-480b (64 padded heads, G 8) over KV 8 at
+    # hd 128; musicgen-large (MHA, G 1) and pixtral-12b (G 4) at hd 64
+    # and 128
+    (2, 130, 48, 8, 128), (1, 129, 64, 8, 128), (2, 96, 32, 32, 64),
+    (1, 65, 32, 8, 128)])
 def test_flash_kernel_on_card(cuda, dtype, B, S, H, KV, hd):
     g = torch.Generator(cuda).manual_seed(S)
     q = _randn(g, dtype, B, S, H, hd)
@@ -109,7 +116,9 @@ def test_flash_kernel_on_card(cuda, dtype, B, S, H, KV, hd):
     (2, 127, 1000, 8, 2, 64, [999, 0]),
     (3, 64, 64, 6, 3, 32, [0, 64, 65]),
     # G 8 and 12 over KV 4 at hd 128
-    (2, 129, 200, 32, 4, 128, [150, 0]), (2, 64, 300, 48, 4, 128, [300, 0])])
+    (2, 129, 200, 32, 4, 128, [150, 0]), (2, 64, 300, 48, 4, 128, [300, 0]),
+    # G 6 and 8 over KV 8 at hd 128 (the MoE engines' prefix-cache hits)
+    (2, 129, 200, 48, 8, 128, [150, 0]), (2, 64, 300, 64, 8, 128, [300, 0])])
 def test_chunked_prefill_kernel_on_card(cuda, dtype, B, S, P, H, KV, hd,
                                         plens):
     g = torch.Generator(cuda).manual_seed(P)
@@ -134,7 +143,9 @@ def test_chunked_prefill_kernel_on_card(cuda, dtype, B, S, P, H, KV, hd,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KV,hd,page,n_slots", [
     (4, 32, 8, 64, 16, 64), (2, 4, 1, 128, 16, 8), (3, 8, 2, 16, 8, 6),
-    (4, 32, 4, 128, 16, 64), (4, 48, 4, 128, 16, 64), (2, 96, 8, 128, 16, 8)])
+    (4, 32, 4, 128, 16, 64), (4, 48, 4, 128, 16, 64), (2, 96, 8, 128, 16, 8),
+    # G 6 and 8 over KV 8 at hd 128 (grok-1-314b, arctic-480b)
+    (4, 48, 8, 128, 16, 64), (4, 64, 8, 128, 16, 64)])
 def test_paged_decode_kernel_on_card(cuda, dtype, B, H, KV, hd, page,
                                      n_slots):
     n_pages = B * n_slots + 1
@@ -174,7 +185,9 @@ def _pool(g, dtype, B, H, KV, hd, page, n_slots):
     # G 8 (72 rows) and 12 (108 rows; 156 at K 13, walked in two
     # launches) over KV 4, and G 12 over KV 8, at hd 128
     (4, 9, 32, 4, 128, 16, 64), (4, 9, 48, 4, 128, 16, 64),
-    (2, 13, 48, 4, 128, 16, 64), (2, 9, 96, 8, 128, 16, 8)])
+    (2, 13, 48, 4, 128, 16, 64), (2, 9, 96, 8, 128, 16, 8),
+    # grok-1-314b's 54 rows (G 6) and arctic-480b's 72 (G 8) over KV 8
+    (4, 9, 48, 8, 128, 16, 64), (4, 9, 64, 8, 128, 16, 64)])
 def test_spec_verify_kernel_on_card(cuda, dtype, B, K, H, KV, hd, page,
                                     n_slots):
     """Against the plain version; every row ``j`` against the paged decode
@@ -210,7 +223,10 @@ def test_spec_verify_kernel_on_card(cuda, dtype, B, K, H, KV, hd, page,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KV,hd,Skv", [
     (4, 32, 8, 64, 1024), (2, 4, 1, 128, 128), (3, 8, 2, 16, 96),
-    (4, 32, 4, 128, 1024), (4, 48, 4, 128, 1024), (2, 96, 8, 128, 128)])
+    (4, 32, 4, 128, 1024), (4, 48, 4, 128, 1024), (2, 96, 8, 128, 128),
+    # musicgen-large (MHA, G 1, hd 64), pixtral-12b (G 4), grok-1-314b
+    # (G 6)
+    (4, 32, 32, 64, 1024), (4, 32, 8, 128, 1024), (4, 48, 8, 128, 1024)])
 def test_dense_decode_kernel_on_card(cuda, dtype, B, H, KV, hd, Skv):
     """Against the plain version, and bit for bit against the paged decode
     kernel on the same rows laid out as pages."""
@@ -879,12 +895,14 @@ def test_decode_kernels_at_chunk_edges(cuda, dtype, H, KV, hd):
 # ---------------------------------------------------------------------------
 
 GRAPH_KINDS = ["paged-decode", "paged-verify", "dense-decode",
-               "dense-verify", "ssm-decode"]
+               "dense-verify", "ssm-decode", "moe-decode", "moe-verify"]
 
 
 def _graph_case(cuda, kind, dtype, steps=4):
-    """One captured pass kind on 2 full-width layers (granite-3-2b, or
-    mamba2-130m for ``ssm``) at 4 rows: the pass as the engine captures
+    """One captured pass kind on 2 full-width layers (granite-3-2b,
+    mamba2-130m for ``ssm``, grok-1-314b on a paged cache for ``moe``,
+    whose capacity routing runs inside the graph) at 4 rows: the pass as
+    the engine captures
     it, its static inputs, the names staged from the host, and ``steps``
     host inputs that each change the tokens, ``active``, the lengths and
     the page table, lengths that cross the page table's capacity or the
@@ -893,8 +911,9 @@ def _graph_case(cuda, kind, dtype, steps=4):
     g = torch.Generator(cuda).manual_seed(9)
     rng = torch.Generator().manual_seed(9)
     B, page, n_slots, K = 4, 16, 64, (9 if kind_ == "verify" else 1)
-    if family == "ssm":
-        cfg = dataclasses.replace(get_config("mamba2-130m"), n_layers=2)
+    if family in ("ssm", "moe"):
+        arch = "mamba2-130m" if family == "ssm" else "grok-1-314b"
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
         params = init_params(model_specs(cfg), g, dtype, cuda)
     else:
         cfg, params = _granite_layers(cuda, dtype)
@@ -904,7 +923,7 @@ def _graph_case(cuda, kind, dtype, steps=4):
     if kind_ == "decode":
         inputs["active"] = torch.zeros(B, dtype=torch.bool, device=cuda)
         staged.append("active")
-    if family == "paged":
+    if family in ("paged", "moe"):
         n_pages = B * n_slots + 1
         inputs.update(len=torch.zeros(B, dtype=torch.int32, device=cuda),
                       pages=torch.zeros(B, n_slots, dtype=torch.int32,
@@ -933,7 +952,7 @@ def _graph_case(cuda, kind, dtype, steps=4):
             return verify_step(cfg, params, cache, x["tokens"])[1]
         new, logits = decode_step(cfg, params, cache, x["tokens"],
                                   active=x["active"])
-        if family != "paged":
+        if family in ("dense", "ssm"):
             cache["len"].copy_(new["len"])
         return logits
 
@@ -943,7 +962,7 @@ def _graph_case(cuda, kind, dtype, steps=4):
                                      generator=rng).numpy()}
         if kind_ == "decode":
             h["active"] = (torch.arange(B) != i % B).numpy()
-        if family == "paged":
+        if family in ("paged", "moe"):
             # a new table and new lengths each step, one window past the
             # table's capacity
             h["pages"] = torch.randperm(B * n_slots + 1, generator=rng)[

@@ -102,7 +102,7 @@ def test_init_params_is_seeded_and_shaped():
 
 def test_unported_configs_raise():
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("grok-1-314b")
+        get_config("jamba-1.5-large-398b")
 
 
 @pytest.fixture(params=[False, True], ids=["xla", "pallas"])
