@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
 
-The port has nine CUDA kernels on five paths, over the dense family
+The port has nine CUDA kernels on six paths (the sixth the cluster of
+phase 9d), over the dense family
 (granite-3-2b; yi-9b and starcoder2-7b in phase 9b; mistral-large-123b
 cut to two layers in phase 3), the MoE family (grok-1-314b and
 arctic-480b cut in depth, phase 9c), the embedding-input families
@@ -173,6 +174,37 @@ no result line:
    root of the depth, then in bf16 (the launches, the wall, and each
    path's distance from the fp32 one, recorded); no join (the engine
    prefills token prompts and refuses them);
+9d. the cluster: phase 4's engine settings as ``Cluster`` replicas on
+   the one card over phase 4's weights (shared by reference), each with
+   its own KV pool, prefix cache, graphs, worker thread and CUDA stream,
+   behind the prefix-affinity router: (a) phase 4's joins through a
+   ``ClusterClient``, each gang-submitted (``hold``), at 1 replica (the
+   block join at the lone engine's counts) and at 2 (the block join at
+   ``EXPECTED[("cluster", "base")]``, each replica's calls, passes and
+   decode steps too), phase 4's pairs, the Ledger the replicas' sum, the
+   merged ``ttft_s`` + ``score_e2e_s`` counts equal to
+   ``requests_finished``, no step retried where no fault is armed, and
+   each replica's host seconds in its steps and waiting for its lock and
+   the capture gate printed; (b) greedy decoding without an oracle, 8
+   prompts of one length, token for token a lone engine's (computed
+   before the counted run); (c) prefilter legs (b)
+   and (c) through the cluster (``submit_score``, ``EngineEmbedder``
+   over the cluster): leg (c)'s vectors and candidates phase 5's bit for
+   bit (each replica embeds phase 5's batches), the embedding's host
+   seconds apart; the launches of (a)-(c) equal to the replicas' own
+   tallies summed; (d) each replica's
+   graphs replayed == eager (``check_replay``); (e) the same joins with
+   speculation on (``EXPECTED[("cluster", "spec")]``); (f) replica 1
+   killed mid-join by a ``FaultPlan``, then by hand, and resurrected by
+   ``check_health``, 3 times: the block join's pairs and tokens each
+   time, partial attempts backed out, the dead engine freed, the reserved
+   memory growing by less than one KV pool a cycle; (g) transient step
+   errors and latency spikes (``CLUSTER_CHAOS``): both joins' pairs, the
+   block join's tokens; (h) hedging: a held request past
+   ``CLUSTER_HEDGE_S`` duplicated, first finisher wins, each handle
+   resolved once; the walls, tok/s, TTFT and peak memory at 1 and 2
+   replicas printed, and, under ``--profile``, one 2-replica block join
+   under ``torch.profiler`` (its device idle share);
 10. every kernel against its plain version again at each shape the paths
    gave it (phase 9b's e4m3 pools included); then each kernel's time
    (CUDA events, inputs rotated past the 50 MB L2) at its path's most
@@ -202,8 +234,9 @@ no result line:
    ``--profile`` adds one block join and prefilter leg (b) under
    ``torch.profiler`` (device busy share, device time by kernel), and
    one block join on each of the spec, dense and ssm paths and, in phases
-   9b and 9c, on yi-9b, starcoder2-7b, grok-1-314b and arctic-480b,
-   graphs on (each engine's graph captured before its profile).
+   9b, 9c and 9d, on yi-9b, starcoder2-7b, grok-1-314b, arctic-480b and
+   the 2-replica cluster, graphs on (each engine's graph captured before
+   its profile).
 
 Each phase sets its engine's mode itself; ``REPRO_SPEC_DECODE``,
 ``REPRO_PAGED_KV`` and ``REPRO_PREFIX_CACHE`` are dropped if set.  The
@@ -229,8 +262,10 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import types
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -392,7 +427,38 @@ EXPECTED = {
                              small_model_passes=72, large_model_passes=14,
                              small_scored_tokens=720, large_scored_tokens=140,
                              small_decode_steps=0, large_decode_steps=0),
+    # phase 9d: phase 4's block join on 2 replicas behind the affinity
+    # router, gang-submitted (``Cluster.hold``), so routing and each
+    # replica's schedule are fixed; computed with the JAX cluster at 2
+    # replicas on the CPU (tests/test_torch_cluster.py, which holds the
+    # port's to them).  Each left block's prompts share a replica, so the
+    # cluster caches 4,416 prompt tokens where one engine caches 6,336.
+    # The adaptive join's counts on a cluster follow the order in which
+    # the replicas finish, in the reference too: it is held to its pairs.
+    ("cluster", "base"): dict(
+        block=dict(calls=16, prompt_tokens=14016, cached_prompt_tokens=4416,
+                   completion_tokens=208, drafted_tokens=0,
+                   accepted_draft_tokens=0, replica_calls=[8, 8],
+                   replica_passes=[37, 34], replica_decode_steps=[33, 30])),
+    ("cluster", "spec"): dict(
+        block=dict(calls=16, prompt_tokens=14016, cached_prompt_tokens=4416,
+                   completion_tokens=208, drafted_tokens=600,
+                   accepted_draft_tokens=116, replica_calls=[8, 8],
+                   replica_passes=[20, 17], replica_decode_steps=[16, 13])),
 }
+#: phase 9d: replicas of phase 4's engine on the one card; replica 1 is
+#: killed after this many of its engine calls (``FaultPlan``), then
+#: killed and resurrected this many times in all; the transient plan
+#: (step errors and latency spikes, as ``REPRO_CHAOS`` arms them, at 5%);
+#: the age at which a request is hedged; the greedy prompts held to one
+#: engine's tokens (one length, so every prefill batch has one shape)
+CLUSTER_REPLICAS = 2
+CLUSTER_KILL_AFTER_OPS = 12
+CLUSTER_CYCLES = 3
+CLUSTER_CHAOS = dict(seed=7, step_error_rate=0.05, latency_spike_rate=0.05,
+                     spike_s=0.005)
+CLUSTER_HEDGE_S = 0.05
+CLUSTER_GREEDY = dict(prompts=8, chars=200, max_tokens=32)
 TOPK_SHAPES = [(16, 16, 8), (32, 48, 16), (64, 30, 32), (17, 13, 8),
                (31, 29, 16), (97, 101, 24), (257, 259, 8), (5, 3, 4),
                (1, 7, 8)]                  # tests/test_kernels.py:345-349
@@ -1205,7 +1271,11 @@ def run_joins(rt, ops, engine, label: str) -> tuple:
         ttft_p99_s=ttft.percentile(0.99),
         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         kv=engine.kv_stats(), prefix_cache=engine.prefix_cache_stats(),
-        launches=counts, shapes=shapes, joins=per_join)
+        launches=counts, shapes=shapes, joins=per_join,
+        retries=stats.retries)
+    if stats.retries:   # no fault is armed: a retry hides a real one
+        raise AssertionError(f"{label}: the executor retried "
+                             f"{stats.retries} failed steps")
     log(f"  {label} both joins: wall={wall:.3f} s generated="
         f"{stats.generated_tokens} ({summary['generated_tok_per_s']:.1f} "
         f"tok/s) decode_steps={stats.decode_steps} prefill_batches="
@@ -1301,9 +1371,12 @@ class RecordingEmbedder:
 
     def __init__(self, inner):
         self.inner, self.dim, self.vectors = inner, inner.dim, []
+        self.seconds = 0.0   # host wall in ``embed``, vectors on the host
 
     def embed(self, texts):
+        t = time.perf_counter()
         out = self.inner.embed(texts)
+        self.seconds += time.perf_counter() - t
         self.vectors.append(out)
         return out
 
@@ -1346,6 +1419,9 @@ def run_prefilter_path(rt, ops, dev, engine) -> dict:
                       for k, n in ops.launch_counts().items()},
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
             **extra)
+        if st and st.retries != before.retries:   # no fault is armed
+            raise AssertionError(f"leg {name}: the executor retried "
+                                 f"{st.retries - before.retries} steps")
         legs[name] = d
         log(f"  leg {name}: wall={wall:.3f} s calls={d['calls']} "
             f"candidates={d['candidates']} F1={d['f1']:.4f} "
@@ -1403,7 +1479,8 @@ def run_prefilter_path(rt, ops, dev, engine) -> dict:
                                 emb, k=4)
         recorded["c"] = (emb.vectors, 4, res.meta["candidate_pairs"])
         return res, small, dict(embed_tokens=emb.tokens_read,
-                                embed_batches=emb.inner.batches)
+                                embed_batches=emb.inner.batches,
+                                embed_s=emb.seconds)
     lc = leg("c 96x48 EngineEmbedder k=4 engine-scored", leg_c, cc)
     if (lc["embed_tokens"] != 9337 or lc["precision"] != 1.0
             or lc["calls"] != 2 + lc["candidates"] or lc["decode_steps"]):
@@ -1444,7 +1521,8 @@ def run_prefilter_path(rt, ops, dev, engine) -> dict:
         if not same:
             raise AssertionError(f"leg ({name}): kernel candidates differ "
                                  "from the plain version's")
-    return dict(wall_s=wall, launches=counts, shapes=shapes, legs=legs)
+    return (dict(wall_s=wall, launches=counts, shapes=shapes, legs=legs),
+            recorded["c"])
 
 
 def _same_counts(a: dict, b: dict, keys) -> list:
@@ -2731,6 +2809,474 @@ def run_moe_family(rt, ops, L, dev, seed: int, base_pairs: dict,
     return records, paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 9d: the cluster
+# ---------------------------------------------------------------------------
+
+
+def replica_cluster(rt, engine, n: int = CLUSTER_REPLICAS, **kw):
+    """``n`` replicas at phase 4's engine settings over ``engine``'s
+    weights (shared by reference on the one card), behind the affinity
+    router, each with its own KV pool, prefix cache, graphs and stream."""
+    return rt.Cluster.replicate(engine.cfg, engine.params, engine.tokenizer,
+                                n, max_seq=1024, slots=4, wait_timeout_s=600,
+                                **kw)
+
+
+def raw_engine(engine):
+    """The engine under a fault injector's proxy (or ``engine``)."""
+    return getattr(engine, "_engine", engine)
+
+
+def hold_conserved(label: str, cl, faults: bool = False) -> None:
+    """The cluster's ledger is the sum of its replicas', and its merged
+    ``ttft_s`` + ``score_e2e_s`` counts are its ``requests_finished``
+    (``benchmarks/serving_latency.py:122-133``).  Without ``faults``
+    armed, no step was retried (a retry would hide a real fault)."""
+    usage = cl.ledger().usage
+    parts = sum((lg.usage for lg in cl.replica_ledgers()), type(usage)(0, 0))
+    stats, m = cl.stats(), cl.metrics()
+    finished = stats.requests_finished
+    counted = sum(h.count for h in (m.get("ttft_s"), m.get("score_e2e_s"))
+                  if h is not None)
+    log(f"  {label}: ledger == the replicas' sum: {usage == parts}; "
+        f"ttft_s + score_e2e_s counts {counted}, requests_finished "
+        f"{finished}; retries {stats.retries}")
+    if usage != parts or counted != finished:
+        raise AssertionError(f"{label}: accounting not conserved ({usage} "
+                             f"against {parts}; {counted} against "
+                             f"{finished})")
+    if stats.retries and not faults:
+        raise AssertionError(f"{label}: {stats.retries} steps retried with "
+                             "no fault armed")
+
+
+def host_delta(cl, before: list) -> list:
+    """Each replica's host seconds (``Cluster.replica_host_s``) since
+    ``before``: in ``executor.step``, waiting for its lock, for the gate."""
+    return [{k: round(h[k] - b[k], 4) for k in h}
+            for h, b in zip(cl.replica_host_s(), before)]
+
+
+def cluster_joins(rt, ops, cl, label: str, base_pairs: dict,
+                  expected: dict) -> dict:
+    """Phase 4's block join then adaptive join through one
+    ``ClusterClient`` over ``cl``, each gang-submitted (``hold``) and
+    drained: phase 4's pairs at F1 1.00, the block join's counts
+    (``expected``: the Ledger's, and each replica's calls, passes and
+    decode steps), the accounting conserved, and the launches: the
+    wrappers' counts moved by exactly the sum of the replicas' own
+    tallies."""
+    sc = rt.ads_scenario()
+    client = rt.ClusterClient(cl, oracle=rt.OracleLLM(sc.predicate,
+                                                      context_limit=1024))
+    per_join = {}
+    launches0, tallies0 = ops.launch_counts(), cl.replica_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    for name in ("block", "adaptive"):
+        stats0 = [dataclasses.replace(s) for s in cl.replica_stats()]
+        calls0 = [lg.calls for lg in cl.replica_ledgers()]
+        host0 = cl.replica_host_s()
+        cl.hold()
+        t = time.perf_counter()
+        if name == "block":
+            res = rt.block_join(sc.r1, sc.r2, sc.condition, client, 4, 4)
+        else:
+            res = rt.adaptive_join(sc.r1, sc.r2, sc.condition, client,
+                                   initial_estimate=1e-3)
+        cl.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        lg, stats = res.ledger, cl.replica_stats()
+        gen = sum(s.generated_tokens - b.generated_tokens
+                  for s, b in zip(stats, stats0))
+        d = per_join[name] = dict(
+            calls=lg.calls, prompt_tokens=lg.prompt_tokens,
+            cached_prompt_tokens=lg.cached_prompt_tokens,
+            completion_tokens=lg.completion_tokens,
+            drafted_tokens=lg.drafted_tokens,
+            accepted_draft_tokens=lg.accepted_draft_tokens,
+            replica_calls=[x.calls - c for x, c in
+                           zip(cl.replica_ledgers(), calls0)],
+            replica_passes=[s.model_passes - b.model_passes
+                            for s, b in zip(stats, stats0)],
+            replica_decode_steps=[s.decode_steps - b.decode_steps
+                                  for s, b in zip(stats, stats0)],
+            f1=res.f1(sc.truth), wall_s=wall, generated_tokens=gen,
+            generated_tok_per_s=gen / wall, host_s=host_delta(cl, host0))
+        log(f"  {label} {name} join: " + " ".join(
+            f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in d.items()))
+        if d["f1"] != 1.0 or res.pairs != base_pairs[name]:
+            raise AssertionError(f"{label} {name} join: F1 {d['f1']}, pairs "
+                                 "differ from phase 4's")
+    wall = time.perf_counter() - t_all
+    hold_counts(label, per_join, expected)
+    hold_conserved(label, cl)
+    launches = {k: n - launches0[k] for k, n in ops.launch_counts().items()}
+    per_replica = [{k: t[k] - t0[k] for k in launches}
+                   for t, t0 in zip(cl.replica_launches(), tallies0)]
+    summed = {k: sum(r[k] for r in per_replica) for k in launches}
+    log(f"  {label} launches {launches}; by replica {per_replica}")
+    if summed != launches:
+        raise AssertionError(f"{label}: the launch counts {launches} are not "
+                             f"the replicas' own summed {summed}")
+    ttft = cl.metrics().get("ttft_s")
+    gen = sum(j["generated_tokens"] for j in per_join.values())
+    out = dict(joins=per_join, wall_s=wall, generated_tokens=gen,
+               generated_tok_per_s=gen / wall, launches=launches,
+               replica_launches=per_replica, ttft_mean_s=ttft.mean,
+               ttft_p50_s=ttft.percentile(0.5),
+               ttft_p99_s=ttft.percentile(0.99),
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30)
+    log(f"  {label} both joins: wall={wall:.3f} s generated={gen} "
+        f"({out['generated_tok_per_s']:.1f} tok/s) TTFT mean="
+        f"{ttft.mean:.3f} s p50={out['ttft_p50_s']:.3f} s "
+        f"max_memory_allocated={out['max_memory_allocated_gib']:.2f} GiB")
+    return out
+
+
+def greedy_reference(rt, engine) -> tuple:
+    """Prompts of one length (so every prefill batch has one shape) and a
+    lone engine's greedy completions of them, the reference of
+    :func:`cluster_greedy` (made before the cluster path's counted run)."""
+    n, chars, max_tokens = (CLUSTER_GREEDY[k] for k in
+                            ("prompts", "chars", "max_tokens"))
+    rng = np.random.default_rng(23)
+    prompts = ["".join(map(chr, rng.integers(97, 123, chars)))
+               for _ in range(n)]
+    solo = rt.Engine(engine.cfg, engine.params, engine.tokenizer,
+                     max_seq=1024, slots=4)
+    want = solo.generate(prompts, max_tokens=max_tokens)
+    del solo
+    gc.collect()
+    return prompts, want
+
+
+def cluster_greedy(cl, reference: tuple) -> dict:
+    """Greedy decoding without an oracle: the prompts of
+    :func:`greedy_reference` through the cluster, gang-submitted, give
+    the lone engine's tokens request by request."""
+    prompts, want = reference
+    n, chars, max_tokens = (CLUSTER_GREEDY[k] for k in
+                            ("prompts", "chars", "max_tokens"))
+    cl.hold()
+    handles = [cl.submit(p, max_tokens=max_tokens) for p in prompts]
+    got = [cl.result(h) for h in handles]
+    same = [g.text == w.text and g.completion_tokens == w.completion_tokens
+            for g, w in zip(got, want)]
+    replicas = [h.replica for h in handles]
+    log(f"  greedy, {n} prompts of {chars} characters x {max_tokens} "
+        f"tokens on replicas {replicas}: {sum(same)}/{n} token for token "
+        f"the lone engine's")
+    if not all(same) or len(set(replicas)) != CLUSTER_REPLICAS:
+        raise AssertionError(f"cluster greedy tokens differ from one "
+                             f"engine's: {same}, replicas {replicas}")
+    return dict(prompts=n, same=sum(same), replicas=replicas)
+
+
+def cluster_prefilter(rt, ops, cl, leg_c) -> dict:
+    """Prefilter legs (b) and (c) of phase 5 through the cluster, each
+    gang-submitted as ``benchmarks/serving_latency.py`` runs its
+    prefilter leg: hashed candidates verified by ``submit_score`` through
+    a ``ClusterClient``, then candidates from ``EngineEmbedder(cluster)``,
+    whose batches are phase 5's (each replica embeds 4 texts, as the lone
+    engine did), so its vectors and candidates are phase 5's bit for
+    bit."""
+    small = rt.marketplace_scenario(n1=96, n2=48, n_products=6, n_cities=4,
+                                    seed=5)
+
+    def client():
+        return rt.ClusterClient(cl, oracle=rt.OracleLLM(
+            small.predicate, context_limit=1_000_000))
+
+    out = {}
+    for name in ("b", "c"):
+        stats0, host0 = dataclasses.replace(cl.stats()), cl.replica_host_s()
+        emb = (rt.HashEmbedder() if name == "b"
+               else RecordingEmbedder(rt.EngineEmbedder(cl)))
+        cl.hold()
+        t = time.perf_counter()
+        res = rt.prefilter_join(small.r1, small.r2, small.condition,
+                                client(), emb, k=4)
+        cl.drain()
+        torch.cuda.synchronize()
+        d = out[name] = dict(
+            wall_s=time.perf_counter() - t, calls=res.ledger.calls,
+            candidates=res.meta["candidates"], f1=res.f1(small.truth),
+            precision=res.precision(small.truth),
+            scored_tokens=res.ledger.scored_tokens,
+            decode_steps=cl.stats().decode_steps - stats0.decode_steps,
+            prefill_batches=cl.stats().prefill_batches
+            - stats0.prefill_batches, host_s=host_delta(cl, host0))
+        if name == "c":
+            vectors, _, cand = leg_c
+            d.update(embed_tokens=emb.tokens_read, embed_s=emb.seconds,
+                     same_vectors=all(
+                         np.array_equal(np.asarray(a), np.asarray(b))
+                         for a, b in zip(emb.vectors, vectors)),
+                     same_candidates=set(res.meta["candidate_pairs"])
+                     == set(cand))
+        log(f"  cluster leg ({name}): " + " ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in d.items()))
+    b, c = out["b"], out["c"]
+    if (b["candidates"] != 397 or b["f1"] != 1.0
+            or b["calls"] != 2 + b["candidates"] or b["decode_steps"]
+            or c["embed_tokens"] != 9337 or c["precision"] != 1.0
+            or c["calls"] != 2 + c["candidates"] or c["decode_steps"]
+            or not c["same_vectors"] or not c["same_candidates"]):
+        raise AssertionError(f"cluster prefilter legs: {out}")
+    hold_conserved("cluster prefilter", cl)
+    return out
+
+
+def cluster_replays(ops, cl, label: str) -> dict:
+    """Each replica's captured graphs, a replay against an eager pass from
+    the same state (:func:`check_replay`), on the replica's stream."""
+    out = {}
+    for i, eng in enumerate(cl.engines):
+        for key, graph in raw_engine(eng).pass_graphs.items():
+            with cl.running(i):
+                out[f"replica {i} {key}"] = check_replay(
+                    ops, graph, f"{label} replica {i} {graph.label}")
+    if len(out) < CLUSTER_REPLICAS:
+        raise AssertionError(f"{label}: graphs {sorted(out)}")
+    return out
+
+
+def cluster_failover(rt, engine, base_pairs: dict) -> dict:
+    """Replica 1 killed mid-join by a ``FaultPlan``, then by hand in each
+    later cycle (``CLUSTER_CYCLES`` in all), resurrected by
+    ``check_health`` after each: every join gives phase 4's block pairs
+    and tokens, the dead incarnation's partial attempts are backed out
+    (the stats' generated tokens are the finished requests' completion
+    tokens), the dead engine is freed (its graphs and pools with it), and
+    the reserved memory grows by less than one replica's KV pool from a
+    cycle to the next."""
+    sc = rt.ads_scenario()
+    want = {k: EXPECTED[("paged", "base")]["block"][k]
+            for k in ("calls", "prompt_tokens", "completion_tokens")}
+    plan = rt.FaultPlan(seed=CLUSTER_CHAOS["seed"], kill_replica=1,
+                        kill_after_ops=CLUSTER_KILL_AFTER_OPS)
+    cycles = []
+    with replica_cluster(rt, engine, chaos=plan) as cl:
+        client = rt.ClusterClient(cl, oracle=rt.OracleLLM(
+            sc.predicate, context_limit=1024))
+        for cycle in range(CLUSTER_CYCLES):
+            dead = weakref.ref(raw_engine(cl.engines[1]))
+            failovers0 = cl.failovers
+            killer = None
+            if cycle:   # the plan kills generation 0 only
+                killer = threading.Timer(0.2, cl.fail_replica, args=(1,))
+                killer.start()
+            cl.hold()
+            t = time.perf_counter()
+            res = rt.block_join(sc.r1, sc.r2, sc.condition, client, 4, 4)
+            cl.drain()
+            wall = time.perf_counter() - t
+            if killer is not None:
+                killer.cancel()
+            cl.fail_replica(1)   # no-op if it died mid-join
+            deadline = time.time() + 60
+            while cl.replicas_alive > 1 and time.time() < deadline:
+                time.sleep(0.01)
+            lg, stats = res.ledger, cl.stats()
+            got = {k: getattr(lg, k) for k in want}
+            hold_conserved(f"failover cycle {cycle}", cl, faults=True)
+            revived = cl.check_health()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            rec = dict(wall_s=wall, failovers=cl.failovers - failovers0,
+                       revived=revived, freed=dead() is None,
+                       reserved=torch.cuda.memory_reserved(),
+                       allocated=torch.cuda.memory_allocated(),
+                       generated_tokens=stats.generated_tokens,
+                       completion_tokens=cl.ledger().completion_tokens)
+            cycles.append(rec)
+            log(f"  failover cycle {cycle}: join wall={wall:.3f} s "
+                f"{got} failovers={rec['failovers']} revived={revived} "
+                f"dead engine freed={rec['freed']} memory_reserved="
+                f"{rec['reserved'] / 2 ** 30:.3f} GiB allocated="
+                f"{rec['allocated'] / 2 ** 30:.3f} GiB")
+            if (res.pairs != base_pairs["block"] or got != want
+                    or revived != 1 or not rec["freed"]
+                    or cl.replicas_alive != CLUSTER_REPLICAS
+                    or rec["generated_tokens"] != rec["completion_tokens"]
+                    or (cycle == 0 and not rec["failovers"])):
+                raise AssertionError(f"failover cycle {cycle}: {rec} {got}")
+        kv_pool = pool_bytes(raw_engine(cl.engines[0]))   # allocated by now
+    growth = [b["reserved"] - a["reserved"]
+              for a, b in zip(cycles, cycles[1:])]
+    log(f"  memory_reserved growth between cycles "
+        f"{[round(x / 2 ** 20, 1) for x in growth]} MiB against one KV "
+        f"pool of {kv_pool / 2 ** 20:.1f} MiB")
+    if any(x > kv_pool for x in growth):
+        raise AssertionError(f"memory grew by {growth} bytes a cycle")
+    return dict(cycles=cycles, growth=growth, kv_pool_bytes=kv_pool)
+
+
+def cluster_chaos(rt, engine, base_pairs: dict) -> dict:
+    """Transient step errors and latency spikes (``CLUSTER_CHAOS``) on
+    both replicas: phase 4's joins give its pairs and the block join its
+    tokens, through retries on the virtual clock."""
+    sc = rt.ads_scenario()
+    want = {k: EXPECTED[("paged", "base")]["block"][k]
+            for k in ("calls", "prompt_tokens", "completion_tokens")}
+    with replica_cluster(rt, engine, chaos=rt.FaultPlan(**CLUSTER_CHAOS),
+                         max_retries=32) as cl:
+        client = rt.ClusterClient(cl, oracle=rt.OracleLLM(
+            sc.predicate, context_limit=1024))
+        out = {}
+        for name in ("block", "adaptive"):
+            cl.hold()
+            t = time.perf_counter()
+            res = (rt.block_join(sc.r1, sc.r2, sc.condition, client, 4, 4)
+                   if name == "block" else
+                   rt.adaptive_join(sc.r1, sc.r2, sc.condition, client,
+                                    initial_estimate=1e-3))
+            cl.drain()
+            out[name] = dict(wall_s=time.perf_counter() - t,
+                             calls=res.ledger.calls,
+                             prompt_tokens=res.ledger.prompt_tokens,
+                             completion_tokens=res.ledger.completion_tokens,
+                             same_pairs=res.pairs == base_pairs[name])
+        stats = cl.stats()
+        out.update(retries=stats.retries, backoff_s=stats.backoff_s,
+                   injected=[(s["injector"] or {}).get("errors")
+                             for s in cl.summary()["per_replica"]])
+        hold_conserved("chaos", cl, faults=True)
+    log(f"  transient chaos {CLUSTER_CHAOS}: {out}")
+    got = {k: out["block"][k] for k in want}
+    if (got != want or not out["block"]["same_pairs"]
+            or not out["adaptive"]["same_pairs"] or not out["retries"]):
+        raise AssertionError(f"chaos: {out}")
+    return out
+
+
+def cluster_hedging(rt, engine) -> dict:
+    """Requests held past ``CLUSTER_HEDGE_S`` get a duplicate on the
+    other replica: the first finisher wins, the loser is cancelled (or
+    its tokens booked as waste), each handle resolves once, with its
+    tokens."""
+    with replica_cluster(rt, engine, hedge_after_s=CLUSTER_HEDGE_S) as cl:
+        cl.hold()
+        handles = [cl.submit(f"straggler {i}:", max_tokens=8,
+                             expected=f"slow {i}") for i in range(3)]
+        deadline = time.time() + 30
+        while cl.hedges_launched < len(handles) and time.time() < deadline:
+            time.sleep(0.01)
+        cl.release()
+        texts = [cl.result(h).text for h in handles]
+        cl.drain()
+        rob = cl.summary()["robustness"]
+        hold_conserved("hedging", cl)
+        calls = cl.ledger().calls
+    log(f"  hedging: {rob['hedges_launched']} launched, won "
+        f"{rob['hedges_won']}, lost {rob['hedges_lost']}, waste "
+        f"{rob['hedge_waste_tokens']} tokens; ledger calls {calls}")
+    if (texts != [f"slow {i}" for i in range(3)]
+            or rob["hedges_launched"] != len(handles)
+            or rob["hedges_won"] + rob["hedges_lost"] != len(handles)
+            or calls != len(handles)):
+        raise AssertionError(f"hedging: {texts} {rob} calls {calls}")
+    return rob
+
+
+def run_cluster_phase(rt, ops, engine, base: dict, base_pairs: dict, leg_c,
+                      out_dir: Path | None) -> dict:
+    """Phase 9d (module docstring): the cluster at 1 replica, then at 2
+    (the phase's path: launch counts zeroed before, read after, and held
+    to the replicas' own tallies summed), spec on, failover and
+    resurrection, chaos, hedging; with ``out_dir`` (``--profile``) one
+    2-replica block join under ``torch.profiler`` (its device idle
+    share)."""
+    out = {}
+    with replica_cluster(rt, engine, n=1) as cl:
+        # gang-submitted, one replica runs the lone engine's schedule
+        block = EXPECTED[("paged", "base")]["block"]
+        want = {"block": dict(
+            {k: v for k, v in block.items() if k != "decode_steps"},
+            replica_calls=[block["calls"]],
+            replica_decode_steps=[block["decode_steps"]])}
+        out["one_replica"] = cluster_joins(rt, ops, cl, "1 replica",
+                                           base_pairs, want)
+    reference = greedy_reference(rt, engine)
+    with replica_cluster(rt, engine) as cl:
+        ops.reset_launch_counts()
+        tallies0 = cl.replica_launches()
+        # this thread's own launches: the prefilter's top-k
+        with ops.counting_into(collections.Counter()) as caller:
+            out["two_replicas"] = cluster_joins(
+                rt, ops, cl, "2 replicas", base_pairs,
+                EXPECTED[("cluster", "base")])
+            out["greedy"] = cluster_greedy(cl, reference)
+            out["prefilter"] = cluster_prefilter(rt, ops, cl, leg_c)
+        counts = ops.launch_counts()          # read right after the path
+        shapes = {k.name: k.shapes.most_common() for k in ops.KERNELS}
+        summed = {k: caller[k] + sum(t[k] - t0[k] for t, t0 in
+                                     zip(cl.replica_launches(), tallies0))
+                  for k in counts}
+        out["path"] = dict(launches=counts, shapes=shapes,
+                           caller_launches=dict(caller))
+        log(f"  kernel launches on the cluster path: {counts}; the "
+            f"replicas' tallies and this thread's {dict(caller)} summed: "
+            f"{summed == counts}")
+        if summed != counts or set(caller) - {"topk_similarity"}:
+            raise AssertionError(f"cluster path: launches {counts} against "
+                                 f"the replicas' tallies and this thread's "
+                                 f"{dict(caller)} summed {summed}")
+        missing = [k for k in ATTENTION + ("topk_similarity", "rmsnorm",
+                                           "decode_gemm") if not counts[k]]
+        if missing:
+            raise AssertionError(f"cluster path never launched {missing}")
+        out["replays"] = cluster_replays(ops, cl, "2 replicas")
+        out["memory_reserved_gib"] = torch.cuda.memory_reserved() / 2 ** 30
+        if out_dir is not None:
+            out["profile"] = profile_cluster_join(rt, cl, out_dir)
+    with replica_cluster(rt, engine, spec_decode=True) as cl:
+        out["spec"] = cluster_joins(rt, ops, cl, "2 replicas spec",
+                                    base_pairs, EXPECTED[("cluster", "spec")])
+        if not out["spec"]["launches"]["spec_verify_attention"]:
+            raise AssertionError("spec cluster: no verify launch")
+        out["spec_replays"] = cluster_replays(ops, cl, "2 replicas spec")
+    out["failover"] = cluster_failover(rt, engine, base_pairs)
+    out["chaos"] = cluster_chaos(rt, engine, base_pairs)
+    out["hedging"] = cluster_hedging(rt, engine)
+    one, two = out["one_replica"], out["two_replicas"]
+    log(f"  join walls, 1 replica against 2 (phase 4's single engine "
+        f"{base['wall_s']:.3f} s): " + ", ".join(
+            f"{j} {one['joins'][j]['wall_s']:.3f} / "
+            f"{two['joins'][j]['wall_s']:.3f} s"
+            for j in ("block", "adaptive"))
+        + f"; both {one['wall_s']:.3f} / {two['wall_s']:.3f} s; "
+        f"{one['generated_tok_per_s']:.1f} / "
+        f"{two['generated_tok_per_s']:.1f} tok/s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_cluster_join(rt, cl, out_dir: Path) -> dict:
+    """One block join on ``cl`` (graphs captured by its earlier joins)
+    from cold prefix caches, under ``torch.profiler``."""
+    sc = rt.ads_scenario()
+    client = rt.ClusterClient(cl, oracle=rt.OracleLLM(
+        sc.predicate, context_limit=1_000_000))
+    for eng in cl.engines:
+        empty_prefix_cache(raw_engine(eng))
+
+    def run():
+        cl.hold()
+        rt.block_join(sc.r1, sc.r2, sc.condition, client, 4, 4)
+        cl.drain()
+    return profile_one("cluster block join, 2 replicas",
+                       "cluster_block_join", out_dir, run)
+
+
 def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
     """Every kernel against its plain version again, in bf16, at each
     shape the paths gave it (ragged lengths; these launches come after
@@ -3629,7 +4175,8 @@ def port() -> types.SimpleNamespace:
                                     verify_step)
     from repro_torch.models.layers import to_cache
     from repro_torch.models.params import tree_items
-    from repro_torch.serve import Engine, EngineClient, EngineEmbedder
+    from repro_torch.serve import (Cluster, ClusterClient, Engine,
+                                   EngineClient, EngineEmbedder, FaultPlan)
 
     return types.SimpleNamespace(**{k: v for k, v in locals().items()})
 
@@ -3705,7 +4252,7 @@ def main() -> int:
     summary, pairs, engine = run_main_path(rt, ops, dev, args.seed)
 
     log("== phase 5: the prefilter path on the same engine")
-    prefilter = run_prefilter_path(rt, ops, dev, engine)
+    prefilter, leg_c = run_prefilter_path(rt, ops, dev, engine)
 
     log("== phase 6: speculative decoding on the same weights")
     spec, spec_pairs = run_spec_path(rt, ops, dev, engine, summary, pairs)
@@ -3736,6 +4283,13 @@ def main() -> int:
     moe, moe_paths = run_moe_family(rt, ops, L, dev, args.seed, pairs,
                                     out if args.profile else None)
     family_paths.update(moe_paths)
+
+    log("== phase 9d: the cluster: 2 full-width granite-3-2b replicas on "
+        "the card behind the affinity router; failover, resurrection, "
+        "chaos, hedging, scoring and embedding through the cluster")
+    cluster = run_cluster_phase(rt, ops, engine, summary, pairs, leg_c,
+                                out if args.profile else None)
+    family_paths["cluster"] = cluster["path"]
 
     paths = dict(block_adaptive=summary, prefilter=prefilter, spec=spec,
                  dense=dense, ssm=ssm)
@@ -3818,7 +4372,7 @@ def main() -> int:
         card=smi, torch=torch.__version__, build_s=times, main_path=summary,
         prefilter_path=prefilter, spec_path=spec, dense_path=dense,
         ssm_path=ssm, graphs=graphs, dense_family=family, moe_family=moe,
-        profiles=profiles,
+        cluster=cluster, profiles=profiles,
         timing=timing, kernels=kernels), indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())

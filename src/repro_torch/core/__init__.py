@@ -1,9 +1,10 @@
 """Paper core: the tuple (Alg. 1), block (Alg. 2) and adaptive (Alg. 3)
 joins with their cost model, batch-size optimizer, prompts, accounting
 and the rule oracle; the scored tuple join and confidence cascade; the
-embedding-join baseline and the embedding-prefiltered join.  Copies of
-the JAX-free modules of ``repro.core``, except ``prefilter_join``, whose
-candidates come from the port's top-k kernel."""
+embedding-join and LOTUS baselines, the embedding-prefiltered join and
+the §7.2 simulator.  Copies of the JAX-free modules of ``repro.core``,
+except ``prefilter_join``, whose candidates come from the port's top-k
+kernel."""
 
 from repro_torch.core.accounting import (
     GPT4_PRICING,
@@ -32,6 +33,7 @@ from repro_torch.core.llm_client import (
     ScoreHandle,
     ScoreResponse,
 )
+from repro_torch.core.lotus_join import lotus_join
 from repro_torch.core.oracle import OracleLLM
 from repro_torch.core.prefilter_join import prefilter_join, topk_candidates
 from repro_torch.core.prompts import (
@@ -41,6 +43,7 @@ from repro_torch.core.prompts import (
     classify_yes_no,
     parse_yes_no,
 )
+from repro_torch.core.simulator import SimParams, SimulatedLLM, synthetic_table
 from repro_torch.core.tuple_join import tuple_join
 
 __all__ = [
@@ -52,5 +55,6 @@ __all__ = [
     "scored_decision", "HashEmbedder", "embedding_join", "Embedder",
     "ScoreHandle", "ScoreResponse", "prefilter_join", "topk_candidates",
     "NO_ANSWER", "SCORE_CHOICES", "YES_ANSWER", "classify_yes_no",
-    "parse_yes_no", "tuple_join",
+    "parse_yes_no", "tuple_join", "lotus_join", "SimParams", "SimulatedLLM",
+    "synthetic_table",
 ]

@@ -51,6 +51,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.params import resolve_device
 from repro_torch.obs.metrics import registry_of
 from repro_torch.obs.trace import trace_of
+from repro_torch.serve.graphs import GATE
 
 Pair = Tuple[int, int]
 
@@ -86,20 +87,20 @@ def topk_candidates(
     if not len(i1) or not len(i2):
         return cands
 
-    v1 = torch.from_numpy(e1[i1]).to(device)
-    v2 = torch.from_numpy(e2[i2]).to(device)
     tk = lambda a, b, kk: kops.topk_similarity(a, b, k=kk)[0].cpu().numpy()
-
-    if mode in ("r1", "both"):
-        idx = tk(v1, v2, min(k, len(i2)))
-        for r, row in enumerate(idx):
-            gi = int(i1[r])
-            cands.update((gi, int(i2[c])) for c in row)
-    if mode in ("r2", "both"):
-        idx = tk(v2, v1, min(k, len(i1)))
-        for r, row in enumerate(idx):
-            gk = int(i2[r])
-            cands.update((int(i1[c]), gk) for c in row)
+    with GATE.shared():   # no cluster replica captures a graph meanwhile
+        v1 = torch.from_numpy(e1[i1]).to(device)
+        v2 = torch.from_numpy(e2[i2]).to(device)
+        if mode in ("r1", "both"):
+            idx = tk(v1, v2, min(k, len(i2)))
+            for r, row in enumerate(idx):
+                gi = int(i1[r])
+                cands.update((gi, int(i2[c])) for c in row)
+        if mode in ("r2", "both"):
+            idx = tk(v2, v1, min(k, len(i1)))
+            for r, row in enumerate(idx):
+                gk = int(i2[r])
+                cands.update((int(i1[c]), gk) for c in row)
     return cands
 
 

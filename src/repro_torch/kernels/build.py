@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -33,7 +34,19 @@ FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v", "-lineinfo")
 CUTLASS_INCLUDE = Path("/usr/local/cutlass/include")
 
+
+
+class DeviceError(RuntimeError):
+    """A kernel that does not build, load or launch, or a CUDA graph that
+    does not warm up, capture or replay: a fault of the build or the
+    device, which a retry of the same work does not cure (a serving
+    executor raises it at once instead of backing off)."""
+
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: one build and load at a time: two threads' first launches of a kernel
+#: (two cluster replicas) build and load its library once
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -44,7 +57,7 @@ def nvcc() -> str:
             return str(Path(home, "bin", "nvcc"))
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+        raise DeviceError("nvcc not found: the CUDA kernels build only on a "
                            "machine with the CUDA toolkit")
     return found
 
@@ -98,16 +111,20 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         else:
             os.replace(tmp, out)  # atomic: a reader never sees half a file
     if failed:
-        raise RuntimeError("CUDA kernel build failed\n" + "\n".join(failed))
+        raise DeviceError("CUDA kernel build failed\n" + "\n".join(failed))
     return times
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed
+    (once, whichever threads ask at the same time)."""
     lib: Optional[ctypes.CDLL] = _LIBS.get(name)
     if lib is None:
-        path = library_path(name)
-        if not path.is_file():
-            build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                path = library_path(name)
+                if not path.is_file():
+                    build([name])
+                lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib

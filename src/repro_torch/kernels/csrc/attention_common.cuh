@@ -27,9 +27,27 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace repro_attn {
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current
+// device, once per device and call site (its flags `done`): any host
+// thread may launch, on any device.
+constexpr int kMaxDevices = 64;
+template <typename K>
+cudaError_t allow_smem_once(K kernel, size_t bytes,
+                            std::atomic<bool> (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
 
 constexpr int kTile = 64;          // keys per shared-memory tile
 constexpr unsigned kFullMask = 0xffffffffu;

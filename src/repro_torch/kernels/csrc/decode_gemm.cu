@@ -80,6 +80,7 @@
 #include <cuda.h>   // CUtensorMap and its enums (types only: no -lcuda)
 
 #include <algorithm>
+#include <mutex>
 
 #include "prefill_mma.cuh"
 
@@ -427,8 +428,12 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
 // inner, outer): the same key always encodes the same map, so a slot may
 // be taken over by another key, whose weight's map is then encoded
 // again.  A launch copies its maps into its parameters (a captured graph
-// keeps its own copies).
+// keeps its own copies).  The cache is shared by every host thread that
+// launches (the replicas of a serving cluster), so it is read and written
+// under one lock.
 int weight_map(const bf16* w, int inner, int outer, CUtensorMap* out) {
+  static std::mutex mu;
+  std::lock_guard<std::mutex> hold(mu);
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -505,10 +510,13 @@ inline Shape shape_of(int Mc, int K) {
 }
 
 // The most clusters of `splits` blocks with `smem` bytes each that the
-// card holds at once, cached by its arguments.
+// card holds at once, cached by its arguments (under a lock: any host
+// thread may launch).
 template <bool kNK, bool kXStream, int kRows>
 int max_clusters(int splits, size_t smem, int* out) {
   struct Entry { int splits; size_t smem; int n; };
+  static std::mutex mu;
+  std::lock_guard<std::mutex> hold(mu);
   static Entry cache[32];
   static int n_cached = 0;
   for (int i = 0; i < n_cached; ++i)

@@ -86,16 +86,12 @@ int launch_decode_t(const void* q, const void* k_pool, const void* v_pool,
   const int cap = n_slots * page;
   const size_t smem = split_tile_bytes<T, HD>() + sizeof(float) * G * HD;
   auto kernel = paged_decode_kernel<TQ, T, HD>;
-  // the largest this instance takes, set once (a decode pass launches
-  // it 40 times)
-  static bool smem_set = false;
-  if (!smem_set) {
-    const size_t most = split_tile_bytes<T, HD>() + sizeof(float) * 32 * HD;
-    cudaError_t set = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
-    if (set != cudaSuccess) return (int)set;
-    smem_set = true;
-  }
+  // the largest this instance takes, set once a device (a decode pass
+  // launches it 40 times)
+  const size_t most = split_tile_bytes<T, HD>() + sizeof(float) * 32 * HD;
+  static std::atomic<bool> smem_set[kMaxDevices];
+  if (cudaError_t set = allow_smem_once(kernel, most, smem_set))
+    return (int)set;
   const dim3 grid(KV, B, (cap + kChunk - 1) / kChunk);
   kernel<<<grid, 32 * G, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const T*>(k_pool),

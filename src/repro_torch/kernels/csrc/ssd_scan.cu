@@ -70,6 +70,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "prefill_mma.cuh"   // ldmatrix_x4(_trans), mma_bf16, pack_bf16
@@ -810,7 +811,8 @@ inline bool vec_ok(const void* p, int width, int elem) {
 // its own flags, so the attribute is set once per device, not per call.
 constexpr int kMaxDevices = 64;
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, bool (&done)[kMaxDevices]) {
+cudaError_t allow_smem(K kernel, size_t bytes,
+                       std::atomic<bool> (&done)[kMaxDevices]) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -843,8 +845,8 @@ int launch(const void* xv, const float* dt, const float* A, const void* bv,
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
 
-  static bool prep_done[kMaxDevices], state_done[kMaxDevices],
-      y_done[kMaxDevices];
+  static std::atomic<bool> prep_done[kMaxDevices], state_done[kMaxDevices],
+      y_done[kMaxDevices];   // any host thread may launch
   const size_t s1 = prep_smem<T>(chunk);
   if ((err = allow_smem(prep_kernel<T>, prep_smem<T>(kMaxChunk),
                         prep_done)) != cudaSuccess)

@@ -39,18 +39,30 @@ Every wrapper counts its launches in ``launches`` (a plain int), and in
 ``shapes`` by the launch's integer arguments (the decode GEMM by
 product: a grouped launch counts each of its products there), so a run
 can show that its main path went through the kernels and at which
-shapes; :func:`reset_launch_counts` zeroes them all.
+shapes; :func:`reset_launch_counts` zeroes them all.  The counts stay
+exact when several threads launch at once (the replicas of a serving
+cluster): they move under one lock (``COUNT_LOCK``), and a thread may
+also keep its own tally (:func:`counting_into`).
+
+Persistent scratch (the scan's buffer, the decode GEMM's fp32 partials
+and counters) is kept per thread and device: calls of one thread run in
+order (on its stream, or joined to it), so a thread's buffers are never
+written by two calls at once, and a graph captured by a thread keeps
+writing that thread's buffers at its replays.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
-from typing import Callable, Optional, Sequence
+import threading
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import DeviceError
 from repro_torch.models import layers as L
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -92,6 +104,10 @@ NORM_MAX_D = {0: 1024 * 4 * 4, 1: 1024 * 4 * 8}
 #: the raw handle of the current stream (absent from CPU-only builds, which
 #: never launch)
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+#: guards every kernel's ``launches`` and ``shapes``
+COUNT_LOCK = threading.Lock()
+#: per thread: ``tally`` (a Counter by kernel name, or None) and ``scratch``
+_local = threading.local()
 
 
 class CudaKernel:
@@ -117,6 +133,15 @@ class CudaKernel:
     def _lib(self) -> ctypes.CDLL:
         return build.load(self.source)
 
+    @property
+    def _scratch(self) -> Dict:
+        """The calling thread's persistent scratch of this kernel, by
+        device (empty for the kernels that keep none)."""
+        store = getattr(_local, "scratch", None)
+        if store is None:
+            store = _local.scratch = {}
+        return store.setdefault(self.name, {})
+
     def _bind(self):
         fn = getattr(self._lib(), self.symbol)
         fn.argtypes = self._argtypes
@@ -137,14 +162,20 @@ class CudaKernel:
         rc = fn(*[t if t is None else t.data_ptr() for t in ptrs], *ints,
                 *floats, _raw_stream(ptrs[0].get_device()))
         if rc != 0:
-            raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
-                               f"error {rc}")
-        self.launches += 1
-        if keys:
-            for k in keys:
-                self.shapes[tuple(k)] += 1
-        else:
-            self.shapes[tuple(ints if key is None else key)] += 1
+            raise DeviceError(f"{self.name} kernel launch failed: CUDA "
+                              f"error {rc}")
+        self.count(1, [tuple(k) for k in keys] if keys
+                   else [tuple(ints if key is None else key)])
+
+    def count(self, n: int, shapes) -> None:
+        """Add ``n`` launches, under ``shapes`` (keys, or a Counter of
+        keys), to the counts and to the calling thread's tally."""
+        with COUNT_LOCK:
+            self.launches += n
+            self.shapes.update(shapes)
+        tally = getattr(_local, "tally", None)
+        if tally is not None:
+            tally[self.name] += n
 
 
 class _SplitDecode(CudaKernel):
@@ -398,7 +429,7 @@ class _TopkSimilarity(CudaKernel):
             with torch.cuda.device(device):
                 rc = fn(M, N, kk, out)
             if rc != 0:
-                raise RuntimeError(f"{self.name} plan failed: CUDA error {rc}")
+                raise DeviceError(f"{self.name} plan failed: CUDA error {rc}")
             self._plans[key] = (out[0], out[1])
         return self._plans[key]
 
@@ -447,13 +478,12 @@ class _SsdScan(CudaKernel):
     """One C call queues the scan's kernels (C.B^T and the log-decay sums,
     then, over several chunks, the chunks' states and their serial
     carry, then y): one launch counted.  The wrapper keeps their scratch
-    in one buffer per device, reused by every call (calls run in order on
-    one stream).  A mamba2 pass makes one call a layer, so each call's
-    checks and scratch size are looked up by its shapes and dtypes."""
+    in one buffer per thread and device (``_scratch``), reused by every
+    call.  A mamba2 pass makes one call a layer, so each call's checks and
+    scratch size are looked up by its shapes and dtypes."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
-        self._scratch = {}   # device index -> uint8 buffer
         #: shapes, dtypes and chunk -> (the launch's ints, scratch bytes)
         self._plans = {}
 
@@ -495,9 +525,10 @@ class _SsdScan(CudaKernel):
         return plan
 
     def _buffer(self, device: int, nbytes: int) -> torch.Tensor:
-        buf = self._scratch.get(device)
+        scratch = self._scratch
+        buf = scratch.get(device)
         if buf is None or buf.numel() < nbytes:
-            buf = self._scratch[device] = torch.empty(
+            buf = scratch[device] = torch.empty(
                 max(nbytes, 1), dtype=torch.uint8, device=f"cuda:{device}")
         return buf
 
@@ -575,10 +606,9 @@ class _RmsNorm(CudaKernel):
             rc = fn(x.data_ptr(), weight.data_ptr(), out.data_ptr(), *plan,
                     eps, _raw_stream(d))
             if rc != 0:
-                raise RuntimeError(f"rmsnorm kernel launch failed: CUDA "
-                                   f"error {rc}")
-            self.launches += 1
-            self.shapes[plan] += 1
+                raise DeviceError(f"rmsnorm kernel launch failed: CUDA "
+                                  f"error {rc}")
+            self.count(1, (plan,))
         return out
 
 
@@ -589,13 +619,12 @@ class _DecodeGemm(CudaKernel):
     (:meth:`group`).  A granite pass makes 161 calls for its 281
     products, so the wrapper keeps its host work small.  bf16 needs no
     scratch (the splits combine in the cluster's shared memory); fp32
-    keeps its partials and counters in one buffer per device, reused by
-    every call (calls run in order on one stream)."""
+    keeps its partials and counters in one pair of buffers per thread and
+    device (``_scratch``), reused by every call."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
         self._splits = {}     # fp32 (K, N) -> the kernel's K splits
-        self._scratch = {}    # device -> (fp32 partials, int32 counters)
 
     def splits(self, K: int, N: int) -> int:
         """K splits of an fp32 (K, N) product (sizes its partials)."""
@@ -607,13 +636,14 @@ class _DecodeGemm(CudaKernel):
         return n
 
     def _buffers(self, device, n_part: int):
-        part, counters = self._scratch.get(device, (None, None))
+        scratch = self._scratch
+        part, counters = scratch.get(device, (None, None))
         if counters is None:   # zeroed once; the kernel resets its counters
             counters = torch.zeros(_GEMM_COUNTERS, dtype=torch.int32,
                                    device=device)
         if part is None or part.numel() < n_part:
             part = torch.empty(n_part, dtype=torch.float32, device=device)
-        self._scratch[device] = (part, counters)
+        scratch[device] = (part, counters)
         return part, counters
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -775,23 +805,42 @@ def top1_similarity(e1: torch.Tensor, e2: torch.Tensor) -> tuple:
 
 
 def scratch_buffers() -> list:
-    """The persistent scratch tensors the wrappers hold now (the decode
-    GEMM's fp32 partials and counters, the scan's buffer).  A wrapper
-    replaces a buffer that a larger call outgrows; a CUDA graph captured
-    with the old one keeps writing it, so the graph holds these
-    (:class:`repro_torch.serve.graphs.PassGraph`)."""
+    """The persistent scratch tensors the wrappers hold now for the
+    calling thread (the decode GEMM's fp32 partials and counters, the
+    scan's buffer).  A wrapper replaces a buffer that a larger call
+    outgrows; a CUDA graph captured with the old one keeps writing it, so
+    the graph holds these (:class:`repro_torch.serve.graphs.PassGraph`)."""
     out = []
-    for k in KERNELS:
-        for buf in getattr(k, "_scratch", {}).values():
+    for bufs in getattr(_local, "scratch", {}).values():
+        for buf in bufs.values():
             out.extend(buf if isinstance(buf, tuple) else (buf,))
     return out
 
 
+def thread_tally() -> Optional[collections.Counter]:
+    """The calling thread's tally (:func:`counting_into`), or None."""
+    return getattr(_local, "tally", None)
+
+
+@contextlib.contextmanager
+def counting_into(tally: collections.Counter):
+    """Also count the calling thread's launches, by kernel name, into
+    ``tally`` (a cluster replica's own counts) while the block runs."""
+    prev = getattr(_local, "tally", None)
+    _local.tally = tally
+    try:
+        yield tally
+    finally:
+        _local.tally = prev
+
+
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
-        k.shapes.clear()
+    with COUNT_LOCK:
+        for k in KERNELS:
+            k.launches = 0
+            k.shapes.clear()
 
 
 def launch_counts() -> dict:
-    return {k.name: k.launches for k in KERNELS}
+    with COUNT_LOCK:
+        return {k.name: k.launches for k in KERNELS}

@@ -247,24 +247,42 @@ class EngineEmbedder(Embedder):
     L2-normalized host-side so cosine similarity is a dot product (the
     layout the ``topk_sim`` kernel expects).
 
-    ``backend`` is an :class:`~repro_torch.serve.engine.Engine` or an
-    :class:`EngineClient` (its engine is used).  Token accounting mirrors
-    embedding APIs: every text's real tokenized length accumulates in
-    :attr:`tokens_read`, which the embedding/prefilter joins record on
-    their ledgers (one call per table, input tokens only).
+    ``backend`` may be an :class:`~repro_torch.serve.engine.Engine`, an
+    :class:`EngineClient` (its engine is used), a
+    :class:`~repro_torch.serve.cluster.Cluster`, or a
+    :class:`~repro_torch.serve.cluster.ClusterClient` — cluster backends
+    round-robin embedding batches over alive replicas under the replica
+    locks.  Token accounting mirrors embedding APIs: every text's real
+    tokenized length accumulates in :attr:`tokens_read`, which the
+    embedding/prefilter joins record on their ledgers (one call per
+    table, input tokens only).
     """
 
     def __init__(self, backend):
-        if isinstance(backend, EngineClient):
-            backend = backend.engine
-        if not isinstance(backend, Engine):
+        engine = getattr(backend, "engine", None)
+        cluster = getattr(backend, "cluster", None)
+        if engine is not None:                      # EngineClient
+            self._embed_rows = engine.embed_rows
+            self._batch = engine.slots
+            cfg = engine.cfg
+        elif cluster is not None:                   # ClusterClient
+            self._embed_rows = cluster.embed_rows
+            self._batch = sum(e.slots for e in cluster.engines)
+            cfg = cluster.engines[0].cfg
+        elif hasattr(backend, "embed_rows"):        # Engine or Cluster
+            self._embed_rows = backend.embed_rows
+            engines = getattr(backend, "engines", None)
+            if engines is not None:                 # Cluster
+                self._batch = sum(e.slots for e in engines)
+                cfg = engines[0].cfg
+            else:                                   # Engine
+                self._batch = backend.slots
+                cfg = backend.cfg
+        else:
             raise TypeError(
-                f"EngineEmbedder backend must be an Engine or an "
-                f"EngineClient, got {type(backend).__name__}; the cluster "
-                f"backends are not yet ported (ROADMAP.md queue A item 9)")
-        self._embed_rows = backend.embed_rows
-        self._batch = backend.slots
-        self.dim = backend.cfg.d_model
+                f"EngineEmbedder backend must be an Engine, EngineClient, "
+                f"Cluster, or ClusterClient; got {type(backend).__name__}")
+        self.dim = cfg.d_model
         self.batches = 0
         self._tokens_read = 0
 
@@ -272,6 +290,8 @@ class EngineEmbedder(Embedder):
         out: List[List[float]] = []
         for start in range(0, len(texts), self._batch):
             chunk = list(texts[start:start + self._batch])
+            if not chunk:
+                break
             vecs, lens = self._embed_rows(chunk)
             self.batches += 1
             self._tokens_read += sum(lens)

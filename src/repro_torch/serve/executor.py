@@ -34,9 +34,13 @@ Ported from ``repro.serve.executor`` for the paged and dense engines of
 :mod:`repro_torch.serve.engine`, with prefill-only score requests
 (:meth:`~ContinuousBatchingExecutor.submit_score`) and self-speculative
 steps (an engine with ``spec_decode`` on drafts, verifies every window
-in one pass, and a verify pass counts as one decode step).  Left out
-until its slice is ported: the fault-injection wrapping of the cluster
-tier (ROADMAP.md queue A item 9).
+in one pass, and a verify pass counts as one decode step).  Under
+``REPRO_CHAOS`` (or a cluster's :class:`~repro_torch.serve.faults.FaultPlan`)
+the engine is wrapped in a deterministic fault injector
+(:func:`~repro_torch.serve.faults.maybe_chaos_engine`).  A device fault
+(:data:`DEVICE_FAULTS`) is never retried: :meth:`~ContinuousBatchingExecutor.step`
+re-queues the in-flight requests and raises it, and a cluster fails the
+replica over.
 """
 
 from __future__ import annotations
@@ -50,13 +54,20 @@ import numpy as np
 import torch
 
 from repro_torch.core.oracle import SystemClock
+from repro_torch.kernels.build import DeviceError
 from repro_torch.obs.metrics import COUNT_BOUNDS, MetricsRegistry
 from repro_torch.obs.trace import adopt_clock, recorder_from_env
 from repro_torch.serve.engine import (
     Engine, GenResult, StopMatcher, pack_id, pack_ids,
 )
+from repro_torch.serve.faults import FaultyEngine, maybe_chaos_engine
 
 QUEUED, ACTIVE, FINISHED, CANCELLED = "queued", "active", "finished", "cancelled"
+#: engine failures :meth:`ContinuousBatchingExecutor.step` raises at once
+#: instead of retrying: the port's kernel and graph faults, and PyTorch's
+#: own device errors where its version has a class for them
+DEVICE_FAULTS = (DeviceError,) + tuple(
+    c for c in (getattr(torch, "AcceleratorError", None),) if c is not None)
 
 
 @dataclasses.dataclass(eq=False)
@@ -203,11 +214,25 @@ class ContinuousBatchingExecutor:
         metrics: Optional[MetricsRegistry] = None,
         trace_pid: int = 0,
     ):
+        # REPRO_CHAOS=<seed> arms deterministic fault injection at the
+        # engine seam (no-op when unset or when the cluster already
+        # wrapped this engine with a per-replica injector)
+        engine = maybe_chaos_engine(engine)
         self.engine = engine
-        self.max_retries = 2 if max_retries is None else max_retries
-        #: the clock backoff sleeps on and deadlines are checked against
-        #: (the real wall clock unless a test hands in a virtual one)
-        self.clock = SystemClock() if clock is None else clock
+        if max_retries is None:
+            # env-armed chaos injects ~1% step errors; per-request retry
+            # counters accumulate over a request's whole lifetime, so the
+            # default ceiling must sit well above the expected draw count
+            max_retries = 8 if isinstance(engine, FaultyEngine) else 2
+        self.max_retries = max_retries
+        #: the clock backoff sleeps on and deadlines are checked against.
+        #: Defaults to the fault injector's (virtual) clock under chaos —
+        #: retry schedules stay deterministic and free — and to the real
+        #: wall clock otherwise.
+        if clock is None:
+            clock = (engine.injector.clock
+                     if isinstance(engine, FaultyEngine) else SystemClock())
+        self.clock = clock
         self.backoff_base_s = backoff_base_s
         self.backoff_factor = backoff_factor
         self.backoff_max_s = backoff_max_s
@@ -411,7 +436,13 @@ class ContinuousBatchingExecutor:
         prompts) and count a retry against each; the failure is swallowed
         — the executor sleeps an exponentially-growing jittered backoff
         on its clock and the next :meth:`step` starts them over on a
-        fresh state — unless a request has exhausted ``max_retries``.
+        fresh state — unless a request has exhausted ``max_retries`` or
+        the failure is a device fault (:data:`DEVICE_FAULTS`: a kernel
+        that does not build or launch, a graph that does not capture or
+        replay), which no retry cures and which is raised at once.
+        Requests the step retired before a failure are returned with the
+        swallowed failure, or ride on the raised one as its ``retired``
+        (a cluster resolves them before it fails the replica over).
         """
         m = self.metrics
         depth = len(self._queue)
@@ -426,15 +457,17 @@ class ContinuousBatchingExecutor:
             self.trace.counter("outstanding_tokens", self.outstanding_tokens,
                                pid=self.trace_pid)
         expired = self._expire_deadlines()
+        finished: List[ServeHandle] = []
         try:
-            finished = self._step_inner()
-        except Exception:
+            self._step_inner(finished)
+        except Exception as exc:
             exhausted = self._requeue_in_flight() or self._score_exhausted
             self._score_exhausted = False
-            if exhausted:
+            if exhausted or isinstance(exc, DEVICE_FAULTS):
+                exc.retired = expired + finished
                 raise
             self._backoff()
-            return expired
+            return expired + finished
         self._failstreak = 0
         if self._state is not None and not self.pending:
             # fully idle: release the dense slots × max_seq cache
@@ -517,8 +550,10 @@ class ContinuousBatchingExecutor:
             return False
         return True
 
-    def _step_inner(self) -> List[ServeHandle]:
-        finished: List[ServeHandle] = []
+    def _step_inner(self, finished: List[ServeHandle]) -> List[ServeHandle]:
+        """One refill + decode round, appending each request it retires
+        to ``finished`` as it goes (so a failure later in the round loses
+        none of them)."""
         self._refill(finished)
         occupied = [(s, h) for s, h in enumerate(self._slots) if h is not None]
         if not occupied or self._state is None:

@@ -37,11 +37,24 @@ them.
   as the graph's ``delta``, and each replay adds it: the counts are
   those of the eager passes, the warm-up counted once as the pass it is.
 * **scratch**: a wrapper that outgrows a persistent scratch buffer
-  (``ops.scratch_buffers``) replaces it; the graph holds every buffer it
-  was captured with, so memory it writes stays allocated while it lives.
+  (``ops.scratch_buffers``, the capturing thread's) replaces it; the
+  graph holds every buffer it was captured with, so memory it writes
+  stays allocated while it lives.
+* **threads**: several threads may run passes at once (the replicas of a
+  serving cluster, each on its own stream).  A capture must not see
+  another thread's launches, host syncs or frees, and its launch delta
+  and pool size are differences of process-wide counts, so a capture
+  (from the counts read before it to its launches taken back after)
+  holds :data:`GATE` alone, while every thread that runs passes next to
+  others holds it shared (``GATE.shared()``).  The capture is in CUDA's
+  global mode, so another thread's unsafe call during it (a sync, a
+  free, a graph's destruction) fails it loudly: a cluster makes those
+  calls (its replicas' passes, a stream's sync, a dead engine's
+  teardown) holding the gate shared.
 
-A failed warm-up, capture or replay raises with the graph's label (the
-pass kind and shape); nothing falls back to the eager pass.  How a graph
+A failed warm-up, capture or replay raises
+:class:`~repro_torch.kernels.build.DeviceError` with the graph's label
+(the pass kind and shape); nothing falls back to the eager pass.  How a graph
 is warmed and captured is injectable (``capture``, an object with
 ``warm(fn)`` and ``capture(fn, template) -> (output, replay,
 pool_bytes)``): :class:`CudaCapture` on the card; on the CPU, which has
@@ -52,6 +65,9 @@ runs the same staging and output plumbing.
 from __future__ import annotations
 
 import collections
+import contextlib
+import gc
+import threading
 import time
 from typing import Any, Callable, Dict, Sequence
 
@@ -59,13 +75,81 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.build import DeviceError
 
 Pass = Callable[[], torch.Tensor]
 
 
+class Gate:
+    """A lock that many threads hold shared and one thread alone.
+
+    A thread that holds it shared and asks for it alone gives up its
+    share while it waits and takes it back after, so two such threads
+    do not wait on each other.  A thread waiting to hold it alone keeps
+    new shared holders out.  Holding it shared again inside a shared
+    hold does not wait."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._readers = 0
+        self._writer = None          # the thread that holds it alone
+        self._writers_waiting = 0
+        self._local = threading.local()
+
+    @contextlib.contextmanager
+    def shared(self):
+        depth = getattr(self._local, "depth", 0)
+        me = threading.get_ident()
+        if depth == 0 and self._writer != me:
+            with self._cv:
+                while self._writer is not None or self._writers_waiting:
+                    self._cv.wait()
+                self._readers += 1
+        self._local.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._local.depth = depth
+            if depth == 0 and self._writer != me:
+                with self._cv:
+                    self._readers -= 1
+                    self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        depth = getattr(self._local, "depth", 0)
+        me = threading.get_ident()
+        if self._writer == me:       # already alone
+            yield
+            return
+        with self._cv:
+            if depth:
+                self._readers -= 1   # give up this thread's share
+                self._cv.notify_all()
+            self._writers_waiting += 1
+            while self._writer is not None or self._readers:
+                self._cv.wait()
+            self._writers_waiting -= 1
+            self._writer = me
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._writer = None
+                if depth:
+                    self._readers += 1
+                self._cv.notify_all()
+
+
+#: process-wide: a capture holds it alone; threads that run passes next
+#: to other threads (cluster replicas) hold it shared
+GATE = Gate()
+
+
 class CudaCapture:
     """Warm-up on a side stream, capture into a ``torch.cuda.CUDAGraph``
-    with its own memory pool."""
+    with its own memory pool (its caller, :class:`PassGraph`, holds
+    :data:`GATE` alone meanwhile)."""
 
     def warm(self, fn: Pass) -> torch.Tensor:
         side = torch.cuda.Stream()
@@ -82,14 +166,24 @@ class CudaCapture:
         torch.cuda.empty_cache()   # the pool's growth alone is the delta
         before = torch.cuda.memory_reserved()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = fn()
+        # ``torch.cuda.graph`` collects garbage before it starts; none is
+        # collected while it captures, where a dead graph's destructor (a
+        # graph in a reference cycle) may not destroy its executable.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
         return out, graph.replay, torch.cuda.memory_reserved() - before
 
 
 def _counts() -> dict:
-    return {k: (k.launches, collections.Counter(k.shapes))
-            for k in ops.KERNELS}
+    with ops.COUNT_LOCK:
+        return {k: (k.launches, collections.Counter(k.shapes))
+                for k in ops.KERNELS}
 
 
 class PassGraph:
@@ -143,11 +237,10 @@ class PassGraph:
         try:
             self._replay()
         except Exception as e:
-            raise RuntimeError(f"CUDA graph of the {self.label}: replay "
-                               f"failed ({e})") from e
+            raise DeviceError(f"CUDA graph of the {self.label}: replay "
+                              f"failed ({e})") from e
         for kernel, n, shapes in self.delta:
-            kernel.launches += n
-            kernel.shapes.update(shapes)
+            kernel.count(n, shapes)
         self.replays += 1
         return self.outputs
 
@@ -157,20 +250,26 @@ class PassGraph:
         try:
             out = self._capture.warm(run)
         except Exception as e:
-            raise RuntimeError(f"CUDA graph of the {self.label}: warm-up "
-                               f"failed ({e})") from e
+            raise DeviceError(f"CUDA graph of the {self.label}: warm-up "
+                              f"failed ({e})") from e
         self.warm_s = time.perf_counter() - t
-        before = _counts()
-        held = ops.scratch_buffers()
         t = time.perf_counter()
-        try:
-            self.outputs, replay, self.pool_bytes = self._capture.capture(
-                run, out)
-        except Exception as e:
-            raise RuntimeError(f"CUDA graph of the {self.label}: capture "
-                               f"failed ({e})") from e
-        finally:
-            self.delta = self._take_back(before)
+        with GATE.exclusive():   # no other thread launches meanwhile
+            before = _counts()
+            tally = ops.thread_tally()
+            tally_before = None if tally is None else dict(tally)
+            held = ops.scratch_buffers()
+            try:
+                self.outputs, replay, self.pool_bytes = \
+                    self._capture.capture(run, out)
+            except Exception as e:
+                raise DeviceError(f"CUDA graph of the {self.label}: "
+                                  f"capture failed ({e})") from e
+            finally:
+                self.delta = self._take_back(before)
+                if tally is not None:   # the replays count, not the capture
+                    tally.clear()
+                    tally.update(tally_before)
         self.capture_s = time.perf_counter() - t
         self._held = held + ops.scratch_buffers()
         self._replay = replay
@@ -179,13 +278,15 @@ class PassGraph:
     @staticmethod
     def _take_back(before: dict) -> list:
         """Restore the counts of ``before`` and return what was added
-        since, kernel by kernel."""
+        since, kernel by kernel (exact: a capture holds :data:`GATE`
+        alone, so no other thread launched meanwhile)."""
         delta = []
-        for kernel, (n, shapes) in before.items():
-            added = kernel.shapes - shapes
-            if kernel.launches != n:
-                delta.append((kernel, kernel.launches - n, added))
-            kernel.launches = n
-            kernel.shapes.clear()
-            kernel.shapes.update(shapes)
+        with ops.COUNT_LOCK:
+            for kernel, (n, shapes) in before.items():
+                added = kernel.shapes - shapes
+                if kernel.launches != n:
+                    delta.append((kernel, kernel.launches - n, added))
+                kernel.launches = n
+                kernel.shapes.clear()
+                kernel.shapes.update(shapes)
         return delta

@@ -28,10 +28,16 @@ decode and verify, mamba2 decode, and the MoE family's paged decode and
 verify, its capacity routing inside the graph) gives, replayed, the
 eager pass's
 logits and cache writes bit for bit, with new inputs at every replay and
-after a wrapper's scratch buffer was replaced.
+after a wrapper's scratch buffer was replaced.  Several host threads on
+one card (a cluster's replicas): two threads on two streams get the bits
+of the same calls made one after another, a library's concurrent first
+loads build it once, and a capture beside another thread's launches
+replays its eager pass, with exact launch counts.
 """
 
+import collections
 import dataclasses
+import threading
 
 import pytest
 import torch
@@ -44,7 +50,7 @@ from repro_torch.models import (decode_step, init_params, model_specs,
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.serve import Engine
-from repro_torch.serve.graphs import PassGraph
+from repro_torch.serve.graphs import GATE, PassGraph
 
 pytestmark = pytest.mark.gpu
 
@@ -1040,3 +1046,173 @@ def test_pass_graph_survives_a_grown_scratch(cuda):
         assert torch.equal(a, b)
     assert all(bool(torch.isnan(c).all()) for c in canary)
     assert torch.equal(inputs["k"], eager["k"])
+
+
+# ---------------------------------------------------------------------------
+# several host threads on one card (the replicas of a serving cluster)
+# ---------------------------------------------------------------------------
+
+
+def _scan_inputs(g, B=2, S=512, H=24, P=64, N=128):
+    x = _randn(g, torch.float32, B, S, H, P)
+    dt = torch.nn.functional.softplus(_randn(g, torch.float32, B, S, H))
+    A = -torch.exp(_randn(g, torch.float32, H) * 0.5)
+    return x, dt, A, _randn(g, torch.float32, B, S, N), \
+        _randn(g, torch.float32, B, S, N)
+
+
+def _thread_work(cuda, seed):
+    """One thread's calls: fp32 decode GEMM products that split K (the
+    wrapper's persistent partials and counters), bf16 ones (the tensor-map
+    cache) and the scan (its persistent scratch)."""
+    g = torch.Generator(cuda).manual_seed(seed)
+    calls = []
+    for K, N in ((2048, 2048), (8192, 2048), (2048, 8192)):
+        x = _randn(g, torch.float32, 4, K)
+        w = _randn(g, torch.float32, K, N)
+        calls.append(("gemm", (x, w)))
+        xb, wb = x.bfloat16(), _randn(g, torch.bfloat16, K, N)
+        calls.append(("gemm", (xb, wb)))
+    calls.append(("scan", _scan_inputs(g)))
+    return calls
+
+
+def _run_work(calls, rounds):
+    out = []
+    for _ in range(rounds):
+        for kind, args in calls:
+            out.append(ops.decode_linear(*args) if kind == "gemm"
+                       else ops.ssd_scan(*args, chunk=256))
+    return out
+
+
+def test_two_threads_on_two_streams_equal_serial(cuda):
+    """Two threads, each on its own stream, launch the decode GEMM (fp32
+    split-K and bf16) and the scan at once: every result has the bits of
+    the same call made alone, and the launch counts are exact, each
+    thread's tally its own launches."""
+    assert any(ops.decode_gemm.splits(K, N) > 1
+               for K, N in ((2048, 2048), (8192, 2048), (2048, 8192)))
+    rounds = 20
+    work = [_thread_work(cuda, seed) for seed in (1, 2)]
+    serial = [_run_work(w, 1) for w in work]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    results, tallies, errors = [None, None], [None, None], []
+    start = threading.Barrier(2)
+
+    def worker(i):
+        try:
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream), \
+                    ops.counting_into(collections.Counter()) as tally:
+                start.wait()
+                results[i] = _run_work(work[i], rounds)
+                stream.synchronize()
+            tallies[i] = tally
+        except Exception as e:   # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors and not any(t.is_alive() for t in threads)
+    per_round = {"decode_gemm": 6, "ssd_scan": 1}
+    for i in (0, 1):
+        for r in range(rounds):
+            got = results[i][r * 7:(r + 1) * 7]
+            assert all(torch.equal(a, b) for a, b in zip(got, serial[i])), \
+                (i, r)
+        assert dict(tallies[i]) == {k: n * rounds
+                                    for k, n in per_round.items()}
+    counts = ops.launch_counts()
+    assert {k: counts[k] for k in per_round} == {
+        k: 2 * n * rounds for k, n in per_round.items()}
+
+
+def test_concurrent_first_load_builds_once(cuda, tmp_path, monkeypatch):
+    """Four threads' first launches of one kernel library build it once
+    and load one library."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LIBS", {})
+    builds = []
+    real = build.build
+
+    def counted(names=build.SOURCES):
+        builds.append(tuple(names))
+        return real(names)
+    monkeypatch.setattr(build, "build", counted)
+    libs, errors = [None] * 4, []
+    start = threading.Barrier(4)
+
+    def first_load(i):
+        try:
+            start.wait()
+            libs[i] = build.load("rmsnorm")
+        except Exception as e:   # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=first_load, args=(i,))
+               for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert builds == [("rmsnorm",)]
+    assert all(lib is libs[0] for lib in libs)
+    assert build.library_path("rmsnorm").is_file()
+
+
+def test_capture_while_another_thread_launches(cuda):
+    """One thread captures and replays a paged decode pass (bf16, 2
+    full-width layers) while another launches the norm in a loop on its
+    own stream, holding the device gate shared: the replays give the
+    eager pass's bits, the graph's launch delta is an eager pass's, and
+    the counts are exactly both threads' launches."""
+    run, inputs, staged, host = _graph_case(cuda, "paged-decode",
+                                            torch.bfloat16)
+    eager = {n: t.clone() for n, t in inputs.items()}
+    with ops.counting_into(collections.Counter()) as one_pass:
+        want = [_run_eager(run, eager, staged, h).clone() for h in host]
+    torch.cuda.synchronize()
+    per_pass = {k: n // len(host) for k, n in one_pass.items()}
+    g = torch.Generator(cuda).manual_seed(3)
+    x, w = _randn(g, torch.bfloat16, 36, 2048), _randn(g, torch.bfloat16, 2048)
+    stop, errors = threading.Event(), []
+    other = collections.Counter()
+
+    def launcher():
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream), ops.counting_into(other):
+                while not stop.is_set():
+                    with GATE.shared():
+                        ops.rmsnorm(x, w)
+                stream.synchronize()
+        except Exception as e:   # surfaced below
+            errors.append(e)
+
+    ops.reset_launch_counts()
+    thread = threading.Thread(target=launcher)
+    thread.start()
+    try:
+        with ops.counting_into(collections.Counter()) as mine:
+            graph = PassGraph("paged decode", run, inputs, staged)
+            got = [graph(**h).clone() for h in host]
+            torch.cuda.synchronize()
+    finally:
+        stop.set()
+        thread.join(timeout=120)
+    assert not errors and not thread.is_alive() and other["rmsnorm"] > 0
+    assert graph.replays == len(host) - 1
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+    assert {k.name: n for k, n, _ in graph.delta} == per_pass
+    assert dict(mine) == {k: n * len(host) for k, n in per_pass.items()}
+    counts = ops.launch_counts()
+    assert counts["rmsnorm"] == mine["rmsnorm"] + other["rmsnorm"]
+    assert counts["decode_gemm"] == mine["decode_gemm"]

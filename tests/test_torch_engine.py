@@ -162,13 +162,20 @@ def test_unported_engine_paths_raise(weights):
 
 
 def test_launcher_raises_on_unported_options_and_without_a_card():
-    from repro_torch.launch.serve import build_engine, main
+    """``--tp 2`` is not yet ported; ``--replicas 2`` builds a cluster of
+    two engines over one set of weights (no join is run here); without a
+    card the default device raises."""
+    from repro_torch.launch.serve import build_cluster, build_engine, main
 
     base = ["--arch", "granite-3-2b", "--smoke", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        main(base + ["--replicas", "2"])
     with pytest.raises(NotImplementedError, match="queue A item 13"):
         main(base + ["--tp", "2"])
+    with build_cluster("granite-3-2b", 2, smoke=True, device="cpu") as cl:
+        assert len(cl.engines) == cl.replicas_alive == 2
+        a, b = cl.engines
+        assert a is not b and a.params is b.params   # shared by reference
     if not torch.cuda.is_available():   # cuda is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_engine("granite-3-2b", smoke=True)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_cluster("granite-3-2b", 2, smoke=True)

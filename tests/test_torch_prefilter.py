@@ -43,7 +43,8 @@ from repro_torch.data.scenarios import marketplace_scenario
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.kernels import ops
 from repro_torch.models import from_numpy
-from repro_torch.serve import Engine, EngineClient, EngineEmbedder
+from repro_torch.serve import (Cluster, ClusterClient, Engine, EngineClient,
+                               EngineEmbedder)
 
 CPU = dict(device="cpu")
 
@@ -309,10 +310,28 @@ def test_engine_embedder_determinism_and_accounting(engines):
 
 
 def test_engine_embedder_backend_validation(engines):
+    """An Engine, an EngineClient, a Cluster and a ClusterClient are
+    backends (the cluster's vectors are the lone engine's where a replica
+    embeds the same batch); anything else raises the JAX package's
+    TypeError."""
     _, eng = engines(max_seq=128, slots=2)
     assert EngineEmbedder(EngineClient(eng)).dim == eng.cfg.d_model
-    with pytest.raises(TypeError, match="queue A item 9"):
+    with pytest.raises(TypeError) as exc:
         EngineEmbedder(object())
+    with pytest.raises(TypeError) as jexc:
+        JaxEngineEmbedder(object())
+    assert str(exc.value) == str(jexc.value)
+    texts = ["a", "bc", "d"]
+    solo = np.asarray(EngineEmbedder(eng).embed(texts))
+    twin = Engine(eng.cfg, eng.params, eng.tokenizer, max_seq=128, slots=2)
+    with Cluster([eng, twin], wait_timeout_s=60) as cl:
+        for backend in (cl, ClusterClient(cl)):
+            emb = EngineEmbedder(backend)
+            assert emb.dim == eng.cfg.d_model
+            np.testing.assert_array_equal(np.asarray(emb.embed(texts)), solo)
+            assert emb.batches == 1   # 3 texts, 2 replicas x 2 slots
+            assert emb.tokens_read == sum(len(eng.tokenizer.encode(t))
+                                          for t in texts)
     for bad in ([], ["a"] * 3, ["x" * 500]):
         with pytest.raises(ValueError):
             eng.embed_rows(bad)
