@@ -8,7 +8,9 @@ phase 9d), over the dense family
 (granite-3-2b; yi-9b and starcoder2-7b in phase 9b; mistral-large-123b
 cut to two layers in phase 3), the MoE family (grok-1-314b and
 arctic-480b cut in depth, phase 9c), the embedding-input families
-(musicgen-large and pixtral-12b, phase 9c) and the ssm family: the three attention
+(musicgen-large and pixtral-12b, phase 9c), int8 weight residency
+(granite-3-2b, phase 9e), the hybrid family (jamba-1.5-large-398b cut to
+one superblock, int8, phase 9f) and the ssm family: the three attention
 kernels of the paged engine (flash, chunked prefill, paged decode) carry
 the block and adaptive joins; flash, chunked prefill and the top-k
 similarity kernel carry the prefilter path (embedding, candidates,
@@ -205,6 +207,40 @@ no result line:
    resolved once; the walls, tok/s, TTFT and peak memory at 1 and 2
    replicas printed, and, under ``--profile``, one 2-replica block join
    under ``torch.profiler`` (its device idle share);
+9e. int8 weight residency: full-width granite-3-2b drawn straight into
+   int8 (``build_engine(quant=True)``; bf16 activations) behind phase 4's
+   engine settings: phase 4's joins spec off and on at ``EXPECTED`` and
+   phase 4's pairs, every decode and verify pass's products through the
+   decode GEMM's int8 variant (``pass_launches``); greedy tokens spec on
+   == off and eager == graph (``GREEDY``); a decode step's rows at M 4 ==
+   M 36 and verify == 9 decode steps on the paged and dense caches, bit
+   for bit; each captured pass replayed == eager (``bench_pass``), its
+   time printed beside phase 9's bf16 one; every product of a pass at
+   M 4 and 36 through the int8 kernel bit for bit the dense kernel on
+   the dequantized weights, and the pass timed (weights cold by size)
+   beside the dense kernel on those weights, ``torch.matmul`` on them,
+   the plain version and, where this torch runs it on the card,
+   ``torch._weight_int8pack_mm``, with its int8 byte bound; weights and
+   peak memory beside phase 4's;
+9f. the hybrid family: jamba-1.5-large-398b at full width cut to one of
+   its nine superblocks (``HYBRID``: 8 layers, 45.14 G parameters, int8
+   weights drawn leaf by leaf under a 60 GiB build peak, bf16
+   activations) behind ``Engine(max_seq=1024, slots=4)``, which gates
+   paging, the prefix cache and speculation off: (a) phase 4's joins at
+   ``EXPECTED[("hybrid", "base")]`` and phase 4's pairs, flash attention
+   (64 heads over 8 of 128), dense decode attention, ``ssd_scan`` (256
+   heads of 64, state 128; 7 launches a prefill pass), ``rmsnorm`` and
+   the int8 GEMM on every decode pass (``pass_launches``: 29 launches,
+   35 products, 10 norms); (b) the decode graph replayed == eager and
+   timed; (c) one pass's int8 GEMM products bit for bit the dense kernel
+   on the deq'd weights, timed with its bound; (d) recorded, not held:
+   weights, the build's and the joins' peak memory, the join walls, the
+   expert products' share of the pass (their dequantization included,
+   beside the bound of reading the experts as int8 only); (e) the kernels
+   against their plain versions on a ragged prefill and decode steps in
+   fp32 activations over the int8 weights at std 1/sqrt(fan-in), the
+   plain run taking the kernel run's routing, at phase 3's tolerance grown
+   by the square root of the depth;
 10. every kernel against its plain version again at each shape the paths
    gave it (phase 9b's e4m3 pools included); then each kernel's time
    (CUDA events, inputs rotated past the 50 MB L2) at its path's most
@@ -241,9 +277,11 @@ no result line:
 Each phase sets its engine's mode itself; ``REPRO_SPEC_DECODE``,
 ``REPRO_PAGED_KV`` and ``REPRO_PREFIX_CACHE`` are dropped if set.  The
 last lines are the ``{"kernels": [...]}`` summary (launches on each
-kernel's own path, and by path; the six kernels of phase 9b's and 9c's
-paths also timed at yi-9b's, grok-1-314b's and arctic-480b's shapes,
-``yi_9b``, ``grok_1_314b``, ``arctic_480b``), the card's name and power limit, and
+kernel's own path, and by path, phases 9e's and 9f's included; the six
+kernels of phase 9b's and 9c's paths also timed at yi-9b's,
+grok-1-314b's and arctic-480b's shapes, ``yi_9b``, ``grok_1_314b``,
+``arctic_480b``; the decode GEMM's int8 variant at granite's M 4 and 36
+and jamba's M 4, ``int8``), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
 the repository's ``src/`` beside it.
 """
@@ -445,6 +483,16 @@ EXPECTED = {
                    completion_tokens=208, drafted_tokens=600,
                    accepted_draft_tokens=116, replica_calls=[8, 8],
                    replica_passes=[20, 17], replica_decode_steps=[16, 13])),
+    # phase 9f: the hybrid path (jamba-1.5-large-398b smoke config, int8,
+    # on the JAX int8 engine): gated like ssm, so ssm's counts
+    # (tests/test_torch_hybrid.py holds the port's engine to them)
+    ("hybrid", "base"): dict(
+        block=dict(calls=16, prompt_tokens=14016, cached_prompt_tokens=0,
+                   completion_tokens=208, decode_steps=54, drafted_tokens=0,
+                   accepted_draft_tokens=0),
+        adaptive=dict(calls=28, prompt_tokens=26136, cached_prompt_tokens=0,
+                      completion_tokens=361, decode_steps=90,
+                      drafted_tokens=0, accepted_draft_tokens=0)),
 }
 #: phase 9d: replicas of phase 4's engine on the one card; replica 1 is
 #: killed after this many of its engine calls (``FaultPlan``), then
@@ -914,13 +962,15 @@ def check_e4m3_pools(ops, L, g, dtype, c: "Checks") -> None:
 
 
 @contextlib.contextmanager
-def plain_kernels(ops):
-    """Route every kernel wrapper to its plain version (on any device) for
-    a reference run; the kernels are restored on exit."""
+def plain_kernels(ops, names=None):
+    """Route every kernel wrapper (or those of ``names``) to its plain
+    version (on any device) for a reference run; the kernels are restored
+    on exit."""
     saved = {k.name: k for k in ops.KERNELS}
     try:
         for k in ops.KERNELS:
-            setattr(ops, k.name, k.plain)
+            if names is None or k.name in names:
+                setattr(ops, k.name, k.plain)
         yield
     finally:
         for name, k in saved.items():
@@ -1307,14 +1357,25 @@ def gemm_products(path: dict) -> int:
     return sum(n for _, n in path["shapes"]["decode_gemm"])
 
 
-def pass_launches(cfg) -> dict:
+def pass_launches(cfg, quant: bool = False) -> dict:
     """The decode GEMM's launches and products and the norms of one
     decode (or verify) pass of ``cfg``.  A layer: the attention block's
     {wq, wk, wv} and wo (2 launches, 4 products) and its norm; a dense
     MLP's {w_gate, w_up} and w_down (2, 3) and its norm; or the MoE
     block's router (1, 1) and its norm, and arctic's dense residual (an
     MLP) beside it.  Then the final norm and the unembed (granite-3-2b:
-    161 launches, 281 products, 81 norms)."""
+    161 launches, 281 products, 81 norms).  A hybrid superblock: its
+    attention slot, each mamba slot's in- and out-projection where they
+    are int8 (``quant``: 2, 2, and a plain norm), the dense MLP on even
+    slots and the MoE router on odd ones (jamba at one superblock, int8:
+    29 launches, 35 products, 10 norms)."""
+    if cfg.family == "hybrid":
+        P, nst = cfg.attn_period, cfg.n_layers // cfg.attn_period
+        mamba = 2 * (P - 1) if quant else 0
+        dense, moe = (P + 1) // 2, P // 2
+        return dict(decode_gemm=(2 + mamba + 2 * dense + moe) * nst + 1,
+                    products=(4 + mamba + 3 * dense + moe) * nst + 1,
+                    rmsnorm=(1 + dense + moe) * nst + 1)
     moe = cfg.family == "moe"
     mlp = (not moe) or cfg.moe_dense_residual
     launches = 2 + (1 if moe else 0) + (2 if mlp else 0)
@@ -1325,13 +1386,14 @@ def pass_launches(cfg) -> dict:
                 rmsnorm=norms * n + 1)
 
 
-def hold_pass_launches(label: str, summary: dict, cfg) -> None:
+def hold_pass_launches(label: str, summary: dict, cfg,
+                       quant: bool = False) -> None:
     """Every decode (or verify) pass of a path sent its products through
     decode_gemm and its norms through rmsnorm as ``pass_launches(cfg)``
     counts them (granite: 281 products in 161 launches, 81 norms)."""
     steps = summary["decode_steps"]
     got = dict(summary["launches"], products=gemm_products(summary))
-    per_pass = pass_launches(cfg)
+    per_pass = pass_launches(cfg, quant)
     bad = {k: (got[k], n * steps) for k, n in per_pass.items()
            if got[k] != n * steps}
     log(f"  {label}: {steps} decode passes, decode_gemm {got['products']} "
@@ -3277,11 +3339,458 @@ def profile_cluster_join(rt, cl, out_dir: Path) -> dict:
                        "cluster_block_join", out_dir, run)
 
 
+# ---------------------------------------------------------------------------
+# Phases 9e and 9f: int8 weight residency and the hybrid family
+# ---------------------------------------------------------------------------
+
+#: phase 9f: jamba-1.5-large-398b cut to one of its nine superblocks (8
+#: layers) at full width, int8 weights (44.07 G int8 parameters and the
+#: bf16 tables, ~43 GiB: the superblock is 84.09 GiB in bf16, past the
+#: card); its fp32 kernels-against-plain check: a ragged prefill of
+#: ``rows`` x ``S`` and ``steps`` decode steps
+HYBRID = dict(arch="jamba-1.5-large-398b", layers=8, rows=4, S=256,
+              lens=(256, 201, 77, 1), steps=4)
+
+
+def is_int8(w) -> bool:
+    return hasattr(w, "q") and hasattr(w, "scale")
+
+
+def hybrid_pass_calls(rt, params, cfg) -> list:
+    """The decode GEMM's calls of one hybrid decode pass, in the order
+    the pass makes them: per superblock, slot 0's {wq, wk, wv} and wo,
+    each mamba slot's in- and out-projection (int8 weights only: a dense
+    mamba product stays ``torch.matmul``), each slot's dense MLP
+    ({w_gate, w_up}, w_down) or MoE router, then the unembed."""
+    D, H, hd = cfg.d_model, cfg.padded_heads, cfg.resolved_head_dim
+    b, out = params["blocks"], []
+    for i in range(b["attn"]["wq"].shape[0]):
+        a = {k: w[i] for k, w in b["attn"].items()}
+        for s in range(cfg.attn_period):
+            if s == 0:
+                out += [tuple(rt.as_matrix(a[k], D) for k in ("wq", "wk",
+                                                              "wv")),
+                        (rt.as_matrix(a["wo"], H * hd),)]
+            else:
+                m = {k: w[i][s - 1] for k, w in b["mamba"].items()}
+                if is_int8(m["w_in"]):
+                    out += [(m["w_in"],), (m["w_out"],)]
+            if s % 2 == 0:
+                f = {k: w[i][s // 2] for k, w in b["ffn_dense"].items()}
+                out += [(f["w_gate"], f["w_up"]), (f["w_down"],)]
+            else:
+                out.append((b["ffn_moe"]["router"][i][s // 2],))
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return out + [(table.t(),)]
+
+
+def int8_pass(ops, L, rt, g, calls, M: int, label: str,
+              int8pack: bool = False) -> dict:
+    """One decode pass's decode GEMM calls at M rows, their weights int8
+    (``calls``: as the model makes them, the dense unembed and routers
+    among them): every product of the int8 kernel bit for bit the dense
+    kernel's on the dequantized bf16 weights (held); then, weights cold
+    by size, the device ms of the int8 pass, of the dense kernel on the
+    dequantized weights, of ``torch.matmul`` once a product on them (the
+    yardstick), of the plain version (dequantize, then ``x @ w``), with
+    ``int8pack`` of ``torch._weight_int8pack_mm`` where this torch runs it
+    on the card (None where it does not), and the pass's bound: the bytes
+    of the int8 payloads, their scales, the dense weights, x and y."""
+    dt = torch.bfloat16
+    flat = [w for ws in calls for w in ws]
+    xs = {K: _randn(g, dt, M, K)
+          for K in {(w.q if is_int8(w) else w).shape[0] for w in flat}}
+
+    def k_of(w):
+        return (w.q if is_int8(w) else w).shape[0]
+    dense_calls = [tuple(rt.deq(w, dt) for w in ws) for ws in calls]
+
+    def run(cs):
+        return [ops.decode_linear_group(xs[k_of(ws[0])], list(ws))
+                for ws in cs]
+    got, want = run(calls), run(dense_calls)
+    differ = sum(int(not torch.equal(a, b)) for ys, zs in zip(got, want)
+                 for a, b in zip(ys, zs))
+    n_q = sum(is_int8(w) for w in flat)
+    log(f"  {label} M={M}: the int8 kernel's {len(flat)} products ({n_q} "
+        f"int8) against the dense kernel on the dequantized weights: "
+        f"{'bit for bit' if not differ else f'{differ} DIFFER'} "
+        f"{'ok' if not differ else 'FAIL'}")
+    if differ:
+        raise AssertionError(f"{label} M={M}: {differ} int8 products differ "
+                             "from the dense kernel on deq'd weights")
+    del got, want
+
+    def library():
+        return [torch.matmul(xs[w.shape[0]], w) for ws in dense_calls
+                for w in ws]
+
+    def plain():
+        return [L.matmul(xs[k_of(w)], rt.deq(w, dt)) for ws in calls
+                for w in ws]
+    nbytes = sum((w.q.numel() + 4 * w.scale.numel()) if is_int8(w)
+                 else w.numel() * w.element_size() for w in flat) + sum(
+        2 * M * (k_of(w) + (w.q if is_int8(w) else w).shape[1]) for w in flat)
+    flops = 2 * M * sum(w.numel() for w in flat)
+    b_ms, b_by = bound(nbytes, flops, dt)
+    k_ms, d_ms = in_turns(lambda fn: device_ms(fn, [()], 3),
+                          lambda: run(calls), lambda: run(dense_calls))
+    lib_ms = device_ms(library, [()], 3)
+    plain_ms = device_ms(plain, [()], 2)
+    pack_ms = None
+    if int8pack:
+        pack = getattr(torch, "_weight_int8pack_mm", None)
+        packed = []
+        try:
+            for w in flat:
+                if is_int8(w):
+                    s = rt.column_scales(w).reshape(-1)
+                    s = s.repeat(w.q.shape[1] // s.numel()).to(dt)
+                    packed.append((xs[k_of(w)], w.q.t().contiguous(), s))
+            pack(*packed[0])
+            torch.cuda.synchronize()
+            pack_ms = device_ms(lambda: [pack(*a) for a in packed], [()], 3)
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            log(f"  torch._weight_int8pack_mm does not run here: "
+                f"{str(e).splitlines()[0][:160]}")
+        del packed
+    out = dict(M=M, products=len(flat), int8_products=n_q,
+               launches=len(calls), int8_gb=sum(
+                   w.q.numel() for w in flat if is_int8(w)) / 1e9,
+               device_ms=sum(k_ms) / 2, dense_on_deq_device_ms=sum(d_ms) / 2,
+               library_device_ms=lib_ms, plain_device_ms=plain_ms,
+               int8pack_device_ms=pack_ms, bound_ms=b_ms, bound_by=b_by,
+               readings=dict(int8=k_ms, dense_on_deq=d_ms))
+    log(f"  {label} M={M}, one pass's {len(calls)} calls, weights cold by "
+        f"size (device ms): int8 kernel {out['device_ms']:.3f} (bound "
+        f"{b_ms:.3f}, {b_by}: {b_ms / out['device_ms']:.0%} of it), dense "
+        f"kernel on the deq'd bf16 weights {out['dense_on_deq_device_ms']:.3f}"
+        f", torch.matmul on them {lib_ms:.3f}, plain (deq + x @ w) "
+        f"{plain_ms:.3f}, torch._weight_int8pack_mm "
+        f"{'n/a' if pack_ms is None else f'{pack_ms:.3f}'}")
+    del dense_calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_int8_granite(rt, ops, L, dev, seed: int, base: dict,
+                     base_pairs: dict, graph_passes: dict) -> tuple:
+    """Phase 9e: full-width granite-3-2b with int8 weights (drawn int8
+    from ``seed``): phase 4's joins spec off and on at ``EXPECTED`` and
+    phase 4's pairs; greedy tokens spec on == off; verify == decode and
+    a decode step's rows at M 4 == M 36, bit for bit; each captured pass
+    replayed == eager; the int8 GEMM == the dense GEMM on the deq'd
+    weights for every product of a pass at M 4 and 36, with its times;
+    weights, peak memory and the decode pass time beside phase 4's
+    bf16 ones.  Returns ``(record, paths)``."""
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = rt.build_engine("granite-3-2b", device=dev, seed=seed,
+                             max_seq=1024, slots=4, quant=True)
+    torch.cuda.synchronize()
+    cfg = engine.cfg
+    weights_gib = (torch.cuda.memory_allocated() - mem0) / 2 ** 30
+    n_q = sum(w.numel() for _, w in rt.tree_items(engine.params)
+              if is_int8(w))
+    log(f"  granite-3-2b int8: {n_q:,} int8 parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s, {weights_gib:.2f} GiB of weights "
+        f"(phase 4's bf16: {base['weights_gib']:.2f} GiB)")
+    paths = {}
+    s_base, pairs = run_joins(rt, ops, engine, "granite int8 block + adaptive")
+    hold_counts("granite int8", s_base["joins"], EXPECTED[("paged", "base")])
+    hold_pass_launches("granite int8", s_base, cfg)
+    s_base["weights_gib"] = weights_gib
+    eng = rt.Engine(cfg, engine.params, engine.tokenizer, max_seq=1024,
+                    slots=4, spec_decode=True, quant=True)
+    s_spec, spec_pairs = run_joins(rt, ops, eng, "granite int8 spec")
+    hold_counts("granite int8 spec", s_spec["joins"],
+                EXPECTED[("paged", "spec")])
+    hold_pass_launches("granite int8 spec", s_spec, cfg)
+    del eng
+    if pairs != base_pairs or spec_pairs != base_pairs:
+        raise AssertionError("granite int8: pairs differ from phase 4's")
+    for label, s in (("spec off", s_base), ("spec on", s_spec)):
+        log(f"  granite int8 {label}: walls block "
+            f"{s['joins']['block']['wall_s']:.3f} / adaptive "
+            f"{s['joins']['adaptive']['wall_s']:.3f} s, peak "
+            f"{s['max_memory_allocated_gib']:.2f} GiB allocated (phase 4 "
+            f"bf16: {base['joins']['block']['wall_s']:.3f} / "
+            f"{base['joins']['adaptive']['wall_s']:.3f} s, "
+            f"{base['max_memory_allocated_gib']:.2f} GiB)")
+    paths["granite_int8"], paths["granite_int8_spec"] = s_base, s_spec
+    record = dict(base=s_base, spec=s_spec)
+    record["greedy_agreement"] = greedy_agreement(rt, engine)
+    record["verify_vs_decode"] = check_verify_vs_decode(
+        rt, engine, dtypes=(torch.bfloat16,))
+
+    def fresh(**mode):
+        return rt.Engine(cfg, engine.params, engine.tokenizer, max_seq=1024,
+                         slots=4, quant=True, **mode)
+    record["passes"] = {
+        "paged decode": bench_pass(ops, fresh(), "decode",
+                                   "granite int8 paged decode, M 4"),
+        "verify": bench_pass(ops, fresh(spec_decode=True), "verify",
+                             "granite int8 paged verify, K 9 (M 36)")}
+    for kind, rec in record["passes"].items():
+        bf = graph_passes[kind]
+        log(f"  granite {kind} pass as a graph: int8 "
+            f"{rec['replay_device_ms']:.3f} ms device (host-inclusive "
+            f"{rec['median']['graph_host_ms']:.3f}), bf16 phase 9 "
+            f"{bf['replay_device_ms']:.3f} ms "
+            f"({bf['median']['graph_host_ms']:.3f})")
+    g = torch.Generator(dev).manual_seed(21)
+    calls = pass_calls(engine.params, cfg)
+    record["gemm"] = {M: int8_pass(ops, L, rt, g, calls, M, "granite int8",
+                                   int8pack=M == 4) for M in (4, 36)}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, paths
+
+
+def hybrid_unit_scale(rt, params, dtype=torch.float32) -> dict:
+    """The int8 tree of ``params`` with every stacked block matrix at std
+    1/sqrt(its own fan-in) (as ``unit_scale``; the reference draws a
+    one-superblock jamba at std 1, its fan-in rule reading the stacked
+    axis of length 1): the scales rescaled, the int8 payloads shared,
+    every other leaf cast to ``dtype``."""
+    lead = {"attn": 1, "mamba": 2, "ffn_dense": 2, "ffn_moe": 3}
+    contracted = dict(CONTRACTED, w_in=1, w_out=1)
+    nst = params["blocks"]["attn"]["wq"].shape[0]
+    out = {}
+    for path, w in rt.tree_items(params):
+        node = out
+        *parents, name = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        if is_int8(w):
+            n = lead[parents[1]]
+            fan = math.prod(w.shape[n:n + contracted[name]])
+            node[name] = rt.QuantizedTensor(w.q, w.scale * math.sqrt(nst / fan))
+        else:
+            node[name] = w.to(dtype)
+    return out
+
+
+def hybrid_expert_share(rt, engine, pass_ms: float) -> dict:
+    """The MoE slots' expert products, their per-group dequantization
+    included (``blocks.expert_products``), alone at a decode pass's shapes
+    (``E`` experts x ``G C`` slots, the weights cold by size), against the
+    pass's device time; with the bytes bound of reading the experts as
+    int8 only and of this dequantizing design (int8 read, bf16 written and
+    read back)."""
+    cfg, params = engine.cfg, engine.params
+    dev, dt = params["embed"].device, params["embed"].dtype
+    g = torch.Generator(dev).manual_seed(13)
+    G, C = rt.blocks.moe_groups(cfg, engine.slots)
+    E, D = cfg.n_experts, cfg.d_model
+    xe = _randn(g, dt, E, G * C, D)
+    moe = params["blocks"]["ffn_moe"]
+    slots = [{k: w[i][j] for k, w in moe.items()}
+             for i in range(rt.n_stacks(cfg)) for j in range(
+                 cfg.attn_period // 2)]
+
+    def experts():
+        for p in slots:
+            rt.blocks.expert_products(p, xe)
+    ms = device_ms(experts, [()], 2)
+    q_bytes = sum(p[w].q.numel() for p in slots
+                  for w in ("w_gate", "w_up", "w_down"))
+    out = dict(experts_ms=ms, pass_ms=pass_ms, share=ms / pass_ms,
+               int8_gb=q_bytes / 1e9, slots=G * C, experts=E,
+               int8_bound_ms=q_bytes / HBM_BYTES_PER_S * 1e3,
+               deq_bound_ms=5 * q_bytes / HBM_BYTES_PER_S * 1e3)
+    log(f"  jamba expert products with their dequantization: {ms:.3f} ms of "
+        f"a decode pass's {pass_ms:.3f} ms device time "
+        f"({100 * out['share']:.1f}%; {len(slots)} MoE slots x {E} experts x "
+        f"{G * C} slots, {out['int8_gb']:.2f} GB of int8 experts: bound "
+        f"{out['int8_bound_ms']:.3f} ms read as int8 only, "
+        f"{out['deq_bound_ms']:.3f} ms as dequantized here: int8 read, bf16 "
+        f"written and read back)")
+    return out
+
+
+def check_hybrid_kernels(rt, ops, dev, engine, seed: int) -> dict:
+    """jamba's superblock, int8 weights at std 1/sqrt(fan-in) and fp32
+    activations (``hybrid_unit_scale``): a ragged prefill and ``steps``
+    decode steps (``HYBRID``) through the kernels, through their plain
+    versions, and through the plain versions in fp64 (the dequantized
+    weights and the tables in fp64; the SSM state and the mamba gates
+    stay fp32, as the model casts them), every run after the first taking
+    its routing (``RoutingTape``).  Held: the kernels' distance from the
+    fp64 run is at most twice the plain fp32 run's plus phase 3's
+    tolerance grown by the square root of the depth (2e-5 x d_model /
+    2048 x sqrt(layers / 2)): the kernels are as accurate as the plain
+    versions they replace.  A wiring fault moves a logit by O(1).
+    Recorded: the kernels against the plain fp32 run (against that same
+    tolerance, which it missed: 3.3e-4 against 1.6e-4 on the H100, the
+    prefill alone, with flash its only kernel, 2.7e-4), and with the scan
+    plain too."""
+    cfg = engine.cfg
+    params = hybrid_unit_scale(rt, engine.params)
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    B, S, steps = HYBRID["rows"], HYBRID["S"], HYBRID["steps"]
+    toks = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=g,
+                         device=dev)
+    vlen = torch.tensor(HYBRID["lens"], dtype=torch.int32, device=dev)
+
+    def run(p):
+        cache, lg = rt.prefill(cfg, p, {"tokens": toks[:, :S]},
+                               max_seq=S + steps, valid_len=vlen)
+        out = [lg]
+        for j in range(steps):
+            cache, lg = rt.decode_step(cfg, p, cache,
+                                       toks[:, S + j:S + j + 1])
+            out.append(lg)
+        return torch.stack(out, dim=1)
+
+    t = time.perf_counter()
+    tape = RoutingTape(rt.blocks)
+    ops.reset_launch_counts()
+    with tape.record():
+        got = run(params)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    with plain_kernels(ops), tape.replay():
+        want = run(params)
+    with plain_kernels(ops, ("ssd_scan",)), tape.replay():
+        got_no_scan = run(params)
+    del params
+    params = hybrid_unit_scale(rt, engine.params, torch.float64)
+    with plain_kernels(ops), tape.replay():
+        ref = run(params)
+    del params
+    atol = 2e-5 * max(1.0, cfg.d_model / 2048) * math.sqrt(cfg.n_layers / 2)
+    out = dict(routing_differ=tape.differ, routing_entries=tape.entries,
+               launches=launches, tol=atol)
+
+    def dist(a, b):
+        err = (a.double() - b.double()).abs()
+        return float(err.max()), [float(e) for e in err.amax(dim=(0, 2))]
+    for name, a, b in (("kernels vs fp64", got, ref),
+                       ("plain fp32 vs fp64", want, ref),
+                       ("kernels vs plain fp32 (recorded)", got, want),
+                       ("kernels but the scan vs plain fp32 (recorded)",
+                        got_no_scan, want)):
+        e, by_step = dist(a, b)
+        out[name] = dict(max_abs_err=e, by_step=by_step)
+        log(f"  jamba x {cfg.n_layers} layers, int8 weights, prefill {B} x "
+            f"{S} (lengths {list(HYBRID['lens'])}) and {steps} decode "
+            f"steps, logits {tuple(a.shape)}: {name} max_abs_err={e:.3e} "
+            f"(by step {[f'{x:.2e}' for x in by_step]})")
+    k64 = out["kernels vs fp64"]["max_abs_err"]
+    p64 = out["plain fp32 vs fp64"]["max_abs_err"]
+    ok = bool(torch.isfinite(got).all()) and k64 <= 2 * p64 + atol
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  jamba fp32 check: the kernels {k64:.3e} from the fp64 run, the "
+        f"plain versions {p64:.3e}: held to 2 x {p64:.3e} + {atol:.1e} "
+        f"(max |logit| {float(ref.abs().max()):.2f}) "
+        f"{'ok' if ok else 'FAIL'}; the later runs take the kernel run's "
+        f"routing, their own would set {tape.differ} of {tape.entries} "
+        f"dispatch entries otherwise; launches "
+        f"{ {k: n for k, n in launches.items() if n} }; peak {peak:.2f} GiB;"
+        f" {time.perf_counter() - t:.1f} s")
+    if not ok:
+        raise AssertionError("jamba fp32: the kernels are less accurate "
+                             "than the plain versions")
+    del got, want, got_no_scan, ref
+    torch.cuda.empty_cache()
+    return dict(out, peak_gib=peak)
+
+
+def run_hybrid(rt, ops, L, dev, seed: int, base_pairs: dict) -> tuple:
+    """Phase 9f: jamba-1.5-large-398b cut to one superblock at full width,
+    int8 weights drawn int8 leaf by leaf from ``seed`` (the build's peak
+    held under 60 GiB), bf16 activations, behind ``Engine(max_seq=1024,
+    slots=4)`` (paging, the prefix cache and speculation gated off): (a)
+    phase 4's joins at ``EXPECTED[("hybrid", "base")]`` and phase 4's
+    pairs, flash, dense decode, the scan, the norm and the int8 GEMM
+    launched on every pass as ``pass_launches`` counts them; (b) the
+    decode graph replayed == eager and timed (``bench_pass``); (c) the
+    decode GEMM's int8 pass at M 4 against the dense kernel on the deq'd
+    weights (held bit for bit), timed; (d) recorded, not held: weights,
+    peak memory, join walls, the expert products' share of the pass;
+    (e) the kernels against their plain versions in fp32
+    (``check_hybrid_kernels``).  Returns ``(record, paths)``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = rt.build_engine(HYBRID["arch"], device=dev, seed=seed,
+                             max_seq=1024, slots=4, layers=HYBRID["layers"],
+                             quant=True)
+    torch.cuda.synchronize()
+    cfg = engine.cfg
+    build_peak = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+    weights_gib = (torch.cuda.memory_allocated() - mem0) / 2 ** 30
+    n_params = sum(w.numel() for _, w in rt.tree_items(engine.params))
+    n_q = sum(w.numel() for _, w in rt.tree_items(engine.params)
+              if is_int8(w))
+    log(f"  jamba full width x {cfg.n_layers} layers "
+        f"({rt.n_stacks(cfg)} superblock): "
+        f"{n_params:,} parameters, {n_q:,} of them int8, drawn on the card "
+        f"in {time.perf_counter() - t0:.1f} s: {weights_gib:.2f} GiB of "
+        f"weights (bf16 would be {n_params * 2 / 2 ** 30:.2f} GiB), build "
+        f"peak {build_peak:.2f} GiB over the {mem0 / 2 ** 30:.2f} GiB of the"
+        f" earlier phases' engines; {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} KV heads of {cfg.resolved_head_dim}, "
+        f"{cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim} (state "
+        f"{cfg.ssm_state}), {cfg.n_experts} experts top-"
+        f"{cfg.experts_per_token} of d_ff {cfg.d_ff}")
+    if build_peak > 60:
+        raise AssertionError(f"jamba int8 build peak {build_peak:.2f} GiB")
+    if engine.paged or engine.prefix_cache is not None or engine.spec_decode:
+        raise AssertionError("the hybrid engine must gate paging, the "
+                             "prefix cache and speculation off")
+    base, pairs = run_joins(rt, ops, engine, "jamba block + adaptive")
+    hold_counts("jamba", base["joins"], EXPECTED[("hybrid", "base")])
+    need = ("flash_attention", "decode_attention", "ssd_scan", "rmsnorm",
+            "decode_gemm")
+    missing = [k for k in need if not base["launches"][k]]
+    if pairs != base_pairs or missing:
+        raise AssertionError(f"jamba: pairs differ from phase 4's, or "
+                             f"kernels never launched: {missing}")
+    hold_pass_launches("jamba", base, cfg, quant=True)
+    scans = base["launches"]["ssd_scan"]
+    want_scans = (cfg.attn_period - 1) * rt.n_stacks(cfg) * \
+        base["prefill_batches"]
+    if scans != want_scans:
+        raise AssertionError(f"jamba: ssd_scan {scans} launches, "
+                             f"{want_scans} expected")
+    base.update(weights_gib=weights_gib, build_peak_gib=build_peak,
+                n_params=n_params, int8_params=n_q,
+                other_engines_gib=mem0 / 2 ** 30)
+    log(f"  jamba: joins' peak {base['max_memory_allocated_gib']:.2f} GiB "
+        f"allocated ({mem0 / 2 ** 30:.2f} GiB of it the earlier phases'), "
+        f"walls block {base['joins']['block']['wall_s']:.3f} / adaptive "
+        f"{base['joins']['adaptive']['wall_s']:.3f} s")
+    record = dict(base=base)
+    record["pass"] = bench_pass(ops, engine, "decode", "jamba decode, M 4")
+    g = torch.Generator(dev).manual_seed(22)
+    record["gemm"] = int8_pass(ops, L, rt, g,
+                               hybrid_pass_calls(rt, engine.params, cfg), 4,
+                               "jamba int8")
+    record["experts"] = hybrid_expert_share(
+        rt, engine, record["pass"]["replay_device_ms"])
+    record["kernels_vs_plain"] = check_hybrid_kernels(rt, ops, dev, engine,
+                                                      seed)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, {"jamba": base}
+
+
 def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
     """Every kernel against its plain version again, in bf16, at each
     shape the paths gave it (ragged lengths; these launches come after
     the paths' counts were read); the decode-side kernels over e4m3 pools
-    where a path's fp8 cache gave them those (dtype codes 2 and 3)."""
+    where a path's fp8 cache gave them those (dtype codes 2 and 3), the
+    decode GEMM over int8 weights where phases 9e and 9f gave it those
+    (its codes 2 and 3)."""
+    from repro_torch.models.quant import deq, quantize
     g = torch.Generator(dev).manual_seed(3)
     dt = torch.bfloat16
     for (B, S, H, KV, hd, _), _ in shapes["flash_attention"]:
@@ -3339,12 +3848,16 @@ def check_main_shapes(ops, L, dev, shapes, checks: Checks) -> None:
                        ops.ssd_scan(*x, chunk=chunk),
                        L.ssd_chunk_scan(*x, chunk), dt, main=True,
                        tol=SSD_TOL)
-    for (M, K, N, w_nk, dtype), _ in shapes["decode_gemm"]:
-        dtype = torch.bfloat16 if dtype == 1 else torch.float32
+    for (M, K, N, w_nk, code), _ in shapes["decode_gemm"]:
+        dtype = torch.bfloat16 if code % 2 else torch.float32
         x, w = gemm_inputs(g, dtype, M, K, N, "nk" if w_nk else "kn")
+        if code >= 2:   # int8 weights, one scale a column (quantize's)
+            w = quantize(w.float())
         checks.compare("decode_gemm", f"decode passes M,K,N={(M, K, N)} "
-                       f"{'nk' if w_nk else 'kn'}", ops.decode_linear(x, w),
-                       L.matmul(x, w), dtype, main=True)
+                       f"{'nk' if w_nk else 'kn'}"
+                       f"{' int8' if code >= 2 else ''}",
+                       ops.decode_linear(x, w), L.matmul(x, deq(w, dtype)),
+                       dtype, main=True)
     for (rows, D, dtype, wdtype), _ in shapes["rmsnorm"]:
         x = _randn(g, torch.bfloat16 if dtype else torch.float32, rows, D)
         w = _randn(g, torch.bfloat16 if wdtype else torch.float32, D)
@@ -3741,9 +4254,11 @@ def kernels_queued(fn, args, calls: int) -> dict:
     one call unprofiled) queues on the device, kernel by kernel (copies
     and memsets too), from ``torch.profiler`` over ``calls`` calls.  The
     trace starts with one warm-up call that is not counted, and each call
-    waits 5 ms after its step begins: the kernels of an eager pass's first
+    waits 50 ms after its step begins: the kernels of an eager pass's first
     ops, issued right after the trace or a step starts, were missing from
-    it on some H100 hosts (a replay's were not)."""
+    it on some H100 hosts (a replay's were not); after a wait of 5 ms an
+    eager granite decode pass still lost its first layer's kernels once
+    on an H100 80GB HBM3 host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     fn(*args)
@@ -3752,7 +4267,7 @@ def kernels_queued(fn, args, calls: int) -> dict:
                  schedule=schedule(wait=0, warmup=1, active=calls,
                                    repeat=1)) as prof:
         for _ in range(1 + calls):
-            time.sleep(0.005)
+            time.sleep(0.05)
             fn(*args)
             torch.cuda.synchronize()
             prof.step()
@@ -3864,17 +4379,23 @@ def pass_calls(params, cfg) -> list:
     ``decode_linear_group`` takes them: per layer {wq, wk, wv}, wo, then
     {w_gate, w_up}, w_down, or the MoE block's router (and arctic's dense
     residual's {w_gate, w_up}, w_down), then the unembed (tied or not;
-    granite-3-2b: 161 calls, 281 products)."""
+    granite-3-2b: 161 calls, 281 products); an int8 weight as the
+    model hands it to the GEMM (``as_matrix``)."""
     D, H, hd = cfg.d_model, cfg.padded_heads, cfg.resolved_head_dim
     blocks = params["blocks"]
     a = blocks["attn"]
     moe = blocks.get("moe")
     m = blocks["mlp"] if moe is None else moe.get("dense")
+
+    def flat(w, K):
+        if is_int8(w):
+            return type(w)(w.q.reshape(K, -1), w.scale.reshape(-1))
+        return w.reshape(K, -1)
     out = []
     for i in range(cfg.n_layers):
-        out += [(a["wq"][i].reshape(D, -1), a["wk"][i].reshape(D, -1),
-                 a["wv"][i].reshape(D, -1)),
-                (a["wo"][i].reshape(H * hd, -1),)]
+        out += [(flat(a["wq"][i], D), flat(a["wk"][i], D),
+                 flat(a["wv"][i], D)),
+                (flat(a["wo"][i], H * hd),)]
         if moe is not None:
             out.append((moe["router"][i],))
         if m is not None:
@@ -4174,7 +4695,10 @@ def port() -> types.SimpleNamespace:
                                     init_params, model_specs, prefill,
                                     verify_step)
     from repro_torch.models.layers import to_cache
+    from repro_torch.models.model import n_stacks
     from repro_torch.models.params import tree_items
+    from repro_torch.models.quant import (QuantizedTensor, as_matrix,
+                                          column_scales, deq)
     from repro_torch.serve import (Cluster, ClusterClient, Engine,
                                    EngineClient, EngineEmbedder, FaultPlan)
 
@@ -4291,6 +4815,19 @@ def main() -> int:
                                 out if args.profile else None)
     family_paths["cluster"] = cluster["path"]
 
+    log("== phase 9e: int8 weight residency, full-width granite-3-2b: the "
+        "joins spec off and on, greedy and verify parity, graphs, the int8 "
+        "GEMM against the dense one on the dequantized weights")
+    int8, int8_paths = run_int8_granite(rt, ops, L, dev, args.seed, summary,
+                                        pairs, graphs["passes"])
+    family_paths.update(int8_paths)
+
+    log("== phase 9f: the hybrid family, jamba-1.5-large-398b at full width "
+        "cut to one superblock (8 layers), int8 weights: the joins, the "
+        "decode graph, the kernels against plain in fp32")
+    hybrid, hybrid_paths = run_hybrid(rt, ops, L, dev, args.seed, pairs)
+    family_paths.update(hybrid_paths)
+
     paths = dict(block_adaptive=summary, prefilter=prefilter, spec=spec,
                  dense=dense, ssm=ssm)
     every = {name: merge_shapes(list(paths.values())
@@ -4326,9 +4863,27 @@ def main() -> int:
         per = r["shape"]["launches"] if k.name == "decode_gemm" else 1
         extra = {}
         if k.name == "decode_gemm":
-            extra = dict(products=gemm_products(path),
-                         products_by_path={name: gemm_products(pth)
-                                           for name, pth in paths.items()})
+            # the int8 variant: one pass's calls at granite's M 4 and 36
+            # and jamba's M 4, per launch as above
+            int8_runs = {"granite_m4": int8["gemm"][4],
+                         "granite_m36": int8["gemm"][36],
+                         "jamba_m4": hybrid["gemm"]}
+            extra = dict(
+                products=gemm_products(path),
+                products_by_path={name: gemm_products(pth)
+                                  for name, pth in paths.items()},
+                int8={name: dict(
+                    M=t["M"], launches_a_pass=t["launches"],
+                    products=t["products"], int8_products=t["int8_products"],
+                    ms=t["device_ms"] / t["launches"],
+                    plain_ms=t["plain_device_ms"] / t["launches"],
+                    library_ms=t["library_device_ms"] / t["launches"],
+                    bound_ms=t["bound_ms"] / t["launches"],
+                    bound_by=t["bound_by"],
+                    pass_ms=t["device_ms"],
+                    dense_on_deq_pass_ms=t["dense_on_deq_device_ms"],
+                    int8pack_pass_ms=t["int8pack_device_ms"])
+                    for name, t in int8_runs.items()})
         if k.name == "ssd_scan":
             extra = {x: r[x] for x in ("device_ms", "bound_tc_ms",
                                        "weighted")}
@@ -4372,7 +4927,7 @@ def main() -> int:
         card=smi, torch=torch.__version__, build_s=times, main_path=summary,
         prefilter_path=prefilter, spec_path=spec, dense_path=dense,
         ssm_path=ssm, graphs=graphs, dense_family=family, moe_family=moe,
-        cluster=cluster, profiles=profiles,
+        cluster=cluster, int8_granite=int8, hybrid=hybrid, profiles=profiles,
         timing=timing, kernels=kernels), indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())

@@ -21,11 +21,11 @@ ARCH_IDS = [
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
-#: Architectures whose config module the PyTorch port carries so far; the
-#: rest wait for the port of their model family (ROADMAP.md queue A).
+#: Architectures whose config module the PyTorch port carries: every one
+#: of ``ARCH_IDS`` (jamba-1.5-large-398b, the hybrid family, was the last)
 PORTED_ARCH_IDS = ["granite-3-2b", "mamba2-130m", "yi-9b", "starcoder2-7b",
                    "mistral-large-123b", "grok-1-314b", "arctic-480b",
-                   "musicgen-large", "pixtral-12b"]
+                   "musicgen-large", "pixtral-12b", "jamba-1.5-large-398b"]
 
 
 def _round_up(x: int, m: int) -> int:

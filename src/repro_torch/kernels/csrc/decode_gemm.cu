@@ -75,6 +75,25 @@
 // fmaf in k order over fp32 tiles, K split by (K, N) with the last block
 // of a column tile summing the partials in split order (counters it
 // resets); no path runs it at full width.
+//
+// int8 weights (W8A16, models/quant.py): a (K, N) weight held as int8 q
+// with one fp32 scale per output channel, column n reading s[n % ns] (ns
+// the original last axis: hd for wq, N for wo and the MLP).  The
+// contract, bit for bit: the product equals this kernel's product with
+// the dense weight deq(q, s) = q * s rounded once in x's dtype, at every
+// M, so row invariance (C1) holds with int8 weights.  The design keeps
+// the bf16 path and changes how a tile reaches shared memory: the TMA box
+// is 64 x 64 int8 (4 KB, no swizzle: 64-byte rows), as many in the ring
+// as bf16 tiles; after a tile lands, the block converts it into one bf16
+// tile in the 128-byte-swizzled layout that ldmatrix.trans reads, each
+// element bf16(q) * bf16(s[n]) rounded once (the product of a 7-bit
+// integer and a bf16 is exact in fp32, so one rounding to bf16 is deq's);
+// every thread converts the same 16 columns, their scales held in
+// registers per item.  Then the same mma sequence and the same K splits as
+// the bf16 path.  fp32 dequantizes in the tile load, float(q) * s.  What
+// bounds it is still bytes: half the bf16 weights' (granite-3-2b's pass
+// at M 4: 2.63 GB, >= 0.79 ms at 3.35 TB/s); the conversion adds a
+// block-wide barrier a stage.
 #include <cooperative_groups.h>
 
 #include <cuda.h>   // CUtensorMap and its enums (types only: no -lcuda)
@@ -102,20 +121,25 @@ constexpr int kMinTilesPerSplit = 8;
 constexpr int kMaxSplits = 8;      // the portable cluster size
 constexpr size_t kMaxSmem = 232448;   // per block on sm_90
 constexpr size_t kTileBytes = sizeof(bf16) * kBK * kBN;   // 8 KB
+constexpr size_t kTileBytesQ = kBK * kBN;                  // 4 KB of int8
 // x stays resident over a split's k-range up to this many bytes (M 4);
 // past it (M 36) it streams a tile a stage beside W, so the block keeps
 // its occupancy.  No bit depends on how x is staged.
 constexpr size_t kXResidentMax = 40960;
 // W tiles in the ring: 4 with x resident, 3 with x streamed beside them
 // (the depths that measured fastest on the H100: more stages cost
-// resident clusters and gained nothing)
+// resident clusters and gained nothing; int8 tiles too: a ring of 8 int8
+// tiles, the bf16 ring's bytes, took a granite pass at M 4 from 3.4 to
+// 4.0 ms on the H100, its shared memory leaving room for fewer blocks)
 __host__ __device__ constexpr int stages_of(bool x_stream) {
   return x_stream ? 3 : 4;
 }
 // the ring (1024-byte aligned for the 128-byte swizzle, with the slack to
-// align it), then one mbarrier a stage, padded to 16 bytes
-__host__ __device__ constexpr size_t ring_bytes(int stages) {
-  return 1024 + stages * kTileBytes + 16 * ((stages * 8 + 15) / 16);
+// align it), then one mbarrier a stage, padded to 16 bytes; int8 weights
+// put the bf16 tile they convert into first, then a ring of int8 tiles
+__host__ __device__ constexpr size_t ring_bytes(int stages, bool q = false) {
+  return 1024 + (q ? kTileBytes + stages * kTileBytesQ : stages * kTileBytes) +
+         16 * ((stages * 8 + 15) / 16);
 }
 
 // The K splits of the bf16 products: doubled, up to kMaxSplits, while
@@ -141,8 +165,11 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 
 struct Group {
   CUtensorMap map[kMaxGroup];   // W_p in 64 x 64 boxes, 128-byte swizzle
+                                // (int8: unswizzled)
   bf16* y[kMaxGroup];
+  const float* scale[kMaxGroup];   // int8 weights: their column scales
   int n[kMaxGroup];
+  int ns[kMaxGroup];               // int8 weights: the scales' count
   int item_end[kMaxGroup];      // items (64-column tiles) up to product p
   int count;
 };
@@ -197,12 +224,22 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-template <bool kNK, bool kXStream, int kRows>
+// bf16(q) * bf16(s), rounded once: deq(q, s, bf16) of models/quant.py
+__device__ __forceinline__ uint32_t deq2(int8_t a, int8_t b, float sa,
+                                         float sb) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(__fmul_rn((float)a, sa),
+                                           __fmul_rn((float)b, sb));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <bool kNK, bool kXStream, int kRows, bool kQ>
 __global__ void __launch_bounds__(kThreads, 4)
 gemm_bf16_kernel(const bf16* __restrict__ x,   // (M, K)
                  const __grid_constant__ Group g, int M, int K, int splits,
                  int n_items) {
+  static_assert(!(kQ && kNK), "int8 weights are (K, N) matrices");
   constexpr int kStages = stages_of(kXStream);
+  constexpr size_t kSlot = kQ ? kTileBytesQ : kTileBytes;   // a ring slot
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const int Mp = (M + 15) & ~15;
   const int n_mt = Mp / 16;
@@ -214,9 +251,11 @@ gemm_bf16_kernel(const bf16* __restrict__ x,   // (M, K)
   const int x_stage = kXStream ? Mp * xld : 0;   // elements a stage
   unsigned char* base =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  const uint32_t ring = smem_addr(base);                  // [kStages][8 KB]
-  const uint32_t full = ring + kStages * kTileBytes;      // [kStages] u64
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw + ring_bytes(kStages));
+  // int8: the converted bf16 tile first (1024-byte aligned), then the ring
+  const uint32_t conv = smem_addr(base);
+  const uint32_t ring = conv + (kQ ? kTileBytes : 0);     // [kStages][kSlot]
+  const uint32_t full = ring + kStages * kSlot;           // [kStages] u64
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw + ring_bytes(kStages, kQ));
   float* part = reinterpret_cast<float*>(
       xs + (kXStream ? kStages : 1) * Mp * xld);          // [2][Mp][kPartLd]
   const int warp = threadIdx.x >> 5;
@@ -258,8 +297,8 @@ gemm_bf16_kernel(const bf16* __restrict__ x,   // (M, K)
       }
       const int k0 = (kt0 + q_t) * kBK;
       const uint32_t bar = full + 8 * q_slot;
-      mbar_expect_tx(bar, kTileBytes);
-      tma_load(ring + q_slot * kTileBytes, q_map, kNK ? k0 : q_n0,
+      mbar_expect_tx(bar, kSlot);
+      tma_load(ring + q_slot * kSlot, q_map, kNK ? k0 : q_n0,
                kNK ? q_n0 : k0, bar);
     }
     if (kXStream) stage_x(xs + q_slot * x_stage, kt0 + q_t, 1);
@@ -286,6 +325,7 @@ gemm_bf16_kernel(const bf16* __restrict__ x,   // (M, K)
   __syncthreads();   // barriers initialised (and resident x staged)
 
   float acc[kRows / 16][2][4];
+  float sc[16];   // int8: the bf16-rounded scales of this thread's columns
   int slot = 0, t = 0, j = 0;   // stage s's ring slot, k-tile and item
   uint32_t phase = 0;           // of the slot's barrier
   for (int s = 0; s < total; ++s) {
@@ -302,9 +342,49 @@ gemm_bf16_kernel(const bf16* __restrict__ x,   // (M, K)
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
     }
+    if (kQ) {
+      // The int8 tile into the bf16 tile: thread t converts 16-byte chunk
+      // t % 4 (columns 16 (t % 4) ..) of rows t / 4 and t / 4 + 32.  A
+      // new item first takes its columns' scales.
+      const int cc = threadIdx.x & 3;
+      if (t == 0) {
+        int p, tile;
+        locate(g, cid + j * n_clusters, p, tile);
+        const float* sp = pick(g.scale, p);
+        const int ns = pick(g.ns, p), N = pick(g.n, p);
+        const int c0 = tile * kBN + cc * 16;
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          sc[i] = c0 + i < N
+                      ? __bfloat162float(__float2bfloat16_rn(sp[(c0 + i) % ns]))
+                      : 0.f;
+      }
+      const unsigned char* src =
+          base + kTileBytes + (size_t)slot * kTileBytesQ;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = (threadIdx.x >> 2) + 32 * h;
+        const int4 v = *reinterpret_cast<const int4*>(src + row * 64 + cc * 16);
+        const int8_t* q = reinterpret_cast<const int8_t*>(&v);
+        uint4 lo, hi;
+        lo.x = deq2(q[0], q[1], sc[0], sc[1]);
+        lo.y = deq2(q[2], q[3], sc[2], sc[3]);
+        lo.z = deq2(q[4], q[5], sc[4], sc[5]);
+        lo.w = deq2(q[6], q[7], sc[6], sc[7]);
+        hi.x = deq2(q[8], q[9], sc[8], sc[9]);
+        hi.y = deq2(q[10], q[11], sc[10], sc[11]);
+        hi.z = deq2(q[12], q[13], sc[12], sc[13]);
+        hi.w = deq2(q[14], q[15], sc[14], sc[15]);
+        unsigned char* dst = base + row * 128;
+        *reinterpret_cast<uint4*>(dst + (((2 * cc) ^ (row & 7)) << 4)) = lo;
+        *reinterpret_cast<uint4*>(dst + (((2 * cc + 1) ^ (row & 7)) << 4)) =
+            hi;
+      }
+      __syncthreads();   // the bf16 tile is whole
+    }
     // the box's 128-byte rows hold 16-byte chunk c at c ^ (row % 8); the
     // 8 rows an ldmatrix phase reads have row % 8 == lane % 8
-    const uint32_t wt = ring + slot * kTileBytes;
+    const uint32_t wt = kQ ? conv : ring + slot * kTileBytes;
     const bf16* Xs = kXStream ? xs + slot * x_stage : xs + t * kBK;
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
@@ -424,14 +504,18 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
 
 // The tensor map of a bf16 weight whose rows hold `inner` elements
 // (`outer` rows), in 64 x 64 boxes with the 128-byte swizzle and zeros
-// past its edges.  Weights do not move, so maps are cached by (pointer,
-// inner, outer): the same key always encodes the same map, so a slot may
+// past its edges; of an int8 weight (`q`), in 64 x 64 boxes of bytes,
+// unswizzled.  Weights do not move, so maps are cached by (pointer,
+// inner, outer, element type): the same key always encodes the same map
+// (an int8 weight at a freed bf16 weight's address never takes its map),
+// so a slot may
 // be taken over by another key, whose weight's map is then encoded
 // again.  A launch copies its maps into its parameters (a captured graph
 // keeps its own copies).  The cache is shared by every host thread that
 // launches (the replicas of a serving cluster), so it is read and written
 // under one lock.
-int weight_map(const bf16* w, int inner, int outer, CUtensorMap* out) {
+int weight_map(const void* w, int inner, int outer, bool q,
+               CUtensorMap* out) {
   static std::mutex mu;
   std::lock_guard<std::mutex> hold(mu);
   static EncodeTiled encode = nullptr;
@@ -445,18 +529,20 @@ int weight_map(const bf16* w, int inner, int outer, CUtensorMap* out) {
       return (int)cudaErrorSymbolNotFound;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  struct Entry { const bf16* w; int inner, outer; CUtensorMap map; };
-  // a granite pass has 281 weights, yi-9b's 337, starcoder2-7b's 225
+  struct Entry { const void* w; int inner, outer; bool q; CUtensorMap map; };
+  // a granite pass has 281 weights, yi-9b's 337, starcoder2-7b's 225;
+  // int8 and bf16 maps share the slots
   constexpr int kSlots = 4096;
   constexpr int kProbes = 8;
   static Entry cache[kSlots];
   const uint64_t key = reinterpret_cast<uintptr_t>(w) ^
-                       ((uint64_t)inner << 40) ^ ((uint64_t)outer << 20);
+                       ((uint64_t)inner << 40) ^ ((uint64_t)outer << 20) ^
+                       ((uint64_t)q << 62);
   const int h = (int)((key * 0x9E3779B97F4A7C15ull) >> 52);   // 12 bits
   Entry* slot = &cache[h];   // taken over if the neighbourhood is full
   for (int i = 0; i < kProbes; ++i) {
     Entry& e = cache[(h + i) % kSlots];
-    if (e.w == w && e.inner == inner && e.outer == outer) {
+    if (e.w == w && e.inner == inner && e.outer == outer && e.q == q) {
       *out = e.map;
       return 0;
     }
@@ -466,12 +552,16 @@ int weight_map(const bf16* w, int inner, int outer, CUtensorMap* out) {
     }
   }
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(bf16)};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner *
+                                 (q ? sizeof(int8_t) : sizeof(bf16))};
   const cuuint32_t box[2] = {kBK, kBN};
   const cuuint32_t elem[2] = {1, 1};
-  if (encode(&slot->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<bf16*>(w), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  if (encode(&slot->map,
+             q ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             2, const_cast<void*>(w), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             q ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
     slot->w = nullptr;   // no half-written entry is ever matched
@@ -480,6 +570,7 @@ int weight_map(const bf16* w, int inner, int outer, CUtensorMap* out) {
   slot->w = w;
   slot->inner = inner;
   slot->outer = outer;
+  slot->q = q;
   *out = slot->map;
   return 0;
 }
@@ -493,7 +584,7 @@ struct Shape {
   size_t smem;
 };
 
-inline Shape shape_of(int Mc, int K) {
+inline Shape shape_of(int Mc, int K, bool q) {
   Shape sh;
   sh.splits = splits_bf16(K);
   const int k_tiles = (K + kBK - 1) / kBK;
@@ -502,7 +593,7 @@ inline Shape shape_of(int Mc, int K) {
   const size_t resident = sizeof(bf16) * Mp * (per * kBK + 8);
   sh.x_stream = resident > kXResidentMax;
   sh.rows = Mc <= 16 ? 16 : Mc <= 48 ? 48 : 64;
-  sh.smem = ring_bytes(stages_of(sh.x_stream)) +
+  sh.smem = ring_bytes(stages_of(sh.x_stream), q) +
             (sh.x_stream ? sizeof(bf16) * stages_of(true) * Mp * (kBK + 8)
                          : resident) +
             (sh.splits > 1 ? 2 * sizeof(float) * Mp * kPartLd : 0);
@@ -512,7 +603,7 @@ inline Shape shape_of(int Mc, int K) {
 // The most clusters of `splits` blocks with `smem` bytes each that the
 // card holds at once, cached by its arguments (under a lock: any host
 // thread may launch).
-template <bool kNK, bool kXStream, int kRows>
+template <bool kNK, bool kXStream, int kRows, bool kQ>
 int max_clusters(int splits, size_t smem, int* out) {
   struct Entry { int splits; size_t smem; int n; };
   static std::mutex mu;
@@ -524,7 +615,7 @@ int max_clusters(int splits, size_t smem, int* out) {
       *out = cache[i].n;
       return 0;
     }
-  auto kernel = gemm_bf16_kernel<kNK, kXStream, kRows>;
+  auto kernel = gemm_bf16_kernel<kNK, kXStream, kRows, kQ>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   if (err != cudaSuccess) return (int)err;
@@ -550,13 +641,13 @@ int max_clusters(int splits, size_t smem, int* out) {
 
 // One launch: Mc <= kLaunchRows rows, as many clusters as the card holds
 // (at most one an item).
-template <bool kNK, bool kXStream, int kRows>
+template <bool kNK, bool kXStream, int kRows, bool kQ>
 int launch_rows(const bf16* x, const Group& g, int Mc, int K,
                 const Shape& sh, cudaStream_t stream) {
   const int n_items = g.item_end[g.count - 1];
   int clusters = 0;
   const int rc =
-      max_clusters<kNK, kXStream, kRows>(sh.splits, sh.smem, &clusters);
+      max_clusters<kNK, kXStream, kRows, kQ>(sh.splits, sh.smem, &clusters);
   if (rc) return rc;
   clusters = std::min(clusters, n_items);
   cudaLaunchConfig_t cfg = {};
@@ -572,36 +663,36 @@ int launch_rows(const bf16* x, const Group& g, int Mc, int K,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err =
-      cudaLaunchKernelEx(&cfg, gemm_bf16_kernel<kNK, kXStream, kRows>, x, g,
-                         Mc, K, sh.splits, n_items);
+      cudaLaunchKernelEx(&cfg, gemm_bf16_kernel<kNK, kXStream, kRows, kQ>, x,
+                         g, Mc, K, sh.splits, n_items);
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }
 
 // A launch with the accumulators of sh.rows rows.
-template <bool kNK, bool kXStream>
+template <bool kNK, bool kXStream, bool kQ>
 int launch_mode(const bf16* x, const Group& g, int Mc, int K, const Shape& sh,
                 cudaStream_t stream) {
   switch (sh.rows) {
-    case 16: return launch_rows<kNK, kXStream, 16>(x, g, Mc, K, sh, stream);
-    case 48: return launch_rows<kNK, kXStream, 48>(x, g, Mc, K, sh, stream);
-    default: return launch_rows<kNK, kXStream, 64>(x, g, Mc, K, sh, stream);
+    case 16: return launch_rows<kNK, kXStream, 16, kQ>(x, g, Mc, K, sh, stream);
+    case 48: return launch_rows<kNK, kXStream, 48, kQ>(x, g, Mc, K, sh, stream);
+    default: return launch_rows<kNK, kXStream, 64, kQ>(x, g, Mc, K, sh, stream);
   }
 }
 
 // One call: the rows in launches of kLaunchRows.
-template <bool kNK>
+template <bool kNK, bool kQ>
 int launch_bf16(const bf16* x, const Group& g, int M, int K,
                 cudaStream_t stream) {
   for (int r0 = 0; r0 < M; r0 += kLaunchRows) {
     const int Mc = std::min(kLaunchRows, M - r0);
-    const Shape sh = shape_of(Mc, K);
+    const Shape sh = shape_of(Mc, K, kQ);
     Group gc = g;
     for (int p = 0; p < g.count; ++p) gc.y[p] = g.y[p] + (size_t)r0 * g.n[p];
     const bf16* xc = x + (size_t)r0 * K;
     const int rc =
-        sh.x_stream ? launch_mode<kNK, true>(xc, gc, Mc, K, sh, stream)
-                    : launch_mode<kNK, false>(xc, gc, Mc, K, sh, stream);
+        sh.x_stream ? launch_mode<kNK, true, kQ>(xc, gc, Mc, K, sh, stream)
+                    : launch_mode<kNK, false, kQ>(xc, gc, Mc, K, sh, stream);
     if (rc) return rc;
   }
   return 0;
@@ -673,11 +764,16 @@ __device__ __forceinline__ void finish_tile(float* y, const float* part,
 // memory).
 constexpr int kBKf = 32;
 
-template <bool kNK>
+// kQ: w is int8 (K, N), dequantized as it is staged, float(q) * s[n % ns]
+template <bool kNK, bool kQ>
 __global__ void __launch_bounds__(kThreads)
-gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+gemm_f32_kernel(const float* __restrict__ x, const void* __restrict__ wv,
+                const float* __restrict__ scale, int ns,
                 float* __restrict__ y, float* __restrict__ part,
                 int* __restrict__ counters, int M, int K, int N) {
+  static_assert(!(kQ && kNK), "int8 weights are (K, N) matrices");
+  const float* w = static_cast<const float*>(wv);
+  const int8_t* wq = static_cast<const int8_t*>(wv);
   constexpr int kRowsPerThread = kMaxRows / (kThreads / kBN);   // 64
   __shared__ float Xs[kMaxRows][kBKf + 1];
   __shared__ float Ws[kBKf][kBN + 1];    // [k][n] in either layout
@@ -709,7 +805,8 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int k = k0 + kk, n = n0 + nn;
       float v = 0.f;
       if (k < K && n < N)
-        v = kNK ? w[(size_t)n * K + k] : w[(size_t)k * N + n];
+        v = kQ ? __fmul_rn((float)wq[(size_t)k * N + n], scale[n % ns])
+               : kNK ? w[(size_t)n * K + k] : w[(size_t)k * N + n];
       Ws[kk][nn] = v;
     }
     __syncthreads();
@@ -738,12 +835,13 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   finish_tile(y, part, counters, M, N);
 }
 
-template <bool kNK>
-int launch_f32(const float* x, const float* w, float* y, float* part,
-               int* counters, int M, int K, int N, cudaStream_t stream) {
+template <bool kNK, bool kQ>
+int launch_f32(const float* x, const void* w, const float* scale, int ns,
+               float* y, float* part, int* counters, int M, int K, int N,
+               cudaStream_t stream) {
   const dim3 grid((N + kBN - 1) / kBN, splits_f32(K, N));
-  gemm_f32_kernel<kNK><<<grid, kThreads, 0, stream>>>(x, w, y, part,
-                                                      counters, M, K, N);
+  gemm_f32_kernel<kNK, kQ><<<grid, kThreads, 0, stream>>>(
+      x, w, scale, ns, y, part, counters, M, K, N);
   return (int)cudaGetLastError();
 }
 
@@ -758,30 +856,44 @@ extern "C" int repro_decode_gemm_splits(int K, int N) {
 
 // y_p (M, n_p) = x (M, K) @ W_p for p < count (1 to 3; unused pointers
 // null); w_nk = 0: every W_p is (K, n_p) row-major, 1: (n_p, K)
-// row-major.  dtype 0 = float32, 1 = bfloat16 (x, W and y alike).  fp32
-// only: part, part_floats fp32 of scratch, at least splits x M x n_p for
-// every split product; counters, n_counters ints, zero, at least one per
-// column tile of a split product.  One call is one launch for bf16 (more
-// only when the rows do not fit one), one launch per product for fp32.
-// Returns a cudaError_t code.
+// row-major.  dtype 0 = float32, 1 = bfloat16 (x and y; W too unless
+// quant).  quant = 1: every W_p is int8 (K, n_p) row-major (w_nk 0, n_p a
+// multiple of 16) with fp32 scales s_p, column n reading s_p[n % ns_p],
+// and the product is x @ deq(W_p) as models/quant.py dequantizes in x's
+// dtype.  fp32 only: part, part_floats fp32 of scratch, at least splits x
+// M x n_p for every split product; counters, n_counters ints, zero, at
+// least one per column tile of a split product.  One call is one launch
+// for bf16 (more only when the rows do not fit one), one launch per
+// product for fp32.  Returns a cudaError_t code.
 extern "C" int repro_decode_gemm(const void* x, const void* w0,
-                                 const void* w1, const void* w2, void* y0,
-                                 void* y1, void* y2, void* part,
-                                 void* counters, int M, int K, int n0,
-                                 int n1, int n2, int count, int w_nk,
-                                 int dtype, int part_floats, int n_counters,
+                                 const void* w1, const void* w2,
+                                 const void* s0, const void* s1,
+                                 const void* s2, void* y0, void* y1, void* y2,
+                                 void* part, void* counters, int M, int K,
+                                 int n0, int n1, int n2, int ns0, int ns1,
+                                 int ns2, int count, int w_nk, int dtype,
+                                 int quant, int part_floats, int n_counters,
                                  void* stream) {
   using namespace repro_gemm;
   const void* w[kMaxGroup] = {w0, w1, w2};
+  const float* sc[kMaxGroup] = {static_cast<const float*>(s0),
+                                static_cast<const float*>(s1),
+                                static_cast<const float*>(s2)};
   void* y[kMaxGroup] = {y0, y1, y2};
   const int n[kMaxGroup] = {n0, n1, n2};
+  const int ns[kMaxGroup] = {ns0, ns1, ns2};
   if (M <= 0 || M > kMaxRows || K <= 0 || K % 8 || count < 1 ||
       count > kMaxGroup || x == nullptr || (dtype != 0 && dtype != 1) ||
-      (w_nk != 0 && w_nk != 1))
+      (w_nk != 0 && w_nk != 1) || (quant != 0 && quant != 1) ||
+      (quant && w_nk))
     return (int)cudaErrorInvalidValue;
-  for (int p = 0; p < count; ++p)
+  for (int p = 0; p < count; ++p) {
     if (n[p] <= 0 || n[p] % 8 || w[p] == nullptr || y[p] == nullptr)
       return (int)cudaErrorInvalidValue;
+    if (quant && (n[p] % 16 || sc[p] == nullptr || ns[p] <= 0 ||
+                  n[p] % ns[p]))
+      return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (!aligned16(x)) return (int)cudaErrorMisalignedAddress;
@@ -789,19 +901,22 @@ extern "C" int repro_decode_gemm(const void* x, const void* w0,
     int items = 0;
     for (int p = 0; p < count; ++p) {
       if (!aligned16(w[p])) return (int)cudaErrorMisalignedAddress;
-      const int rc = weight_map(static_cast<const bf16*>(w[p]),
-                                w_nk ? K : n[p], w_nk ? n[p] : K, &g.map[p]);
+      const int rc = weight_map(w[p], w_nk ? K : n[p], w_nk ? n[p] : K,
+                                quant != 0, &g.map[p]);
       if (rc) return rc;
       g.y[p] = static_cast<bf16*>(y[p]);
+      g.scale[p] = sc[p];
       g.n[p] = n[p];
+      g.ns[p] = quant ? ns[p] : 1;
       items += (n[p] + kBN - 1) / kBN;
       g.item_end[p] = items;
     }
     for (int p = count; p < kMaxGroup; ++p) g.item_end[p] = items;
     g.count = count;
     const bf16* xb = static_cast<const bf16*>(x);
-    return w_nk ? launch_bf16<true>(xb, g, M, K, s)
-                : launch_bf16<false>(xb, g, M, K, s);
+    return quant  ? launch_bf16<false, true>(xb, g, M, K, s)
+           : w_nk ? launch_bf16<true, false>(xb, g, M, K, s)
+                  : launch_bf16<false, false>(xb, g, M, K, s);
   }
   float* pf = static_cast<float*>(part);
   int* cnt = static_cast<int*>(counters);
@@ -812,11 +927,14 @@ extern "C" int repro_decode_gemm(const void* x, const void* w0,
          cnt == nullptr))
       return (int)cudaErrorInvalidValue;
     const float* xf = static_cast<const float*>(x);
-    const float* wf = static_cast<const float*>(w[p]);
     float* yf = static_cast<float*>(y[p]);
-    const int rc = w_nk ? launch_f32<true>(xf, wf, yf, pf, cnt, M, K, n[p], s)
-                        : launch_f32<false>(xf, wf, yf, pf, cnt, M, K, n[p],
-                                            s);
+    const int rc =
+        quant ? launch_f32<false, true>(xf, w[p], sc[p], ns[p], yf, pf, cnt,
+                                        M, K, n[p], s)
+        : w_nk ? launch_f32<true, false>(xf, w[p], nullptr, 1, yf, pf, cnt, M,
+                                         K, n[p], s)
+               : launch_f32<false, false>(xf, w[p], nullptr, 1, yf, pf, cnt,
+                                          M, K, n[p], s);
     if (rc) return rc;
   }
   return 0;

@@ -16,7 +16,9 @@ through ``decode_gemm`` (by :func:`decode_linear`, and by
 :func:`decode_linear_group` for the products of one input in one call:
 q/k/v, gate/up): results per row that do not depend on how many rows
 came with it, so a verify pass gives each window row the bits of the
-decode step it stands for.  (The JAX
+decode step it stands for.  Int8 weights (``models/quant.py``) take the
+GEMM's int8 variant, the dense product's bits on the dequantized
+weight.  (The JAX
 package's model calls its RMSNorm kernel nowhere; the port needs the
 row-blocked norm for this.)
 
@@ -64,6 +66,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.build import DeviceError
 from repro_torch.models import layers as L
+from repro_torch.models.quant import QuantizedTensor, deq
 
 HEAD_DIMS = (16, 32, 64, 128)
 #: the most window query rows K * (H / KV) one launch of the verify kernel
@@ -646,54 +649,83 @@ class _DecodeGemm(CudaKernel):
         scratch[device] = (part, counters)
         return part, counters
 
-    def __call__(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, w) -> torch.Tensor:
         """x ``(..., K)`` @ w ``(K, N)`` → ``(..., N)`` in x's dtype, fp32
-        accumulation.  ``w`` is a contiguous ``(K, N)`` matrix or the
-        transpose of a contiguous ``(N, K)`` one (``table.t()``)."""
+        accumulation.  ``w`` is a contiguous ``(K, N)`` matrix, the
+        transpose of a contiguous ``(N, K)`` one (``table.t()``), or an
+        int8 ``QuantizedTensor`` of a ``(K, N)`` matrix."""
         return self.group(x, (w,))[0]
 
-    def group(self, x: torch.Tensor, ws: Sequence[torch.Tensor]) -> list:
+    def group(self, x: torch.Tensor, ws: Sequence) -> list:
         """``[x @ w for w in ws]`` in one launch: every ``w`` a ``(K, N_i)``
         weight of x's dtype and device, all contiguous or all transposed
-        contiguous tables.  Each result's bits are those of its product
-        alone.  On the card the rows go in blocks of
+        contiguous tables; or every ``w`` an int8 ``QuantizedTensor``
+        (``q`` a contiguous ``(K, N_i)`` matrix, its fp32 scales ``s``
+        of one column each, column ``n`` reading ``s[n % len(s)]``), for
+        ``x @ deq(w, x.dtype)``: the kernel dequantizes each tile as
+        ``deq`` does, so the result has the bits of the dense call on
+        the dequantized weight.  Each result's bits are those of its
+        product alone.  On the card the rows go in blocks of
         :data:`DECODE_MAX_ROWS`, one launch each: a row's bits depend
         only on that row and on w, so the blocks change none."""
         n = len(ws)
         if not 0 < n <= DECODE_MAX_GROUP:
             raise ValueError(f"decode_gemm: {n} weights in a group "
                              f"(1 to {DECODE_MAX_GROUP})")
+        quant = isinstance(ws[0], QuantizedTensor)
+        if any(isinstance(w, QuantizedTensor) != quant for w in ws):
+            raise TypeError("decode_gemm: a group is all int8 weights or "
+                            "all dense ones")
+        mats = [w.q for w in ws] if quant else ws
         # a decode pass makes 161 of these calls: one pass over the weights
         # (Tensor.size and get_device are the cheap accessors)
         K = x.size(-1)
         d = x.get_device()   # -1 on the CPU
         Ns = []
-        for w in ws:
+        for w in mats:
             if w.dim() != 2 or w.size(0) != K:
                 raise ValueError(f"decode_gemm: x {tuple(x.shape)} and w "
                                  f"{tuple(w.shape)} do not fit")
-            if w.dtype != x.dtype:
+            if quant and w.dtype != torch.int8:
+                raise TypeError(f"decode_gemm: an int8 weight's payload is "
+                                f"{w.dtype}")
+            if not quant and w.dtype != x.dtype:
                 raise TypeError(f"decode_gemm: mixed dtypes {x.dtype} and "
                                 f"{w.dtype}")
             if w.get_device() != d:
                 d = -2   # a mix: _on_cpu raises on it
             Ns.append(w.size(1))
+        scales = [w.scale.reshape(-1) for w in ws] if quant else []
         if d < 0:
-            if _on_cpu(x, *ws):
-                return [self.plain(x, w) for w in ws]
+            if _on_cpu(x, *mats, *scales):
+                return [self.plain(x, deq(w, x.dtype)) for w in ws]
         dt = _DTYPES.get(x.dtype)
         if dt is None:
             raise TypeError(f"decode_gemm: dtype {x.dtype} not supported "
                             "(float32 or bfloat16)")
-        w_nk = 0 if ws[0].is_contiguous() else 1
-        for w in ws:
+        w_nk = 0 if mats[0].is_contiguous() else 1
+        for w in mats:
             if not (w.is_contiguous() if w_nk == 0 else w.stride() == (1, K)):
                 raise ValueError("decode_gemm: the weights must all be "
                                  "contiguous (K, N) matrices or all "
                                  "transposes of contiguous ones")
-        if K % 8 or any(N % 8 for N in Ns):
+        NSs = [0] * n
+        if quant:
+            if w_nk:
+                raise ValueError("decode_gemm: int8 weights are (K, N) "
+                                 "matrices")
+            for i, (s, N) in enumerate(zip(scales, Ns)):
+                if (s.dtype != torch.float32 or not s.is_contiguous()
+                        or s.get_device() != d or N % s.numel()):
+                    raise ValueError(
+                        f"decode_gemm: int8 scales {tuple(s.shape)} "
+                        f"{s.dtype} for {N} columns (fp32, contiguous, a "
+                        "divisor of N on the weight's device)")
+                NSs[i] = s.numel()
+        if K % 8 or any(N % (16 if quant else 8) for N in Ns):
             raise ValueError(f"decode_gemm: K {K} and N {Ns} must be "
-                             "multiples of 8")
+                             f"multiples of 8 (N of {16 if quant else 8} "
+                             "for int8 weights)")
         if not x.is_contiguous():
             raise ValueError("decode_gemm: x must be contiguous")
         M = x.numel() // K if K else 0
@@ -710,21 +742,26 @@ class _DecodeGemm(CudaKernel):
                 x.device, max(self.splits(K, N) * rows * N for N in Ns))
             n_part = part.numel()
         pad = (None,) * (DECODE_MAX_GROUP - n)
-        tail = (0,) * (DECODE_MAX_GROUP - n) + (n, w_nk, dt, n_part,
-                                                 _GEMM_COUNTERS)
+        zeros = (0,) * (DECODE_MAX_GROUP - n)
+        tail = (*zeros, *NSs, *zeros, n, w_nk, dt, int(quant), n_part,
+                _GEMM_COUNTERS)
+        # launches count under (M, K, N, layout, dtype code): 2 + x's code
+        # for int8 weights
+        code = dt + 2 * int(quant)
+        wp = (*mats, *pad, *(scales or (None,) * n), *pad)
         if M <= DECODE_MAX_ROWS:   # every call of a decode or verify pass
-            self._launch((x, *ws, *pad, *ys, *pad, part, counters),
+            self._launch((x, *wp, *ys, *pad, part, counters),
                          (M, K, *Ns, *tail),
-                         keys=[(M, K, N, w_nk, dt) for N in Ns])
+                         keys=[(M, K, N, w_nk, code) for N in Ns])
             return ys
         x2 = x.view(M, K)
         y2 = [y.view(M, N) for y, N in zip(ys, Ns)]
         for r0 in range(0, M, DECODE_MAX_ROWS):
             xb = x2[r0:r0 + DECODE_MAX_ROWS]
             rows = xb.shape[0]
-            self._launch((xb, *ws, *pad, *[y[r0:r0 + rows] for y in y2],
+            self._launch((xb, *wp, *[y[r0:r0 + rows] for y in y2],
                           *pad, part, counters), (rows, K, *Ns, *tail),
-                         keys=[(rows, K, N, w_nk, dt) for N in Ns])
+                         keys=[(rows, K, N, w_nk, code) for N in Ns])
         return ys
 
 
@@ -762,7 +799,7 @@ rmsnorm = _RmsNorm(
     "rmsnorm", "rmsnorm", "repro_rmsnorm", n_ptrs=3, n_ints=4, n_floats=1,
     plain=L.rms_norm, replaces="src/repro/kernels/rmsnorm.py:26")
 decode_gemm = _DecodeGemm(
-    "decode_gemm", "decode_gemm", "repro_decode_gemm", n_ptrs=9, n_ints=10,
+    "decode_gemm", "decode_gemm", "repro_decode_gemm", n_ptrs=12, n_ints=14,
     plain=L.matmul,
     replaces="none (the JAX package leaves these products to XLA): the "
              "repair of ROADMAP.md C1, greedy parity of speculative "
@@ -777,24 +814,27 @@ KERNELS = (flash_attention, chunked_prefill_attention, paged_decode_attention,
            ssd_scan, rmsnorm, decode_gemm)
 
 
-def decode_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` on the decode and verify passes: :data:`decode_gemm`
-    (looked up at each call, so a run that swaps the module's kernels for
-    their plain versions swaps this one too).  On the CPU exactly ``x @
-    w``."""
-    return decode_gemm(x, w)
+def decode_linear(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` on the decode and verify passes (``x @ deq(w, x.dtype)``
+    for an int8 ``w``): :data:`decode_gemm` (looked up at each call, so a
+    run that swaps the module's kernels for their plain versions swaps
+    this one too).  On the CPU exactly ``x @ w``, or ``x @ deq(w,
+    x.dtype)``."""
+    kernel = decode_gemm
+    if isinstance(kernel, _DecodeGemm):
+        return kernel(x, w)
+    return kernel(x, deq(w, x.dtype))
 
 
-def decode_linear_group(x: torch.Tensor, ws: Sequence[torch.Tensor]) -> list:
-    """``[x @ w for w in ws]`` on the decode and verify passes, in one
-    launch of :data:`decode_gemm` (looked up at each call, as in
-    :func:`decode_linear`); each result has the bits of
-    ``decode_linear(x, w)``.  On the CPU exactly ``[x @ w for w in
-    ws]``."""
+def decode_linear_group(x: torch.Tensor, ws: Sequence) -> list:
+    """``[decode_linear(x, w) for w in ws]`` on the decode and verify
+    passes, in one launch of :data:`decode_gemm` (looked up at each call,
+    as in :func:`decode_linear`); each result has the bits of
+    ``decode_linear(x, w)``.  A group is all int8 or all dense."""
     kernel = decode_gemm
     if isinstance(kernel, _DecodeGemm):
         return kernel.group(x, ws)
-    return [kernel(x, w) for w in ws]
+    return [kernel(x, deq(w, x.dtype)) for w in ws]
 
 
 def top1_similarity(e1: torch.Tensor, e2: torch.Tensor) -> tuple:

@@ -9,14 +9,21 @@ a semantic join on it (after ``repro.launch.serve``).
   # data-parallel cluster: N engine replicas behind the prefix-affinity
   # router, sharing the weights on one card
   python -m repro_torch.launch.serve --arch granite-3-2b --replicas 2
+  # int8 weight residency (W8A16), drawn int8 leaf by leaf
+  REPRO_QUANT=1 python -m repro_torch.launch.serve --arch granite-3-2b
+  REPRO_QUANT=1 python -m repro_torch.launch.serve \
+      --arch jamba-1.5-large-398b --smoke --device cpu
 
 Weights are random, drawn on the device from ``--seed``; the rule oracle
 teacher-forces the answers, so every prefill, cache write and decode step
 runs for real with honest token accounting.  The engine runs on ``cuda``
 in bf16 unless ``--device cpu`` is given (fp32 there).  The tuple join
 answers each pair by decoding, or with ``REPRO_SCORE_JOIN=1`` by scoring
-Yes/No from one prefill pass (zero decode steps).  grok-1-314b and
-arctic-480b fit one card only cut in depth (``build_engine(layers=)``),
+Yes/No from one prefill pass (zero decode steps).  With ``REPRO_QUANT=1``
+the weights are drawn straight into int8 (``init_params(quant=True)``)
+and served int8.  grok-1-314b and arctic-480b fit one card only cut in
+depth (``build_engine(layers=)``), and jamba-1.5-large-398b only in int8
+cut to one superblock (``build_engine(layers=8, quant=True)``, 43 GiB),
 so the launcher serves them with ``--smoke``.  The embedding-input archs
 (musicgen-large, pixtral-12b) take embeddings, which the engine does not
 prefill: it refuses them.  With ``--replicas N`` (default
@@ -49,41 +56,58 @@ from repro_torch.serve import (Cluster, ClusterClient, Engine, EngineClient,
                                make_router)
 
 
+def _quant(quant: Optional[bool]) -> bool:
+    """``quant``, by default ``REPRO_QUANT``, as the JAX launcher reads it."""
+    if quant is None:
+        return os.environ.get("REPRO_QUANT", "0") == "1"
+    return bool(quant)
+
+
 def build_params(arch: str, *, smoke: bool = False, device="cuda",
-                 seed: int = 0, layers: Optional[int] = None) -> tuple:
+                 seed: int = 0, layers: Optional[int] = None,
+                 quant: bool = False) -> tuple:
     """``(cfg, params)``: random weights drawn on ``device`` from
     ``seed``, bf16 on the card and fp32 on the CPU; ``layers`` cuts the
-    config's depth (grok-1-314b and arctic-480b fit one card only so)."""
+    config's depth (grok-1-314b and arctic-480b fit one card only so);
+    ``quant`` draws the int8 tree of those weights leaf by leaf."""
     device = resolve_device(device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return cfg, init_params(model_specs(cfg), gen, dtype, device)
+    return cfg, init_params(model_specs(cfg), gen, dtype, device,
+                            quant=quant)
 
 
 def build_engine(arch: str, *, smoke: bool = False, device="cuda",
                  seed: int = 0, max_seq: int = 1024, slots: int = 4,
-                 layers: Optional[int] = None) -> Engine:
-    """An engine over :func:`build_params`' weights."""
+                 layers: Optional[int] = None,
+                 quant: Optional[bool] = None) -> Engine:
+    """An engine over :func:`build_params`' weights, int8 with ``quant``
+    (default ``REPRO_QUANT``)."""
+    quant = _quant(quant)
     cfg, params = build_params(arch, smoke=smoke, device=device, seed=seed,
-                               layers=layers)
+                               layers=layers, quant=quant)
     return Engine(cfg, params, ByteTokenizer(cfg.vocab_size),
-                  max_seq=max_seq, slots=slots)
+                  max_seq=max_seq, slots=slots, quant=quant)
 
 
 def build_cluster(arch: str, replicas: int, *, smoke: bool = False,
                   device="cuda", seed: int = 0, max_seq: int = 1024,
                   slots: int = 4, router: str = "affinity",
-                  layers: Optional[int] = None, trace=None) -> Cluster:
+                  layers: Optional[int] = None, trace=None,
+                  quant: Optional[bool] = None) -> Cluster:
     """``replicas`` engines over one set of :func:`build_params`' weights
-    (shared by reference on one device), behind ``router``."""
+    (shared by reference on one device, int8 with ``quant``), behind
+    ``router``."""
+    quant = _quant(quant)
     cfg, params = build_params(arch, smoke=smoke, device=device, seed=seed,
-                               layers=layers)
+                               layers=layers, quant=quant)
     return Cluster.replicate(cfg, params, ByteTokenizer(cfg.vocab_size),
                              replicas, router=make_router(router),
-                             max_seq=max_seq, slots=slots, trace=trace)
+                             max_seq=max_seq, slots=slots, trace=trace,
+                             quant=quant)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

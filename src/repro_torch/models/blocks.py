@@ -14,6 +14,13 @@ depend on the number of rows: a verify pass over slots x K rows then gives each 
 the bits of the decode step over slots rows that it replaces (on the
 CPU both are the plain ``rms_norm`` and ``x @ w``).  ``cfg.use_pallas``
 has no meaning here.
+
+Int8 weights (:mod:`repro_torch.models.quant`) are dequantized at every
+use site where the JAX package calls ``deq``: ``deq(w, x.dtype)`` before
+the ``torch.matmul`` of a prefill-shaped pass; whole to the decode GEMM,
+which dequantizes as it loads, on the decode and verify passes.  The MoE
+block's expert products dequantize a bounded group of experts at a time
+(:func:`expert_products`).
 """
 
 from __future__ import annotations
@@ -27,6 +34,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.params import Spec
+from repro_torch.models.quant import (QuantizedTensor, as_matrix, deq,
+                                      is_quantized)
+
+#: the most bytes one dequantized group of experts may take (a transient
+#: of the MoE block's expert products, and of a captured pass's pool)
+EXPERT_DEQ_BYTES = 2 ** 31
 
 
 # ---------------------------------------------------------------------------
@@ -67,9 +80,8 @@ def _proj(x: torch.Tensor, ws, decode: bool = False) -> list:
     each; on the decode and verify passes one grouped call of the decode
     GEMM for all of them."""
     B, S, D = x.shape
-    flat = [w.reshape(D, -1) for w in ws]
-    ys = (ops.decode_linear_group(x, flat) if decode
-          else [x @ w for w in flat])
+    ys = (ops.decode_linear_group(x, [as_matrix(w, D) for w in ws]) if decode
+          else [x @ deq(w, x.dtype).reshape(D, -1) for w in ws])
     return [y.view(B, S, w.shape[1], w.shape[2]) for y, w in zip(ys, ws)]
 
 
@@ -89,8 +101,10 @@ def _out_proj(cfg: ModelConfig, p, o: torch.Tensor,
     if mask is not None:
         o = o * mask[None, None, :, None]
     B, S, H, hd = o.shape
-    return row_ops(decode)[1](o.reshape(B, S, H * hd),
-                              p["wo"].reshape(H * hd, -1))
+    o = o.reshape(B, S, H * hd)
+    if decode:
+        return ops.decode_linear(o, as_matrix(p["wo"], H * hd))
+    return o @ deq(p["wo"], o.dtype).reshape(H * hd, -1)
 
 
 def attn_apply(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
@@ -251,7 +265,8 @@ def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor,
     products are one grouped call of the decode GEMM."""
     xn = row_ops(decode)[0](x, p["norm"], cfg.norm_eps)
     if not decode:
-        return L.swiglu(xn, p["w_gate"], p["w_up"], p["w_down"])
+        return L.swiglu(xn, deq(p["w_gate"], xn.dtype),
+                        deq(p["w_up"], xn.dtype), deq(p["w_down"], xn.dtype))
     g, u = ops.decode_linear_group(xn, (p["w_gate"], p["w_up"]))
     return ops.decode_linear(L.swiglu_gate(g, u), p["w_down"])
 
@@ -336,6 +351,29 @@ def moe_dispatch(cfg: ModelConfig, gates: torch.Tensor, C: int):
     return dispatch.sum(dim=2), combine, keep
 
 
+def expert_products(p, xe: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU over their slots ``xe (E, slots, D)`` →
+    ``(E, slots, D)``: batched matmuls over all experts.  Int8 experts
+    are dequantized a group at a time (as many experts as
+    :data:`EXPERT_DEQ_BYTES` holds, at least one), so no dequantized
+    transient is larger than that (jamba-1.5-large-398b: 5 of its 16
+    experts' 403 MB in bf16)."""
+    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
+    if not is_quantized(wg):
+        return L.swiglu_gate(xe @ wg, xe @ wu) @ wd
+    E, _, D = xe.shape
+    step = max(1, EXPERT_DEQ_BYTES // (D * wg.shape[-1] * xe.element_size()))
+    ye = torch.empty_like(xe)
+    for e0 in range(0, E, step):
+        e = slice(e0, min(E, e0 + step))
+
+        def w(t):   # the group's experts, their shared scales broadcast
+            return deq(QuantizedTensor(t.q[e], t.scale), xe.dtype)
+        h = L.swiglu_gate(xe[e] @ w(wg), xe[e] @ w(wu))
+        ye[e] = h @ w(wd)
+    return ye
+
+
 def moe_apply(cfg: ModelConfig, p, x: torch.Tensor,
               decode: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed experts with capacity-bounded one-hot dispatch →
@@ -349,7 +387,8 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor,
     are cast to ``x.dtype`` before their products, as the JAX package
     casts them (bf16 gate weights on the card).  The expert products are
     batched matmuls over all ``E`` experts and ``C`` slots, empty slots
-    included.  arctic's dense residual is :func:`mlp_apply` on ``x``."""
+    included (:func:`expert_products`).  arctic's dense residual is
+    :func:`mlp_apply` on ``x``."""
     Bsz, S, D = x.shape
     T = Bsz * S
     E = cfg.n_experts
@@ -363,8 +402,7 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor,
     # "gnd,gnec->gecd": each group's slots gather their tokens
     xe = dispatch.to(dt).reshape(G, N, E * C).transpose(1, 2) @ xg
     xe = xe.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
-    h = L.swiglu_gate(xe @ p["w_gate"], xe @ p["w_up"])         # (E,GC,F)
-    ye = (h @ p["w_down"]).reshape(E, G, C, D).transpose(0, 1)  # (G,E,C,D)
+    ye = expert_products(p, xe).reshape(E, G, C, D).transpose(0, 1)
     # "gecd,gnec->gnd": each token sums its slots' outputs
     y = combine.to(dt).reshape(G, N, E * C) @ ye.reshape(G, E * C, D)
     out = y.reshape(Bsz, S, D)

@@ -6,7 +6,10 @@ whose chunked scan is the ``ssd_scan`` kernel wrapper of
 its plain version :func:`repro_torch.models.layers.ssd_chunk_scan` (the
 port of ``mamba2._ssd_chunk_scan``).  Decode is one recurrence step in
 plain PyTorch (:func:`mamba_decode`), as the JAX package has no kernel
-there.  Projections are ``torch.matmul``; the conv, gates and norms are
+there.  Projections are ``torch.matmul`` (after ``deq`` of an int8
+weight, as the JAX package dequantizes there), except that a decode
+step's int8 products go to the int8 decode GEMM, which reads the int8
+weight as it is (:func:`_decode_mm`); the conv, gates and norms are
 tensor ops in fp32, cast back to the activation dtype where the JAX
 package casts.
 """
@@ -22,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.params import Spec
+from repro_torch.models.quant import deq, is_quantized
 
 
 def mamba_specs(cfg: ModelConfig) -> Dict[str, Spec]:
@@ -74,7 +78,8 @@ def _ssm_params(p) -> Tuple[torch.Tensor, torch.Tensor]:
 def in_proj(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     """The layer's norm and in-projection, ``rms_norm(x) @ w_in``: the
     ``[z, x, B, C, dt]`` of every position.  x: (B,S,D)."""
-    return L.rms_norm(x, p["norm"], cfg.norm_eps) @ p["w_in"]
+    xn = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    return xn @ deq(p["w_in"], xn.dtype)
 
 
 def mamba_apply(cfg: ModelConfig, p, x: torch.Tensor, *, chunk: int = 0,
@@ -98,7 +103,7 @@ def mamba_apply(cfg: ModelConfig, p, x: torch.Tensor, *, chunk: int = 0,
     y = y.reshape(B, S, DI)
     y = y * F.silu(z.float()).to(x.dtype)
     y = L.rms_norm(y, p["gate_norm"], cfg.norm_eps)
-    return y @ p["w_out"]
+    return y @ deq(p["w_out"], y.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +118,13 @@ def mamba_cache_shape(cfg: ModelConfig, batch: int):
     return (batch, W - 1, DI + 2 * N), (batch, H, N, P)
 
 
+def _decode_mm(x: torch.Tensor, w) -> torch.Tensor:
+    """A decode step's product: an int8 weight through the int8 decode
+    GEMM (``x @ deq(w, x.dtype)`` without a dequantized copy), any other
+    ``x @ w``."""
+    return kops.decode_linear(x, w) if is_quantized(w) else x @ w
+
+
 def mamba_decode(cfg: ModelConfig, p, x: torch.Tensor,
                  conv_state: torch.Tensor, ssm_state: torch.Tensor):
     """One-token SSD step.  x: (B,1,D) → ``(out (B,1,D), conv_state',
@@ -121,7 +133,7 @@ def mamba_decode(cfg: ModelConfig, p, x: torch.Tensor,
     B = x.shape[0]
     DI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     xn = L.rms_norm(x[:, 0], p["norm"], cfg.norm_eps)          # (B,D)
-    z, xi, b, c, dt = _split_proj(cfg, xn @ p["w_in"])
+    z, xi, b, c, dt = _split_proj(cfg, _decode_mm(xn, p["w_in"]))
     xbc_new = torch.cat([xi, b, c], dim=-1)                     # (B,DI+2N)
     window = torch.cat([conv_state, xbc_new[:, None].to(conv_state.dtype)],
                        dim=1)                                   # (B,W,·)
@@ -141,4 +153,4 @@ def mamba_decode(cfg: ModelConfig, p, x: torch.Tensor,
     y = y.to(x.dtype) + xi * p["d_skip"].to(x.dtype)[None, :, None]
     y = y.reshape(B, DI) * F.silu(z.float()).to(x.dtype)
     y = L.rms_norm(y, p["gate_norm"], cfg.norm_eps)
-    return (y @ p["w_out"])[:, None], conv_state, ssm_state
+    return _decode_mm(y, p["w_out"])[:, None], conv_state, ssm_state

@@ -1,12 +1,12 @@
-"""Decoder assembly of the dense, MoE, ssm and embedding-input families,
-after ``repro.models.model``.
+"""Decoder assembly of the dense, MoE, ssm, hybrid and embedding-input
+families, after ``repro.models.model``.
 
 Public surface (plain functions of ``(cfg, params, ...)``):
 
 * :func:`model_specs`     — parameter spec tree (scan-stacked layers)
 * :func:`forward`         — teacher-forcing logits over whole sequences
 * :func:`cache_specs`     — cache tree: K/V (dense or paged), or the
-  ssm family's conv and SSM states
+  ssm family's conv and SSM states, or the hybrid family's K/V and states
 * :func:`prefill`         — ragged bucketed prefill → (cache, logits)
 * :func:`encode`          — mean-pooled final-norm hidden states, no cache
 * :func:`chunked_prefill` — the uncached suffix over a gathered prefix;
@@ -36,10 +36,13 @@ arctic-480b with its dense residual and padded heads: the dense layers
 with the MoE block for the MLP), ``audio`` and ``vlm`` (musicgen-large,
 pixtral-12b: the dense layers over ``batch["embeds"]`` in prefill,
 ``forward`` and ``encode``; decode and verify embed tokens, as in the
-reference) and ``ssm`` (mamba2-130m; Mamba2 layers over a conv and an SSM
+reference), ``ssm`` (mamba2-130m; Mamba2 layers over a conv and an SSM
 state, which ``chunked_prefill`` and ``verify_step`` refuse as the JAX
-package does).  The hybrid family waits for a later slice (ROADMAP.md
-queue A item 11).
+package does) and ``hybrid`` (jamba-1.5-large-398b: superblocks of
+``attn_period`` layers stacked twice, slot 0 attention over a dense KV
+cache and the other slots Mamba2, the FFN dense on even slots and MoE on
+odd ones; refused by ``chunked_prefill`` and ``verify_step`` as ssm is).
+Any family runs on an int8 tree (:mod:`repro_torch.models.quant`).
 """
 
 from __future__ import annotations
@@ -55,13 +58,14 @@ from repro_torch.models import mamba2 as M
 from repro_torch.models.params import Spec, stack_specs, tree_map
 
 #: Families whose per-request state is a pure KV cache — the only ones the
-#: engine pages, prefix-caches and speculates for.  An SSM state
-#: summarizes the whole prefix into a fixed-size vector that cannot be
-#: re-anchored mid-sequence or rolled back (``repro.models.model``).
+#: engine pages, prefix-caches and speculates for.  An SSM state (the
+#: ssm and hybrid families) summarizes the whole prefix into a fixed-size
+#: vector that cannot be re-anchored mid-sequence or rolled back
+#: (``repro.models.model``).
 KV_ONLY_FAMILIES = ("dense", "audio", "vlm", "moe")
 
 #: the families the port runs, by input mode
-_PORTED = {"tokens": ("dense", "moe", "ssm"),
+_PORTED = {"tokens": ("dense", "moe", "ssm", "hybrid"),
            "embeddings": ("audio", "vlm")}
 
 #: the K/V storage dtypes ``cfg.kv_cache_dtype`` may name besides "auto"
@@ -69,15 +73,14 @@ _KV_CACHE_DTYPES = {"float8_e4m3fn": torch.float8_e4m3fn}
 
 
 def _family(cfg: ModelConfig) -> str:
-    """``cfg.family`` if the port runs it (``dense``, ``moe`` or ``ssm``
-    on token inputs, ``audio`` or ``vlm`` on embeddings); raises
-    ``NotImplementedError`` otherwise."""
+    """``cfg.family`` if the port runs it (``dense``, ``moe``, ``ssm`` or
+    ``hybrid`` on token inputs, ``audio`` or ``vlm`` on embeddings);
+    raises ``NotImplementedError`` otherwise."""
     if cfg.family in _PORTED.get(cfg.input_mode, ()):
         return cfg.family
     raise NotImplementedError(
         f"family {cfg.family!r} on input_mode {cfg.input_mode!r} is not "
-        f"ported to repro_torch (ported: {_PORTED}); the hybrid family is "
-        "ROADMAP.md queue A item 11")
+        f"ported to repro_torch (ported: {_PORTED})")
 
 
 def _require_kv(cfg: ModelConfig, what: str) -> None:
@@ -92,6 +95,30 @@ def _require_kv(cfg: ModelConfig, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _superblock_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """One hybrid superblock of ``P = attn_period`` layers: slot 0
+    attention, slots 1..P-1 mamba (stacked), the FFN dense on even slots
+    and MoE on odd ones (each stacked)."""
+    P = cfg.attn_period
+    return {
+        "attn": B.attn_specs(cfg),
+        "mamba": stack_specs(M.mamba_specs(cfg), P - 1),
+        "ffn_dense": stack_specs(B.mlp_specs(cfg), (P + 1) // 2),
+        "ffn_moe": stack_specs(B.moe_specs(cfg), P // 2),
+    }
+
+
+def n_stacks(cfg: ModelConfig) -> int:
+    """The stacked blocks: superblocks for the hybrid family, else
+    layers."""
+    if _family(cfg) == "hybrid":
+        if cfg.n_layers % cfg.attn_period:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not "
+                             f"whole superblocks of {cfg.attn_period}")
+        return cfg.n_layers // cfg.attn_period
+    return cfg.n_layers
+
+
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     D, V = cfg.d_model, cfg.padded_vocab
     fam = _family(cfg)
@@ -99,12 +126,14 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
         block = {"mamba": M.mamba_specs(cfg)}
     elif fam == "moe":
         block = {"attn": B.attn_specs(cfg), "moe": B.moe_specs(cfg)}
+    elif fam == "hybrid":
+        block = _superblock_specs(cfg)
     else:
         block = {"attn": B.attn_specs(cfg), "mlp": B.mlp_specs(cfg)}
     specs: Dict[str, Any] = {
         "embed": Spec((V, D), ("vocab", "embed"), scale=0.02),
         "final_norm": Spec((D,), ("embed",), init="ones"),
-        "blocks": stack_specs(block, cfg.n_layers),
+        "blocks": stack_specs(block, n_stacks(cfg)),
     }
     if not cfg.tie_embeddings:
         specs["unembed"] = Spec((V, D), ("vocab", "embed"), scale=0.02)
@@ -120,13 +149,17 @@ def cache_specs(
     pool ``(layers, n_pages, page, KV, hd)`` and each row carries a page
     table; otherwise K/V rows are ``max_seq`` long.  The ssm family keeps
     ``conv (layers, batch, W-1, DI+2N)`` and ``ssm (layers, batch, H, N,
-    P)`` per row instead, and cannot be paged."""
+    P)`` per row instead, and cannot be paged.  The hybrid family keeps
+    dense K/V ``(superblocks, batch, max_seq, KV, hd)`` for its attention
+    slots and ``(superblocks, P-1, batch, ...)`` conv and SSM states for
+    its mamba slots (batch at axis 2), and cannot be paged."""
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    nst = n_stacks(cfg)
     if page_size is not None:
         _require_kv(cfg, "a paged cache")
         if n_pages is None:
             raise ValueError("paged cache_specs needs n_pages")
-        kv = Spec((cfg.n_layers, n_pages, page_size, KV, hd),
+        kv = Spec((nst, n_pages, page_size, KV, hd),
                   ("layers", "pages", "page", "kv_heads", "head_dim"),
                   init="zeros")
         return {
@@ -138,19 +171,28 @@ def cache_specs(
             "k": kv, "v": kv,
         }
     out = {"len": Spec((batch,), (None,), init="zeros")}
-    if _family(cfg) == "ssm":
-        cs, ss = M.mamba_cache_shape(cfg, batch)
+    fam = _family(cfg)
+    cs, ss = M.mamba_cache_shape(cfg, batch)
+    if fam == "ssm":
         out.update(
-            conv=Spec((cfg.n_layers,) + cs,
+            conv=Spec((nst,) + cs,
                       ("layers", "batch", None, "inner"), init="zeros"),
-            ssm=Spec((cfg.n_layers,) + ss,
+            ssm=Spec((nst,) + ss,
                      ("layers", "batch", "ssm_heads", None, None),
                      init="zeros"))
         return out
-    kv = Spec((cfg.n_layers, batch, max_seq, KV, hd),
+    kv = Spec((nst, batch, max_seq, KV, hd),
               ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
               init="zeros")
     out.update(k=kv, v=kv)
+    if fam == "hybrid":
+        P = cfg.attn_period
+        out.update(
+            conv=Spec((nst, P - 1) + cs,
+                      ("layers", None, "batch", None, "inner"), init="zeros"),
+            ssm=Spec((nst, P - 1) + ss,
+                     ("layers", None, "batch", "ssm_heads", None, None),
+                     init="zeros"))
     return out
 
 
@@ -178,10 +220,16 @@ def cache_dtype(cfg: ModelConfig, name: str, dtype) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
+def _take(tree, i: int):
+    """Element ``i`` of every stacked leaf of ``tree`` (views; an int8
+    leaf takes its scales along)."""
+    return tree_map(lambda w: w[i], tree)
+
+
 def _layer(params, i: int):
-    """Layer ``i``'s weights: views into the stacked leaves (arctic's
-    ``moe/dense`` sub-tree included)."""
-    return tree_map(lambda w: w[i], params["blocks"])
+    """Layer (or superblock) ``i``'s weights: views into the stacked
+    leaves (arctic's ``moe/dense`` sub-tree included)."""
+    return _take(params["blocks"], i)
 
 
 def _ffn(cfg: ModelConfig, lp, x: torch.Tensor, decode: bool = False):
@@ -190,6 +238,48 @@ def _ffn(cfg: ModelConfig, lp, x: torch.Tensor, decode: bool = False):
     if "moe" in lp:
         return B.moe_apply(cfg, lp["moe"], x, decode)
     return B.mlp_apply(cfg, lp["mlp"], x, decode), None
+
+
+def _slot_ffn(cfg: ModelConfig, bp, s: int, x: torch.Tensor,
+              decode: bool = False):
+    """Slot ``s``'s FFN in a hybrid superblock ``bp`` → ``(out, aux)``:
+    the dense MLP on even slots (``aux`` None), MoE on odd ones."""
+    if s % 2 == 0:
+        return B.mlp_apply(cfg, _take(bp["ffn_dense"], s // 2), x,
+                           decode), None
+    return B.moe_apply(cfg, _take(bp["ffn_moe"], s // 2), x, decode)
+
+
+def _superblock(cfg: ModelConfig, bp, x: torch.Tensor,
+                positions: torch.Tensor, aux: torch.Tensor,
+                cache: Optional[Dict[str, torch.Tensor]] = None, i: int = 0,
+                seq_valid: Optional[torch.Tensor] = None):
+    """Hybrid superblock ``bp`` over full sequences → ``(x, aux)``: slot 0
+    attention (flash), slots 1..P-1 mamba (the SSD scan), each followed
+    by its FFN (:func:`_slot_ffn`), the MoE slots' aux losses added to
+    ``aux``.  With ``cache`` (prefill), superblock ``i``'s K/V land at
+    ``cache["k"/"v"][i, :, :S]`` and each mamba slot's final states at
+    ``cache["conv"/"ssm"][i, s - 1]``, its mixer masked past
+    ``seq_valid`` (:func:`_mamba_prefill`)."""
+    for s in range(cfg.attn_period):
+        if s == 0:
+            out, (k, v) = B.attn_apply(cfg, bp["attn"], x, positions,
+                                       return_kv=True)
+            x = x + out
+            if cache is not None:
+                S = x.shape[1]
+                cache["k"][i, :, :S] = L.to_cache(k, cache["k"].dtype)
+                cache["v"][i, :, :S] = L.to_cache(v, cache["v"].dtype)
+        elif cache is None:
+            x = x + M.mamba_apply(cfg, _take(bp["mamba"], s - 1), x)
+        else:
+            x, cache["conv"][i, s - 1], cache["ssm"][i, s - 1] = \
+                _mamba_prefill(cfg, _take(bp["mamba"], s - 1), x, seq_valid)
+        out, a = _slot_ffn(cfg, bp, s, x)
+        x = x + out
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _embed_inputs(cfg: ModelConfig, params,
@@ -241,13 +331,17 @@ def _backbone(cfg: ModelConfig, params, x: torch.Tensor,
     the MoE layers' aux losses (a zero fp32 scalar for the other
     families), as the JAX scan carries it.  With ``ks``/``vs`` ``(layers,
     B, >= S, KV, hd)`` each layer's K/V land at ``[i, :, :S]``; without
-    them nothing is kept."""
+    them nothing is kept.  The hybrid family runs its superblocks
+    (:func:`_superblock`)."""
     S = x.shape[1]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
+    for i in range(n_stacks(cfg)):
         lp = _layer(params, i)
         if _family(cfg) == "ssm":
             x = x + M.mamba_apply(cfg, lp["mamba"], x)
+            continue
+        if _family(cfg) == "hybrid":
+            x, aux = _superblock(cfg, lp, x, positions, aux)
             continue
         out, (k, v) = B.attn_apply(cfg, lp["attn"], x, positions,
                                    return_kv=True)
@@ -290,7 +384,8 @@ def prefill(
     the prompt's K/V at ``[0, S)``; causality keeps padding out of every
     valid position.  SSM: ``cache["conv"/"ssm"]`` hold each layer's state
     after the row's last valid position (:func:`_mamba_prefill`;
-    ``max_seq`` is not used).  ``valid_len`` (B,) makes ragged rows exact
+    ``max_seq`` is not used).  Hybrid: both, K/V per superblock and the
+    states per mamba slot (:func:`cache_specs`).  ``valid_len`` (B,) makes ragged rows exact
     and selects each row's last valid position for the logits;
     ``all_logits=True`` returns ``(B, S, vocab)`` instead.  The inputs are
     ``batch["tokens"]``, or ``batch["embeds"]`` ``(B, S, D)`` for an
@@ -301,6 +396,9 @@ def prefill(
     positions = _positions(x)
     if _family(cfg) == "ssm":
         cache, x = _mamba_layers(cfg, params, x, positions, valid_len)
+    elif _family(cfg) == "hybrid":
+        cache, x = _hybrid_layers(cfg, params, x, positions, max_seq,
+                                  valid_len)
     else:
         KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
         dt = cache_dtype(cfg, "k", x.dtype)
@@ -336,6 +434,29 @@ def _mamba_layers(cfg: ModelConfig, params, x: torch.Tensor,
                                             x, seq_valid)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return {"conv": conv, "ssm": ssm}, x
+
+
+def _hybrid_layers(cfg: ModelConfig, params, x: torch.Tensor,
+                   positions: torch.Tensor, max_seq: int,
+                   valid_len: Optional[torch.Tensor]):
+    """The hybrid family's prefill superblocks → ``(cache, final-norm
+    hidden states)``: K/V zero past the prompt, as in :func:`prefill`,
+    and each mamba slot's states after the row's last valid position."""
+    seq_valid = (None if valid_len is None
+                 else positions < valid_len.to(x.device)[:, None])
+    Bsz = x.shape[0]
+    cache = {}
+    for name, spec in cache_specs(cfg, Bsz, max_seq).items():
+        if name != "len":
+            cache[name] = (torch.zeros if name in ("k", "v") else torch.empty)(
+                spec.shape, dtype=cache_dtype(cfg, name, x.dtype),
+                device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_stacks(cfg)):
+        x, _ = _superblock(cfg, _layer(params, i), x, positions, aux, cache,
+                           i, seq_valid)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return cache, x
 
 
 def _mamba_prefill(cfg: ModelConfig, p, x: torch.Tensor,
@@ -508,7 +629,9 @@ def decode_step(
     ``conv``/``ssm``, each layer's updated **in place**; as in the JAX
     package only ``len`` is frozen for inactive rows, whose states
     advance on their dummy tokens until the next insert overwrites them.
-    Returns ``(cache', logits)``.
+    Hybrid cache: the dense K/V of the attention slots and the states of
+    the mamba slots, each updated in place.  Returns ``(cache',
+    logits)``.
     """
     x = L.embed(tokens, params["embed"])
     cache_len = cache["len"]
@@ -525,6 +648,22 @@ def decode_step(
         logits = L.unembed(x, _unembed_table(cfg, params))[:, 0]
         return dict(cache, len=cache_len + step), logits
     k_all, v_all = cache["k"], cache["v"]
+    if _family(cfg) == "hybrid":
+        conv, ssm = cache["conv"], cache["ssm"]
+        for i in range(n_stacks(cfg)):
+            bp = _layer(params, i)
+            for s in range(cfg.attn_period):
+                if s == 0:
+                    out, _, _ = B.attn_decode(cfg, bp["attn"], x, k_all[i],
+                                              v_all[i], cache_len)
+                else:
+                    out, conv[i, s - 1], ssm[i, s - 1] = M.mamba_decode(
+                        cfg, _take(bp["mamba"], s - 1), x, conv[i, s - 1],
+                        ssm[i, s - 1])
+                x = x + out
+                x = x + _slot_ffn(cfg, bp, s, x, decode=True)[0]
+        logits = _decode_logits(cfg, params, x)[:, 0]
+        return dict(cache, len=cache_len + step), logits
     paged = "pages" in cache
     if paged:
         page = k_all.shape[2]

@@ -12,7 +12,14 @@ a dict, so leaf ``i`` here is leaf ``i`` there.
   numbers for the same seed);
 * :func:`from_numpy` — the weight bridge: the JAX ``init_params`` tree
   after ``jax.tree.map(np.asarray, …)`` becomes this package's tree, so
-  both packages can run the same weights.
+  both packages can run the same weights (a JAX ``QuantizedTensor`` leaf,
+  its ``q`` and ``scale`` as numpy, becomes the port's).
+
+``init_params(..., quant=True)`` draws the int8 tree of
+``quantize_params(init_params(...))`` leaf by leaf, never holding a
+quantizable leaf whole in fp32 beyond its draw, nor more than one leaf in
+the activation dtype beside the int8 already drawn (jamba-1.5-large-398b
+at one superblock: 45 G parameters, which do not fit a card in bf16).
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.models.quant import (ChannelQuantizer, QuantizedTensor,
+                                      keeps_leading, quantizable, quantize)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +91,31 @@ def stack_specs(tree: SpecTree, n: int) -> SpecTree:
         tree)
 
 
+def _std(spec: Spec) -> float:
+    """A normal leaf's std: ``spec.scale``, else 1/sqrt(fan-in), the
+    reference's fan-in being ``shape[0]`` (the stacked ``layers`` axis of a
+    stacked leaf: jamba at one superblock draws its blocks at std 1)."""
+    fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
+    return spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
+
+
+def _draws(spec: Spec, generator: torch.Generator,
+           device) -> Iterator[Tuple[int, torch.Tensor]]:
+    """A normal leaf's draw in order, ``(flat offset, fp32 values)``: the
+    whole leaf in one call up to ``_DRAW_WHOLE`` elements, else slices of
+    ``_DRAW_SLICE`` (an expert stack: grok-1-314b at 4 layers is 24 GiB
+    in fp32), so the fp32 draw never holds more than one."""
+    std, n = _std(spec), math.prod(spec.shape)
+    if n <= _DRAW_WHOLE:
+        yield 0, torch.randn(spec.shape, generator=generator,
+                             dtype=torch.float32, device=device).mul_(std)
+        return
+    for i in range(0, n, _DRAW_SLICE):
+        m = min(_DRAW_SLICE, n - i)
+        yield i, torch.randn(m, generator=generator, dtype=torch.float32,
+                             device=device).mul_(std)
+
+
 def _init_one(spec: Spec, generator: torch.Generator, dtype,
               device) -> torch.Tensor:
     if spec.init == "zeros":
@@ -93,33 +128,50 @@ def _init_one(spec: Spec, generator: torch.Generator, dtype,
                        device=device) * 15.0 + 1.0
         return torch.log(u).to(dtype)
     if spec.init == "normal":
-        fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
-        std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
-        n = math.prod(spec.shape)
-        if n <= _DRAW_WHOLE:
-            x = torch.randn(spec.shape, generator=generator,
-                            dtype=torch.float32, device=device)
-            return x.mul_(std).to(dtype)
-        # an expert stack (grok-1-314b at 4 layers: 24 GiB in fp32) is
-        # drawn in slices, so the fp32 draw never holds more than one
+        if math.prod(spec.shape) <= _DRAW_WHOLE:
+            (_, x), = _draws(spec, generator, device)
+            return x.to(dtype)
         out = torch.empty(spec.shape, dtype=dtype, device=device)
         flat = out.view(-1)
-        for i in range(0, n, _DRAW_SLICE):
-            m = min(_DRAW_SLICE, n - i)
-            flat[i:i + m] = torch.randn(m, generator=generator,
-                                        dtype=torch.float32,
-                                        device=device).mul_(std)
+        for i, x in _draws(spec, generator, device):
+            flat[i:i + x.numel()] = x
         return out
     raise ValueError(f"unknown init {spec.init}")
 
 
+def _init_quantized(spec: Spec, generator: torch.Generator, dtype,
+                    device) -> QuantizedTensor:
+    """``quantize(_init_one(spec, ...))`` bit for bit.  A leaf drawn whole
+    is drawn, cast to ``dtype`` and quantized in runs; a leaf drawn in
+    slices is drawn twice, the generator's state put back between: the
+    first pass takes each channel's amax over the slices (in ``dtype``),
+    the second quantizes them, so neither the fp32 nor the ``dtype`` leaf
+    is ever whole (jamba's ``ffn_moe.w_gate``: 12.9 G parameters)."""
+    keep = keeps_leading(spec)
+    if math.prod(spec.shape) <= _DRAW_WHOLE:
+        w = _init_one(spec, generator, dtype, device)
+        return quantize(w, keep_leading=keep)
+    qz = ChannelQuantizer(spec.shape, keep, device)
+    state = generator.get_state()
+    for i, x in _draws(spec, generator, device):
+        qz.observe(i, x.to(dtype))
+    generator.set_state(state)
+    for i, x in _draws(spec, generator, device):
+        qz.write(i, x.to(dtype))
+    return qz.result()
+
+
 def init_params(tree: SpecTree, generator: torch.Generator,
-                dtype=torch.float32, device="cuda") -> Dict[str, Any]:
+                dtype=torch.float32, device="cuda",
+                quant: bool = False) -> Dict[str, Any]:
     """Materialize random parameters on ``device``.
 
     ``generator`` must live on ``device`` (``torch.Generator(device)``);
     leaves draw from it in sorted-key order, so one seed gives one tree.
-    Normal leaves are drawn in fp32 and cast to ``dtype``.
+    Normal leaves are drawn in fp32 and cast to ``dtype``.  With
+    ``quant`` every quantizable leaf comes out int8, exactly as
+    ``quantize_params`` would make it of the ``dtype`` tree, drawn leaf by
+    leaf (:func:`_init_quantized`).
     """
     device = resolve_device(device)
     if torch.device(generator.device).type != device.type:
@@ -131,19 +183,27 @@ def init_params(tree: SpecTree, generator: torch.Generator,
         *parents, leaf = path.split("/")
         for k in parents:
             node = node.setdefault(k, {})
-        node[leaf] = _init_one(spec, generator, dtype, device)
+        init = (_init_quantized if quant and quantizable(spec)
+                else _init_one)
+        node[leaf] = init(spec, generator, dtype, device)
     return out
 
 
 def from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
     """Convert a tree of numpy arrays (the JAX parameter tree after
     ``jax.tree.map(np.asarray, …)``) into torch tensors on ``device``,
-    optionally cast to ``dtype``.  Leaf names and shapes are kept."""
+    optionally cast to ``dtype``.  Leaf names and shapes are kept; an
+    int8 leaf keeps its int8 payload and fp32 scales."""
     device = resolve_device(device)
 
-    def conv(a):
+    def tensor(a, dtype=None):
         t = torch.from_numpy(np.array(a, copy=True))
         return t.to(device=device, dtype=dtype or t.dtype)
+
+    def conv(a):
+        if hasattr(a, "q") and hasattr(a, "scale"):   # a QuantizedTensor
+            return QuantizedTensor(tensor(a.q), tensor(a.scale))
+        return tensor(a, dtype)
 
     return tree_map(conv, tree)
 

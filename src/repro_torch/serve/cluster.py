@@ -97,7 +97,9 @@ from repro_torch.core.llm_client import (
 )
 from repro_torch.core.oracle import OracleLLM, SystemClock, VirtualClock
 from repro_torch.kernels import ops
+from repro_torch.models import model_specs
 from repro_torch.models.params import tree_items, tree_map
+from repro_torch.models.quant import quantize_params
 from repro_torch.obs.export import CLUSTER_PID
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import adopt_clock, recorder_from_env
@@ -392,7 +394,10 @@ class Cluster:
         parameters lie on a card and more than one is visible; on one
         device (one card, or the CPU) the weights are shared by
         reference.  Each replica keeps its own KV pool, prefix cache,
-        graphs, executor and stream either way.
+        graphs, executor and stream either way.  With ``quant`` (an engine
+        keyword, default ``REPRO_QUANT``) the tree is quantized once here,
+        so the replicas on one device share one int8 tree, as they share
+        a bf16 one (each engine's quantization passes it through).
 
         The construction recipe is kept as an ``engine_factory`` closure
         over the shared param tree, which is what lets
@@ -405,6 +410,11 @@ class Cluster:
             raise NotImplementedError(
                 "tensor-parallel replicas (tp > 1) are not yet ported "
                 "(ROADMAP.md queue A item 13)")
+        quant = engine_kwargs.get("quant")
+        if quant is None:
+            quant = os.environ.get("REPRO_QUANT", "0") == "1"
+        if quant:
+            params = quantize_params(params, model_specs(cfg))
         if devices is None:
             home = next(t for _, t in tree_items(params)).device
             count = torch.cuda.device_count() if home.type == "cuda" else 1

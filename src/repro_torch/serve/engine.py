@@ -54,6 +54,16 @@ What carries over unchanged from the JAX engine:
   dtype); paging, the prefix cache and speculation are gated off, as the
   JAX engine gates them, and every prefill, scoring and encode pass runs
   the ``ssd_scan`` kernel once a layer.
+* **The hybrid family** (jamba-1.5-large-398b) — as ssm, over dense K/V
+  rows of its attention slots and the conv and SSM states of its mamba
+  slots (batch at axis 2), with paging, the prefix cache and speculation
+  gated off.
+* **Int8 weight residency** (``quant=True`` or ``REPRO_QUANT=1``) — the
+  weights are quantized once at construction
+  (:func:`repro_torch.models.quant.quantize_params`, idempotent: an int8
+  tree passes through as the same object, so replicas share it); every
+  pass dequantizes at the use site, and the decode and verify passes send
+  their int8 products to the decode GEMM's int8 variant.
 
 Every pass is a call into :mod:`repro_torch.models` on the engine's
 device (the device of the weights).  Where the JAX engine compiles its
@@ -68,9 +78,8 @@ passes stay eager.  The
 pool and the dense cache rows are updated in place where the JAX engine
 donates buffers; a graph engine keeps one dense state for its lifetime
 (:meth:`Engine.init_state` zeroes and returns it), since its graphs hold
-the state's tensors.  Int8 weights and meshes are not
-yet ported and raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+the state's tensors.  Meshes (tensor parallelism) are not yet ported and
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -85,8 +94,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.llm_client import cancel_unfinished
 from repro_torch.models import (KV_ONLY_FAMILIES, cache_dtype, cache_specs,
-                                chunked_prefill, decode_step, encode, prefill,
-                                verify_step)
+                                chunked_prefill, decode_step, encode,
+                                model_specs, prefill, verify_step)
+from repro_torch.models.quant import quantize_params
 from repro_torch.obs.trace import NULL_TRACE
 from repro_torch.serve.graphs import PassGraph
 from repro_torch.serve.prefix_cache import PagedKVPool, RadixPrefixCache
@@ -212,9 +222,10 @@ class DecodeState:
     """State of the ``slots``-wide continuous batch on the dense engine.
 
     ``cache`` — ``len`` (slots,) int32 and the rows ``k``/``v`` ``(layers,
-    slots, max_seq, KV, hd)`` (the ssm family: ``conv``/``ssm`` states) on
-    the engine device, allocated once; a row is overwritten in place when
-    a new request is inserted into its slot.
+    slots, max_seq, KV, hd)`` (the ssm family: ``conv``/``ssm`` states; the
+    hybrid family: both, the states ``(superblocks, slots per superblock,
+    slots, ...)``) on the engine device, allocated once; a row is
+    overwritten in place when a new request is inserted into its slot.
     ``logits`` — (slots, vocab) fp32 next-token logits per row.
     """
 
@@ -321,22 +332,20 @@ class Engine:
                 f"(input_mode={cfg.input_mode!r}), which the JAX engine "
                 "cannot serve either: run it through repro_torch.models "
                 "(forward, prefill from embeds, decode_step)")
-        if cfg.family not in ("dense", "moe", "ssm"):
-            raise _not_ported(f"serving the {cfg.family!r} family",
-                              "queue A item 11")
         if mesh is not None:
             raise _not_ported("a tensor-parallel engine (mesh=)",
                               "queue A item 13")
         if quant is None:
             quant = os.environ.get("REPRO_QUANT", "0") == "1"
-        if quant:
-            raise _not_ported("int8 weight residency (quant=True)",
-                              "queue A item 13")
+        self.quant = bool(quant)
+        if self.quant:
+            # idempotent: a cluster may pass an already-quantized tree
+            params = quantize_params(params, model_specs(cfg))
         # Self-speculative decoding: greedy-parity n-gram drafting and one
         # verification pass per step; off by default.  Paging, the prefix
         # cache and speculation are for KV-only families: an SSM state
         # cannot be paged, re-anchored mid-sequence or rolled back, so the
-        # ssm family gets dense rows and none of the three.
+        # ssm and hybrid families get dense rows and none of the three.
         kv_only = cfg.family in KV_ONLY_FAMILIES
         if spec_decode is None:
             spec_decode = os.environ.get("REPRO_SPEC_DECODE", "0") == "1"

@@ -17,7 +17,10 @@ decode kernel equals the paged one on the same data, also at lengths
 around the edge of their context chunks.  The decode GEMM gives each row
 the same bits whatever the number of rows beside it, or the products
 launched with it, so a decode step's rows and a verify pass's rows equal
-the decode steps they stand for, bit for bit, at granite-3-2b's widths.
+the decode steps they stand for, bit for bit, at granite-3-2b's widths;
+with int8 weights it gives, bit for bit, the dense kernel's product on
+the dequantized weight, at granite-3-2b's and jamba-1.5-large-398b's
+widths, alone and grouped.
 The top-k kernel splits N across blocks; ties across its splits still go
 to the lower index.  The RMSNorm kernel gives a row the same bits in a
 launch of any number of rows, and the SSD scan a batch row the bits of
@@ -49,6 +52,7 @@ from repro_torch.models import (decode_step, init_params, model_specs,
                                 verify_step)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models.quant import QuantizedTensor, deq
 from repro_torch.serve import Engine
 from repro_torch.serve.graphs import GATE, PassGraph
 
@@ -786,6 +790,88 @@ def test_decode_gemm_rejects_what_it_does_not_take(cuda):
         ops.decode_linear_group(x, (w, torch.zeros(64, 64, device=cuda).t()))
     with pytest.raises(ValueError, match="tensors on"):
         ops.decode_linear_group(x, (w, torch.zeros(64, 64)))
+
+
+#: int8 decode products (K, N, scales): granite-3-2b's (wq and wk/wv read
+#: one scale per head_dim index, 64; wo and the MLP one per column), then
+#: jamba-1.5-large-398b's (q, k/v over 128, the mamba in- and
+#: out-projections, the dense MLP), and a ragged width
+QGEMM_SHAPES = [(2048, 2048, 64), (2048, 512, 64), (2048, 8192, 8192),
+                (8192, 2048, 2048), (8192, 8192, 128), (8192, 1024, 128),
+                (8192, 33280, 33280), (16384, 8192, 8192),
+                (8192, 24576, 24576), (24576, 8192, 8192),
+                (1024, 80, 80)]
+
+
+def _int8_weight(g, K, N, ns):
+    """An int8 (K, N) weight over its full range, with positive fp32
+    scales of ``ns`` columns near 1 / (127 sqrt(K)) (column ``n`` reads
+    scale ``n % ns``), as ``QuantizedTensor`` and ``as_matrix`` give the
+    decode GEMM; freshly allocated, so its tensor map is encoded cold."""
+    q = torch.randint(-127, 128, (K, N), generator=g, device=g.device,
+                      dtype=torch.int8)
+    s = (torch.rand(ns, generator=g, device=g.device) + 0.5) / (127 * K ** 0.5)
+    return QuantizedTensor(q, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N,ns", QGEMM_SHAPES)
+def test_int8_decode_gemm_equals_dense_on_deq(cuda, dtype, K, N, ns):
+    """An int8 weight's product equals, bit for bit, the dense kernel's
+    product with ``deq(w, x.dtype)`` at M 1, 4, 36 and 64 (so a row's
+    bits still do not depend on M), and lies within the repo's
+    tolerance of the plain ``x @ deq(w)``; one launch, counted under
+    dtype code 2 + x's."""
+    g = torch.Generator(cuda).manual_seed(K + N + ns)
+    w = _int8_weight(g, K, N, ns)
+    dense = deq(w, dtype)
+    x = _randn(g, dtype, 64, K)
+    for M in (1, 4, 36, 64):
+        before = ops.decode_gemm.launches
+        got = ops.decode_linear(x[:M], w)
+        torch.cuda.synchronize()
+        assert ops.decode_gemm.launches == before + 1
+        assert ops.decode_gemm.shapes[(M, K, N, 0, 3 if dtype ==
+                                       torch.bfloat16 else 2)] >= 1
+        assert torch.equal(got, ops.decode_linear(x[:M], dense)), M
+    torch.testing.assert_close(got.float(), L.matmul(x, dense).float(),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,shapes", [
+    (2048, ((2048, 64), (512, 64), (512, 64))),      # granite q/k/v
+    (8192, ((8192, 128), (1024, 128), (1024, 128))),  # jamba q/k/v
+    (8192, ((24576, 24576), (24576, 24576)))])        # jamba gate/up
+def test_int8_decode_gemm_group_equals_single_products(cuda, dtype, K,
+                                                       shapes):
+    """One grouped int8 launch gives every product the bits of its own
+    launch and of the dense group on the dequantized weights, at M 1, 4,
+    36 and 64; a group mixing int8 and dense weights is refused."""
+    g = torch.Generator(cuda).manual_seed(K + len(shapes))
+    ws = [_int8_weight(g, K, N, ns) for N, ns in shapes]
+    x = _randn(g, dtype, 64, K)
+    for M in (1, 4, 36, 64):
+        group = ops.decode_linear_group(x[:M], ws)
+        dense = ops.decode_linear_group(x[:M], [deq(w, dtype) for w in ws])
+        for a, b, w in zip(group, dense, ws):
+            assert torch.equal(a, ops.decode_linear(x[:M], w)), M
+            assert torch.equal(a, b), M
+    with pytest.raises(TypeError, match="all int8"):
+        ops.decode_linear_group(x, (ws[0], deq(ws[1], dtype)))
+
+
+def test_int8_decode_gemm_rejects_what_it_does_not_take(cuda):
+    g = torch.Generator(cuda).manual_seed(3)
+    x = torch.zeros(4, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):   # N % 16
+        ops.decode_linear(x, _int8_weight(g, 64, 72, 72))
+    w = _int8_weight(g, 64, 64, 48)
+    with pytest.raises(ValueError, match="scales"):   # 48 does not divide 64
+        ops.decode_linear(x, w)
+    w = _int8_weight(g, 64, 64, 64)
+    with pytest.raises(ValueError, match="int8 weights are"):
+        ops.decode_linear(x, QuantizedTensor(w.q.t(), w.scale))
 
 
 def _granite_layers(cuda, dtype, n_layers=2):

@@ -31,6 +31,7 @@ from repro_torch.data import ads_scenario
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.kernels import ops
 from repro_torch.models import from_numpy
+from repro_torch.models.quant import QuantizedTensor
 from repro_torch.serve import Engine, EngineClient
 
 MAX_SEQ, SLOTS = 1024, 4   # examples/serve_join.py:85
@@ -143,9 +144,23 @@ def test_greedy_generate_matches_jax_engine(weights, jax_engine):
     assert ops.launch_counts() == launches   # CPU tensors: no kernel
 
 
-def test_unported_engine_paths_raise(weights):
-    with pytest.raises(NotImplementedError, match="int8"):
-        _port_engine(weights, quant=True)
+def test_unported_engine_paths_raise(weights, monkeypatch):
+    """A tensor-parallel engine (``mesh=``) is not yet ported and raises
+    naming queue A item 13.  Int8 residency is ported: ``quant=True`` (or
+    ``REPRO_QUANT=1``) builds an int8 engine on the CPU, and an engine
+    over an already-quantized tree keeps that tree as it is."""
+    with pytest.raises(NotImplementedError, match="queue A item 13"):
+        _port_engine(weights, mesh=object())
+    q = _port_engine(weights, quant=True)
+    assert q.quant and isinstance(q.params["blocks"]["attn"]["wq"],
+                                  QuantizedTensor)
+    assert q.params["embed"].dtype == torch.float32   # stays dense
+    assert Engine(q.cfg, q.params, q.tokenizer, max_seq=MAX_SEQ,
+                  slots=SLOTS, quant=True).params is q.params
+    monkeypatch.setenv("REPRO_QUANT", "1")
+    assert _port_engine(weights).quant
+    monkeypatch.delenv("REPRO_QUANT")
+    assert not _port_engine(weights).quant
     # the dense-KV engine and speculative decoding are ported (their
     # parity is held in tests/test_torch_dense.py and test_torch_spec.py)
     assert not _port_engine(weights, paged=False).paged
@@ -162,8 +177,9 @@ def test_unported_engine_paths_raise(weights):
 
 
 def test_launcher_raises_on_unported_options_and_without_a_card():
-    """``--tp 2`` is not yet ported; ``--replicas 2`` builds a cluster of
-    two engines over one set of weights (no join is run here); without a
+    """``--tp 2`` is not yet ported (queue A item 13); ``--replicas 2``
+    builds a cluster of two engines over one set of weights, in int8
+    too, where both share one int8 tree (no join is run here); without a
     card the default device raises."""
     from repro_torch.launch.serve import build_cluster, build_engine, main
 
@@ -174,6 +190,11 @@ def test_launcher_raises_on_unported_options_and_without_a_card():
         assert len(cl.engines) == cl.replicas_alive == 2
         a, b = cl.engines
         assert a is not b and a.params is b.params   # shared by reference
+    with build_cluster("granite-3-2b", 2, smoke=True, device="cpu",
+                       quant=True) as cl:
+        a, b = cl.engines
+        assert a.quant and b.quant and a.params is b.params
+        assert isinstance(a.params["blocks"]["mlp"]["w_up"], QuantizedTensor)
     if not torch.cuda.is_available():   # cuda is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_engine("granite-3-2b", smoke=True)

@@ -101,8 +101,11 @@ def test_init_params_is_seeded_and_shaped():
 
 
 def test_unported_configs_raise():
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_config("jamba-1.5-large-398b")
+    """Every arch of the JAX package is ported (jamba-1.5-large-398b was
+    the last); an id outside ``ARCH_IDS`` raises ``KeyError``."""
+    assert get_config("jamba-1.5-large-398b").family == "hybrid"
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("jamba-2-huge")
 
 
 @pytest.fixture(params=[False, True], ids=["xla", "pallas"])

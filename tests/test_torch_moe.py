@@ -99,8 +99,10 @@ SLICE = ["grok-1-314b", "arctic-480b", "musicgen-large", "pixtral-12b"]
 
 
 def test_nine_of_ten_archs_are_ported():
+    """This slice's archs are ported, and since the hybrid family's port
+    so are all ten: ``PORTED_ARCH_IDS`` is ``ARCH_IDS``."""
     assert set(SLICE) <= set(PORTED_ARCH_IDS)
-    assert set(ARCH_IDS) - set(PORTED_ARCH_IDS) == {"jamba-1.5-large-398b"}
+    assert sorted(PORTED_ARCH_IDS) == sorted(ARCH_IDS)
 
 
 @pytest.mark.parametrize("arch", SLICE)

@@ -50,8 +50,8 @@ from repro_torch.data import ads_scenario
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.kernels import ops
 from repro_torch.models import (cache_specs, chunked_prefill, decode_step,
-                                encode, from_numpy, model_specs, param_count,
-                                prefill, verify_step)
+                                encode, from_numpy, init_params, model_specs,
+                                param_count, prefill, verify_step)
 from repro_torch.models import mamba2 as M
 from repro_torch.serve import Engine, EngineClient
 
@@ -331,7 +331,8 @@ def test_family_gates(weights, monkeypatch):
     and tests/test_spec_decode.py:230: asked for paging, the prefix cache
     and speculation (by argument or environment), the engine runs dense
     rows with none of the three; the model refuses the KV-only entry
-    points; the other unported families raise naming their item."""
+    points; the hybrid family builds its specs and is refused by them
+    too; inputs no token family takes raise."""
     cfg, _, tparams = weights
     for var in ("REPRO_PAGED_KV", "REPRO_PREFIX_CACHE", "REPRO_SPEC_DECODE"):
         monkeypatch.setenv(var, "1")
@@ -355,8 +356,23 @@ def test_family_gates(weights, monkeypatch):
             2, 8, dtype=torch.long)}, max_seq=32,
             valid_len=torch.ones(2, dtype=torch.int32), prefix_k=z,
             prefix_v=z, prefix_len=torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model_specs(dataclasses.replace(cfg, family="hybrid"))
+    hybrid = get_smoke_config("jamba-1.5-large-398b")
+    assert set(model_specs(hybrid)["blocks"]) == {"attn", "mamba",
+                                                  "ffn_dense", "ffn_moe"}
+    hparams = init_params(model_specs(hybrid), torch.Generator().manual_seed(0),
+                          torch.float32, "cpu")
+    hcache, _ = prefill(hybrid, hparams, {"tokens": torch.zeros(
+        2, 8, dtype=torch.long)}, max_seq=8)
+    with pytest.raises(ValueError, match="KV-only"):
+        verify_step(hybrid, hparams, hcache,
+                    torch.zeros(2, 3, dtype=torch.long))
+    with pytest.raises(ValueError, match="KV-only"):
+        z = torch.zeros(1, 2, 16, hybrid.n_kv_heads,
+                        hybrid.resolved_head_dim)
+        chunked_prefill(hybrid, hparams, {"tokens": torch.zeros(
+            2, 8, dtype=torch.long)}, max_seq=32,
+            valid_len=torch.ones(2, dtype=torch.int32), prefix_k=z,
+            prefix_v=z, prefix_len=torch.zeros(2, dtype=torch.int32))
     # embedding inputs are the audio and vlm families' alone
     with pytest.raises(NotImplementedError, match="is not ported"):
         model_specs(dataclasses.replace(cfg, input_mode="embeddings"))
