@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
 
-The port has nine CUDA kernels on six paths (the sixth the cluster of
-phase 9d), over the dense family
+The port has ten CUDA kernels on seven paths (the sixth the cluster of
+phase 9d, the seventh training, phase 11), over the dense family
 (granite-3-2b; yi-9b and starcoder2-7b in phase 9b; mistral-large-123b
 cut to two layers in phase 3), the MoE family (grok-1-314b and
 arctic-480b cut in depth, phase 9c), the embedding-input families
@@ -272,12 +272,43 @@ no result line:
    one block join on each of the spec, dense and ssm paths and, in phases
    9b, 9c and 9d, on yi-9b, starcoder2-7b, grok-1-314b, arctic-480b and
    the 2-replica cluster, graphs on (each engine's graph captured before
-   its profile).
+   its profile);
+11. training, every engine freed first (the memory still allocated
+   printed): (a) the flash backward (``csrc/flash_attention_bwd.cu``,
+   reached through ``ops.flash_attention``'s autograd route, whose
+   forward also writes each row's log-sum-exp) against autograd of the
+   plain version over ``FLASH_BWD_SWEEP`` (granite-3-2b's 4 x 1,024 x 32
+   / 8 x 64, yi-9b's hd 128, S 1000, S 1, G 1, hd 16): bf16 at 2e-2, fp32
+   against an fp64 oracle within ``FLASH_BWD_FP32`` of the plain fp32
+   autograd's own error, every gradient bit for bit the same on a
+   second run; and ``rmsnorm`` raising on an input that requires grad
+   (no kernel but flash has a backward on the card); (b) full-width,
+   full-depth granite-3-2b in fp32 (at ``unit_scale``, as phase 3), one
+   ``loss_fn`` + backward at 4 x 1,024 tokens with block remat through
+   the kernels (80 flash launches, 40 of the backward) against the plain
+   versions on the same weights and batch: the loss and every leaf's
+   gradient within ``TRAIN_LOSS_TOL`` / ``TRAIN_GRAD_TOL``; (c)
+   ``launch/train.py``'s trainer (``make_trainer``; fp32, the reference's
+   draw) for 6 AdamW steps on one repeated batch at full width and
+   depth: loss and grad norm finite at every step, the last loss below
+   the first, only flash and its backward launched, the step time,
+   tokens/s and peak memory printed, and one more step under
+   ``torch.profiler`` for the flash forward's and backward's share of
+   its device time; (d) the trainer at full width cut to 2 layers,
+   crashed at step 4 after its checkpoint there (2.48 GiB of state in
+   the JAX package's format): a new trainer restores it bit for bit and
+   its losses at steps 4 and 5 match an uninterrupted run's within
+   ``TRAIN_RESUME_TOL``; then the backward kernel timed at granite's
+   shape in fp32 (the path's dtype) and bf16, beside autograd of the
+   plain version and SDPA's backward, with its bound (five products,
+   2.5x the forward's causal operations).
 
 Each phase sets its engine's mode itself; ``REPRO_SPEC_DECODE``,
 ``REPRO_PAGED_KV`` and ``REPRO_PREFIX_CACHE`` are dropped if set.  The
 last lines are the ``{"kernels": [...]}`` summary (launches on each
-kernel's own path, and by path, phases 9e's and 9f's included; the six
+kernel's own path, and by path, phases 9e's, 9f's and 11's included;
+``flash_attention_bwd`` on the training path, timed in fp32 with its bf16
+time under ``bf16``; the six
 kernels of phase 9b's and 9c's paths also timed at yi-9b's,
 grok-1-314b's and arctic-480b's shapes, ``yi_9b``, ``grok_1_314b``,
 ``arctic_480b``; the decode GEMM's int8 variant at granite's M 4 and 36
@@ -298,6 +329,8 @@ import json
 import math
 import os
 import re
+import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -4678,6 +4711,391 @@ def time_kernels(ops, L, dev, shapes, paths, cores, calls) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: training
+# ---------------------------------------------------------------------------
+
+#: the flash backward's sweep (``tests/test_torch_cuda.py``'s
+#: ``FLASH_BWD_SHAPES``): granite-3-2b's training shape first, yi-9b's hd
+#: 128 (G 8), a ragged S, S 1, G 1 and hd 16
+FLASH_BWD_SWEEP = [(4, 1024, 32, 8, 64), (2, 256, 32, 4, 128),
+                   (1, 1000, 8, 2, 64), (2, 1, 8, 2, 64), (2, 130, 4, 4, 32),
+                   (2, 100, 4, 2, 16)]
+#: fp32 gradients against an fp64 oracle: the kernel's largest error
+#: within this multiple of the plain fp32 autograd's, plus the floor (at S
+#: 1 dQ is 0, which the plain version hits exactly)
+FLASH_BWD_FP32 = (4.0, 1e-5)
+#: phase 11's runs: granite-3-2b in fp32 at 4 x 1,024 tokens; the
+#: trainer's steps on a repeated batch; the crash step and the depth of
+#: the resume check (a small checkpoint)
+TRAIN = dict(arch="granite-3-2b", B=4, S=1024, steps=6, crash_at=4,
+             resume_layers=2)
+#: 11b: each leaf's gradient through the kernels within this of the plain
+#: path's, relative to the leaf's largest |gradient|; the loss relative
+TRAIN_GRAD_TOL = 1e-4   # 1.0e-5 measured (H100, 700 W)
+TRAIN_LOSS_TOL = 1e-5   # 0 measured
+#: 11d: the resumed run's losses within this (relative) of an
+#: uninterrupted run's
+TRAIN_RESUME_TOL = 1e-4   # 0 measured: the same bits
+#: device kernels of the flash forward (both bodies) and of its backward,
+#: by name in ``torch.profiler``
+FLASH_FWD_KERNELS = ("prefill_attention_kernel", "prefill_mma_kernel")
+FLASH_BWD_KERNELS = ("delta_kernel", "dkv_kernel", "dq_kernel")
+
+
+def attention64(q, k, v):
+    """Causal GQA attention in fp64: the oracle of the fp32 gradients."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / hd ** 0.5
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", p, v).reshape(B, S, H, hd)
+
+
+def flash_grads(ops, q, k, v, dout) -> tuple:
+    """``(dq, dk, dv)`` through ``ops.flash_attention``'s autograd route:
+    the forward with its log-sum-exp, then the backward kernel."""
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*qkv)
+    if out.grad_fn is None:
+        raise AssertionError("flash_attention under grad gave no graph")
+    return torch.autograd.grad(out, qkv, dout)
+
+
+def check_flash_backward(ops, L, dev, c: Checks) -> dict:
+    """11a: the flash backward against autograd of the plain version over
+    ``FLASH_BWD_SWEEP`` in bf16 (2e-2) and fp32 (``FLASH_BWD_FP32``
+    against an fp64 oracle), two runs bit for bit the same, and a
+    grad-requiring input into a kernel without a backward raising."""
+    g = torch.Generator(dev).manual_seed(11)
+    fp32 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in FLASH_BWD_SWEEP:
+            B, S, H, KV, hd = shape
+            q, k, v = flash_inputs(g, dtype, *shape)
+            dout = _randn(g, dtype, B, S, H, hd)
+            got = flash_grads(ops, q, k, v, dout)
+            again = flash_grads(ops, q, k, v, dout)
+            want = L.flash_attention_bwd(q, k, v, dout)
+            main = shape == FLASH_BWD_SWEEP[0]
+            for name, a, b, a2 in zip(("dq", "dk", "dv"), got, want, again):
+                c.compare("flash_attention_bwd", f"{name} {shape} run 2 "
+                          "== run 1", a2, a, dtype, exact=True)
+                if dtype == torch.bfloat16:
+                    c.compare("flash_attention_bwd", f"{name} B,S,H,KV,hd="
+                              f"{shape}", a, b, dtype, main)
+            if dtype == torch.bfloat16:
+                continue
+            t64 = [t.double().requires_grad_() for t in (q, k, v)]
+            oracle = torch.autograd.grad(attention64(*t64), t64,
+                                         dout.double())
+            times, floor = FLASH_BWD_FP32
+            for name, a, b, o in zip(("dq", "dk", "dv"), got, want, oracle):
+                err = float((a.double() - o).abs().max())
+                plain = float((b.double() - o).abs().max())
+                ok = err <= times * plain + floor
+                log(f"  {'flash_attention_bwd':26s} float32  {name} "
+                    f"B,S,H,KV,hd={shape}: from fp64 kernel {err:.3e}, "
+                    f"plain fp32 {plain:.3e} (bound {times:g}x plain + "
+                    f"{floor:g}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    c.failed.append(f"flash_attention_bwd fp32 {name} {shape}")
+                if main:
+                    fp32[name] = dict(kernel=err, plain=plain)
+            del t64, oracle
+    # a grad-requiring input into a kernel without a backward raises
+    x = _randn(g, torch.bfloat16, 4, 2048).requires_grad_()
+    try:
+        ops.rmsnorm(x, _randn(g, torch.bfloat16, 2048))
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    ok = "queue A item 14" in raised
+    log(f"  rmsnorm on an input that requires grad: "
+        f"{'raised' if ok else 'DID NOT RAISE'} ({raised[:80]})")
+    if not ok:
+        c.failed.append("rmsnorm under grad did not raise")
+    torch.cuda.synchronize()
+    if c.failed:
+        raise AssertionError(f"kernel checks failed: {c.failed}")
+    return dict(fp32_from_fp64=fp32)
+
+
+def _leaf_errors(got, want) -> dict:
+    """Each leaf's largest |got - want| over its largest |want|."""
+    from repro_torch.models.params import tree_items
+    ref = dict(tree_items(want))
+    return {p: float((a - ref[p]).abs().max())
+            / max(float(ref[p].abs().max()), 1e-30)
+            for p, a in tree_items(got)}
+
+
+def check_training_gradients(rt, ops, dev, seed: int) -> dict:
+    """11b: one ``loss_fn`` + backward of full-width, full-depth
+    granite-3-2b in fp32 (block remat) at ``TRAIN``'s 4 x 1,024 tokens,
+    through the kernels and through the plain versions (``plain_kernels``)
+    on the same weights (at ``unit_scale``, as phase 3) and batch: the
+    loss and every leaf's gradient within ``TRAIN_*_TOL``."""
+    cfg = rt.get_config(TRAIN["arch"])
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = rt.init_params(rt.model_specs(cfg), gen, torch.float32, dev)
+    unit_scale(params, cfg.n_layers)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN["B"], TRAIN["S"]),
+                           generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    before = ops.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss_k, _, grads_k = rt.value_and_grad(cfg, params, batch)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: n - before[k] for k, n in ops.launch_counts().items()
+                if n - before[k]}
+    with plain_kernels(ops):
+        t = time.perf_counter()
+        loss_p, _, grads_p = rt.value_and_grad(cfg, params, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    errs = _leaf_errors(grads_k, grads_p)
+    worst = max(errs, key=errs.get)
+    log(f"  full-width {cfg.name} x {cfg.n_layers} fp32, loss + backward at "
+        f"{TRAIN['B']} x {TRAIN['S']} tokens (block remat): kernels "
+        f"{kernel_s:.3f} s, plain {plain_s:.3f} s, peak "
+        f"{peak / 2 ** 30:.2f} GiB, launches {launches}")
+    log(f"  loss kernels {float(loss_k):.6f} plain {float(loss_p):.6f} "
+        f"(rel {loss_err:.2e}, bound {TRAIN_LOSS_TOL:g}); worst leaf "
+        f"{worst} {errs[worst]:.2e} (bound {TRAIN_GRAD_TOL:g}); by leaf "
+        + ", ".join(f"{p} {e:.1e}" for p, e in errs.items()))
+    expect = {"flash_attention": 2 * cfg.n_layers,
+              "flash_attention_bwd": cfg.n_layers}
+    if launches != expect:
+        raise AssertionError(f"training launches {launches} != {expect}")
+    if loss_err > TRAIN_LOSS_TOL or errs[worst] > TRAIN_GRAD_TOL:
+        raise AssertionError("full-width gradients through the kernels "
+                             "differ from the plain path's")
+    return dict(loss=float(loss_k), plain_loss=float(loss_p),
+                loss_rel_err=loss_err, grad_rel_err=errs, kernel_s=kernel_s,
+                plain_s=plain_s, peak_gib=peak / 2 ** 30, launches=launches)
+
+
+def _device_ms_by(prof, names) -> float:
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and any(n in e.key for n in names)) / 1e3
+
+
+def run_trainer_steps(rt, ops, dev, seed: int, out: Path) -> dict:
+    """11c: ``launch/train.py``'s trainer (``make_trainer``, full-width
+    granite-3-2b in fp32, full depth) for ``TRAIN["steps"]`` steps on one
+    repeated batch: the loss and the grad norm finite at every step, the
+    last loss below the first, flash and its backward on every layer of
+    every step and no other kernel; then one more step under
+    ``torch.profiler`` for the flash forward's and backward's share of a
+    step's device time."""
+    from torch.profiler import ProfilerActivity, profile
+    steps = TRAIN["steps"]
+    trainer = rt.train_launcher.make_trainer(
+        TRAIN["arch"], steps=steps, batch=TRAIN["B"], seq=TRAIN["S"],
+        ckpt_dir=str(out / "train_ckpt"), device=dev, seed=seed)
+    trainer.tcfg.checkpoint_every = steps + 1   # 11d holds the checkpoint
+    fixed = trainer.batch_fn(0)
+    trainer.batch_fn = lambda step: fixed       # a repeated batch
+    n_layers = trainer.cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state = trainer.run(torch.Generator(dev).manual_seed(seed))
+    counts = ops.launch_counts()           # read right after the steps
+    shapes = {k.name: k.shapes.most_common() for k in ops.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    log_ = trainer.metrics_log
+    losses = [m["loss"] for m in log_]
+    norms = [m["grad_norm"] for m in log_]
+    times = [m["step_time_s"] for m in log_]
+    step_s = statistics.median(times[1:])
+    tokens = TRAIN["B"] * TRAIN["S"]
+    log(f"  {steps} steps of {trainer.cfg.name} x {n_layers} fp32 at "
+        f"{TRAIN['B']} x {TRAIN['S']} tokens, one repeated batch: losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 3) for x in norms]}, step s {[round(x, 3) for x in times]}"
+        f" (median after the first {step_s:.3f} s, {tokens / step_s:.0f} "
+        f"tokens/s), peak {peak / 2 ** 30:.2f} GiB, launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError("a training step gave a non-finite loss or norm")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    expect = {"flash_attention": 2 * n_layers * steps,
+              "flash_attention_bwd": n_layers * steps}
+    if {k: n for k, n in counts.items() if n} != expect:
+        raise AssertionError(f"training launches {counts} != {expect}")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in fixed.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, _ = trainer._step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    from torch.autograd import DeviceType
+    dev_ms = sorted(((e.self_device_time_total / 1e3, e.key)
+                     for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = max(sum(ms for ms, _ in dev_ms), 1e-9)
+    fwd = _device_ms_by(prof, FLASH_FWD_KERNELS)
+    bwd = _device_ms_by(prof, FLASH_BWD_KERNELS)
+    log("  the step's device time by kernel: " + "; ".join(
+        f"{ms:.1f} ms {k[:70]}" for ms, k in dev_ms[:8]))
+    log(f"  one step under torch.profiler: wall {wall * 1e3:.1f} ms, device "
+        f"{busy:.1f} ms; flash forward (and its remat recompute) "
+        f"{fwd:.1f} ms ({100 * fwd / busy:.1f}%), flash backward {bwd:.1f} "
+        f"ms ({100 * bwd / busy:.1f}%)")
+    trainer.state = state = None
+    return dict(losses=losses, grad_norms=norms, step_s=times,
+                median_step_s=step_s, tokens_per_s=tokens / step_s,
+                peak_gib=peak / 2 ** 30, profiled_step=dict(
+                    wall_ms=wall * 1e3, device_ms=busy, flash_fwd_ms=fwd,
+                    flash_bwd_ms=bwd, flash_fwd_share=fwd / busy,
+                    flash_bwd_share=bwd / busy,
+                    top=[(k, ms) for ms, k in dev_ms[:12]]),
+                path=dict(launches=counts, shapes=shapes))
+
+
+def run_crash_resume(rt, dev, seed: int, out: Path) -> dict:
+    """11d: the trainer at full width cut to ``TRAIN["resume_layers"]``
+    layers (a small checkpoint), crashed at step ``crash_at`` after its
+    checkpoint there; a new trainer restores that state bit for bit and
+    its continued losses match an uninterrupted run's."""
+    from repro_torch.models.params import tree_items
+    ck = out / "train_resume"
+    shutil.rmtree(ck, ignore_errors=True)
+    steps, crash = TRAIN["steps"], TRAIN["crash_at"]
+
+    def trainer(ckpt_dir, every, fail=None):
+        t = rt.train_launcher.make_trainer(
+            TRAIN["arch"], steps=steps, batch=TRAIN["B"], seq=TRAIN["S"],
+            ckpt_dir=str(ckpt_dir), device=dev, seed=seed,
+            layers=TRAIN["resume_layers"])
+        t.tcfg.checkpoint_every, t.tcfg.fail_at_step = every, fail
+        return t
+
+    gen = lambda: torch.Generator(dev).manual_seed(seed)  # noqa: E731
+    first = trainer(ck, crash, fail=crash)
+    try:
+        first.run(gen())
+        raise AssertionError("the injected failure did not fire")
+    except rt.SimulatedNodeFailure:
+        pass
+    if rt.latest_step(str(ck)) != crash:
+        raise AssertionError(f"latest step {rt.latest_step(str(ck))}")
+    saved = first.state                 # what the step-4 checkpoint holds
+    second = trainer(ck, crash)
+    restored = second.init_or_restore(gen())
+
+    def leaves(s):
+        return ([(f"0/{p}", w) for p, w in tree_items(s.params)]
+                + [("1/count", s.opt["count"]), ("2", s.step)]
+                + [(f"1/{k}/{p}", w) for k in ("m", "v")
+                   for p, w in tree_items(s.opt[k])])
+
+    differ = [key for (key, a), (_, b) in zip(leaves(restored), leaves(saved))
+              if a.dtype != b.dtype or not torch.equal(a, b)]
+    nbytes = sum(w.numel() * w.element_size() for _, w in leaves(saved))
+    del restored, saved
+    first.state = None
+    second.run(gen())
+    whole = trainer(out / "train_whole", steps + 1)
+    whole.run(gen())
+    resumed = [m["loss"] for m in second.metrics_log]
+    ref = [m["loss"] for m in whole.metrics_log[crash:]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(resumed, ref)]
+    log(f"  crash at step {crash}, resume ({TRAIN['resume_layers']} layers, "
+        f"a {nbytes / 2 ** 30:.2f} GiB state): restored == saved bit for bit "
+        f"on {'every leaf' if not differ else 'NOT ' + str(differ)}; losses "
+        f"after the resume {resumed} against the uninterrupted run's {ref} "
+        f"(rel {[f'{x:.1e}' for x in rel]}, bound {TRAIN_RESUME_TOL:g})")
+    shutil.rmtree(ck, ignore_errors=True)
+    if differ or len(rel) != steps - crash or max(rel) > TRAIN_RESUME_TOL:
+        raise AssertionError("the resumed run is not the uninterrupted one")
+    whole.state = second.state = None
+    return dict(state_gib=nbytes / 2 ** 30, resumed_losses=resumed,
+                uninterrupted_losses=ref, rel_err=rel)
+
+
+def time_flash_bwd(ops, L, g, dtype, B, S, H, KV, hd) -> dict:
+    """The backward kernel at one shape beside autograd of the plain
+    version and SDPA's backward (``is_causal``, ``enable_gqa``; the port
+    never calls it); its bound counts the five products of the gradient,
+    2.5x the forward's causal operations."""
+    def inputs():
+        q, k, v = flash_inputs(g, dtype, B, S, H, KV, hd)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=g.device)
+        return (q, k, v, ops.flash_attention.run(q, k, v, lse),
+                _randn(g, dtype, B, S, H, hd), lse)
+    x0 = inputs()
+    sets = [x0] + [inputs() for _ in range(n_sets(_nbytes(*x0)) - 1)]
+    qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in x0[:3])
+    F = torch.nn.functional
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             enable_gqa=True)
+    lib_dout = x0[4].transpose(1, 2)
+    pairs = S * (S + 1) // 2
+    b_ms, b_by = bound(_nbytes(*x0) + _nbytes(*x0[:3]),
+                       5 * 2 * hd * pairs * B * H, dtype)
+    got = ops.flash_attention_bwd(*x0)
+    want = L.flash_attention_bwd(x0[0], x0[1], x0[2], x0[4])
+    return dict(
+        shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype=str(dtype)[6:]),
+        ms=time_ms(ops.flash_attention_bwd, sets, 10),
+        plain_ms=time_ms(lambda q, k, v, o, d, lse:
+                         L.flash_attention_bwd(q, k, v, d), sets[:1], 2),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, (qs, ks, vs), lib_dout, retain_graph=True), [()], 10),
+        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(got, want)))
+
+
+def run_training_phase(rt, ops, L, dev, seed: int, out: Path,
+                       checks: Checks) -> dict:
+    """Phase 11: the flash backward sweep (11a), full-width gradients
+    through the kernels against the plain path (11b), the trainer's
+    steps (11c), crash and resume (11d), and the backward kernel timed
+    at granite-3-2b's shape in fp32 (the path's dtype) and bf16."""
+    t0 = time.perf_counter()
+    sweep = check_flash_backward(ops, L, dev, checks)
+    log(f"  (11a {time.perf_counter() - t0:.1f} s)")
+    grads = check_training_gradients(rt, ops, dev, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (11b {time.perf_counter() - t0:.1f} s)")
+    steps = run_trainer_steps(rt, ops, dev, seed, out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (11c {time.perf_counter() - t0:.1f} s)")
+    resume = run_crash_resume(rt, dev, seed, out)
+    log(f"  (11d {time.perf_counter() - t0:.1f} s)")
+    g = torch.Generator(dev).manual_seed(12)
+    B, S, H, KV, hd = FLASH_BWD_SWEEP[0]
+    timing = {str(dt)[6:]: time_flash_bwd(ops, L, g, dt, B, S, H, KV, hd)
+              for dt in (torch.float32, torch.bfloat16)}
+    for name, r in timing.items():
+        log(f"  flash_attention_bwd {name} {json.dumps(r['shape'])}: kernel "
+            f"{r['ms']:.4f} ms, plain autograd {r['plain_ms']:.4f} ms, SDPA's"
+            f" backward {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}), kernel/bound "
+            f"{r['ms'] / r['bound_ms']:.1f}x")
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    return dict(sweep=sweep, gradients=grads, steps=steps, resume=resume,
+                timing=timing, path=steps.pop("path"))
+
+
 def port() -> types.SimpleNamespace:
     """The port's entry points this script drives, in one namespace."""
     from repro_torch.configs import get_config, get_smoke_config
@@ -4701,6 +5119,10 @@ def port() -> types.SimpleNamespace:
                                           column_scales, deq)
     from repro_torch.serve import (Cluster, ClusterClient, Engine,
                                    EngineClient, EngineEmbedder, FaultPlan)
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.train.trainer import SimulatedNodeFailure
 
     return types.SimpleNamespace(**{k: v for k, v in locals().items()})
 
@@ -4838,7 +5260,7 @@ def main() -> int:
         "fp32)")
     check_main_shapes(ops, L, dev, every, checks)
     home = {k.name: paths[HOME_PATH.get(k.name, "block_adaptive")]["shapes"][
-        k.name] for k in ops.KERNELS}
+        k.name] for k in ops.KERNELS if k.name != "flash_attention_bwd"}
     timing = time_kernels(ops, L, dev, home, paths, cuda_core_prefill(build),
                           pass_calls(engine.params, engine.cfg))
     profiles = None
@@ -4847,10 +5269,42 @@ def main() -> int:
             "engines and prefilter leg (b) under torch.profiler")
         profiles = profile_joins(rt, engine, ssm_engine, out)
     log(f"  ({time.perf_counter() - _T_PHASE[0]:.1f} s)")
+
+    log("== phase 11: training, full-width granite-3-2b in fp32: the flash "
+        "backward sweep, gradients through the kernels against the plain "
+        "path, the trainer's steps, crash and resume")
+    del engine, ssm_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  every engine freed: {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+        " GiB allocated at the start of phase 11")
+    train = run_training_phase(rt, ops, L, dev, args.seed, out, checks)
+    family_paths["train"] = train["path"]
+    log(f"  ({time.perf_counter() - _T_PHASE[0]:.1f} s)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
+    every_path = {**paths, **family_paths}
     for k in ops.KERNELS:
+        if k.name == "flash_attention_bwd":
+            # the training path's kernel, in its dtype (fp32), with its
+            # bf16 time beside
+            r, r16 = train["timing"]["float32"], train["timing"]["bfloat16"]
+            kernels.append(dict(
+                name=k.name, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{k.source}.cu",
+                replaces=k.replaces,
+                launches=train["path"]["launches"][k.name],
+                launches_by_path={name: pth["launches"].get(k.name, 0)
+                                  for name, pth in every_path.items()},
+                max_abs_err=max(checks.max_err[k.name], r16["max_abs_err"]),
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"],
+                shape=r["shape"], fp32_max_abs_err=r["max_abs_err"],
+                bf16={x: r16[x] for x in ("shape", "ms", "plain_ms",
+                                          "library_ms", "bound_ms",
+                                          "bound_by")}))
+            continue
         r = timing["main"][k.name]
         # each kernel with the launches of the path it was timed for: the
         # paged attention kernels, RMSNorm and the decode GEMM on block +
@@ -4915,9 +5369,8 @@ def main() -> int:
             name=k.name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{k.source}.cu",
             replaces=k.replaces, launches=path["launches"][k.name],
-            launches_by_path={name: pth["launches"][k.name]
-                              for name, pth in {**paths,
-                                                **family_paths}.items()},
+            launches_by_path={name: pth["launches"].get(k.name, 0)
+                              for name, pth in every_path.items()},
             max_abs_err=max(checks.max_err[k.name], r["max_abs_err"]),
             ms=r["ms"] / per, plain_ms=r["plain_ms"] / per,
             bound_ms=r["bound_ms"] / per, bound_by=r["bound_by"],
@@ -4928,7 +5381,8 @@ def main() -> int:
         prefilter_path=prefilter, spec_path=spec, dense_path=dense,
         ssm_path=ssm, graphs=graphs, dense_family=family, moe_family=moe,
         cluster=cluster, int8_granite=int8, hybrid=hybrid, profiles=profiles,
-        timing=timing, kernels=kernels), indent=1, default=str))
+        timing=timing, training=train, kernels=kernels), indent=1,
+        default=str))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -36,8 +36,8 @@ extern "C" int repro_chunked_prefill_attention(
   if (P <= 0) return (int)cudaErrorInvalidValue;  // use flash_attention
   return repro_attn::launch_prefill(
       q, k_suffix, v_suffix, k_prefix, v_prefix,
-      static_cast<const int*>(prefix_len), out, B, S, P, H, KV, hd, dtype,
-      static_cast<cudaStream_t>(stream));
+      static_cast<const int*>(prefix_len), out, nullptr, B, S, P, H, KV, hd,
+      dtype, static_cast<cudaStream_t>(stream));
 }
 
 // The same attention on the CUDA-core body in bf16 too, at hd 64 (the
@@ -55,6 +55,6 @@ extern "C" int repro_prefill_attention_cuda_cores(
   return repro_attn::launch_prefill_t<__nv_bfloat16, 64, true>(
       q, k_suffix, v_suffix, P > 0 ? k_prefix : nullptr,
       P > 0 ? v_prefix : nullptr,
-      P > 0 ? static_cast<const int*>(prefix_len) : nullptr, out, B, S, P,
-      H, KV, static_cast<cudaStream_t>(stream));
+      P > 0 ? static_cast<const int*>(prefix_len) : nullptr, out, nullptr, B,
+      S, P, H, KV, static_cast<cudaStream_t>(stream));
 }

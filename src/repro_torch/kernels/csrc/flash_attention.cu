@@ -22,13 +22,17 @@
 // start first.  The ragged edge of S is masked on the score fragment.
 // fp32 keeps the CUDA-core body (fp32 FMAs; TF32 would miss the 2e-5
 // fp32 tolerance).
+//
+// lse, null or (B, H, S) fp32, receives each row's log-sum-exp for the
+// backward kernel (flash_attention_bwd.cu); serving passes null.
 #include "prefill_attention.cuh"
 
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int B, int S,
-                                     int H, int KV, int hd, int dtype,
-                                     void* stream) {
+                                     const void* v, void* out, void* lse,
+                                     int B, int S, int H, int KV, int hd,
+                                     int dtype, void* stream) {
   return repro_attn::launch_prefill(q, k, v, nullptr, nullptr, nullptr, out,
-                                    B, S, 0, H, KV, hd, dtype,
+                                    static_cast<float*>(lse), B, S, 0, H, KV,
+                                    hd, dtype,
                                     static_cast<cudaStream_t>(stream));
 }

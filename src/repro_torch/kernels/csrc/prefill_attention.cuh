@@ -23,6 +23,12 @@
 //     in the small-model checks, never at full width.  The same body is
 //     reachable in bf16 (kCudaCores) as the yardstick that chip_smoke.py
 //     times the tensor-core body against.
+//
+// Both bodies take an optional lse (B, H, S) fp32: each stored row's
+// log-sum-exp of its scaled scores, m + log l in natural-log units, for
+// the backward kernel (flash_attention_bwd.cu) to rebuild P from.  The
+// serving calls (flash and chunked prefill) pass null; the only work lse
+// adds is that store, so their outputs keep their bits.
 #pragma once
 
 #include <type_traits>
@@ -51,6 +57,7 @@ prefill_attention_kernel(const T* __restrict__ q,     // (B, S, H, HD)
                          const T* __restrict__ vp,
                          const int* __restrict__ prefix_len,  // (B,)
                          T* __restrict__ out,         // (B, S, H, HD)
+                         float* __restrict__ lse,     // (B, H, S) or null
                          int S, int P, int H, int KV, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                        // [kRows][HD]
@@ -123,9 +130,12 @@ prefill_attention_kernel(const T* __restrict__ q,     // (B, S, H, HD)
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int qpos = q0 + i * kWarps + warp;
-    if (qpos < S)
+    if (qpos < S) {
       store_row<T, HD>(out + (((size_t)b * S + qpos) * H + h) * HD, acc[i],
                        lane);
+      if (lse != nullptr && lane == 0)
+        lse[((size_t)b * H + h) * S + qpos] = acc[i].m + logf(acc[i].l);
+    }
   }
 }
 
@@ -134,11 +144,11 @@ prefill_attention_kernel(const T* __restrict__ q,     // (B, S, H, HD)
 template <typename T, int HD, bool kCudaCores = false>
 int launch_prefill_t(const void* q, const void* ks, const void* vs,
                      const void* kp, const void* vp, const int* prefix_len,
-                     void* out, int B, int S, int P, int H, int KV,
-                     cudaStream_t stream) {
+                     void* out, float* lse, int B, int S, int P, int H,
+                     int KV, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value && !kCudaCores) {
-    return mma::launch_prefill_mma<HD>(q, ks, vs, kp, vp, prefix_len, out, B,
-                                       S, P, H, KV, stream);
+    return mma::launch_prefill_mma<HD>(q, ks, vs, kp, vp, prefix_len, out,
+                                       lse, B, S, P, H, KV, stream);
   } else {
     const size_t smem = prefill_smem_bytes<HD>();
     auto kernel = prefill_attention_kernel<T, HD>;
@@ -149,8 +159,8 @@ int launch_prefill_t(const void* q, const void* ks, const void* vs,
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(ks),
         static_cast<const T*>(vs), static_cast<const T*>(kp),
-        static_cast<const T*>(vp), prefix_len, static_cast<T*>(out), S, P, H,
-        KV, 1.0f / sqrtf((float)HD));
+        static_cast<const T*>(vp), prefix_len, static_cast<T*>(out), lse, S,
+        P, H, KV, 1.0f / sqrtf((float)HD));
     return (int)cudaGetLastError();
   }
 }
@@ -159,22 +169,24 @@ inline bool prefill_shape_ok(int B, int S, int P, int H, int KV) {
   return B > 0 && S > 0 && H > 0 && KV > 0 && H % KV == 0 && P >= 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t code.
+// dtype: 0 = float32, 1 = bfloat16; lse null or (B, H, S) fp32.
+// Returns a cudaError_t code.
 inline int launch_prefill(const void* q, const void* ks, const void* vs,
                           const void* kp, const void* vp,
-                          const int* prefix_len, void* out, int B, int S,
-                          int P, int H, int KV, int hd, int dtype,
-                          cudaStream_t stream) {
+                          const int* prefix_len, void* out, float* lse,
+                          int B, int S, int P, int H, int KV, int hd,
+                          int dtype, cudaStream_t stream) {
   if (!prefill_shape_ok(B, S, P, H, KV) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
 #define REPRO_PREFILL_CASE(HD)                                              \
   case HD:                                                                  \
     return dtype == 1                                                       \
-               ? launch_prefill_t<__nv_bfloat16, HD>(q, ks, vs, kp, vp,     \
-                                                     prefix_len, out, B, S, \
-                                                     P, H, KV, stream)      \
+               ? launch_prefill_t<__nv_bfloat16, HD>(                       \
+                     q, ks, vs, kp, vp, prefix_len, out, lse, B, S, P, H,   \
+                     KV, stream)                                            \
                : launch_prefill_t<float, HD>(q, ks, vs, kp, vp, prefix_len, \
-                                             out, B, S, P, H, KV, stream);
+                                             out, lse, B, S, P, H, KV,      \
+                                             stream);
   switch (hd) {
     REPRO_PREFILL_CASE(16)
     REPRO_PREFILL_CASE(32)

@@ -26,7 +26,9 @@
 // Pallas kernel's p.astype(v.dtype) -- with V read by ldmatrix.trans;
 // O (16 x HD per warp) accumulates in fp32 registers.  The epilogue
 // divides by l in fp32, rounds to bf16, stages the warp's rows in shared
-// memory and writes them out as 16-byte vectors.
+// memory and writes them out as 16-byte vectors.  Where lse is given,
+// lane 0 of each fragment quad also stores its two rows' log-sum-exp,
+// (m + log2 l) ln 2 in natural-log units.
 //
 // Every row sees at least one valid key in every tile it walks (key t0 <
 // prefix_len in a prefix tile, key t0 <= q0 <= row in a suffix tile), so
@@ -131,6 +133,7 @@ prefill_mma_kernel(const bf16* __restrict__ q,     // (B, S, H, HD)
                    const bf16* __restrict__ vp,
                    const int* __restrict__ prefix_len,  // (B,) or null
                    bf16* __restrict__ out,         // (B, S, H, HD)
+                   float* __restrict__ lse,        // (B, H, S) or null
                    int S, int P, int H, int KV, float scale_log2) {
   static_assert(HD % 16 == 0 && HD <= 128, "head dim");
   constexpr int kLd = kLdOf<HD>;
@@ -309,6 +312,10 @@ prefill_mma_kernel(const bf16* __restrict__ q,     // (B, S, H, HD)
     sum += __shfl_xor_sync(kFull, sum, 1);
     sum += __shfl_xor_sync(kFull, sum, 2);
     inv[r] = 1.f / sum;
+    const int row = r_lo + 8 * r;
+    if (lse != nullptr && (lane & 3) == 0 && row < S)
+      lse[((size_t)b * H + h) * S + row] =
+          (m[r] + log2f(sum)) * 0.6931471805599453f;
   }
   bf16* Os = smem + warp * kWarpRows * kLd;
 #pragma unroll
@@ -339,8 +346,8 @@ prefill_mma_kernel(const bf16* __restrict__ q,     // (B, S, H, HD)
 template <int HD>
 int launch_prefill_mma(const void* q, const void* ks, const void* vs,
                        const void* kp, const void* vp, const int* prefix_len,
-                       void* out, int B, int S, int P, int H, int KV,
-                       cudaStream_t stream) {
+                       void* out, float* lse, int B, int S, int P, int H,
+                       int KV, cudaStream_t stream) {
   if (!aligned16(q) || !aligned16(ks) || !aligned16(vs) || !aligned16(out) ||
       (kp != nullptr && !aligned16(kp)) || (vp != nullptr && !aligned16(vp)))
     return (int)cudaErrorMisalignedAddress;
@@ -355,8 +362,8 @@ int launch_prefill_mma(const void* q, const void* ks, const void* vs,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(ks),
       static_cast<const bf16*>(vs), static_cast<const bf16*>(kp),
-      static_cast<const bf16*>(vp), prefix_len, static_cast<bf16*>(out), S, P,
-      H, KV, 1.4426950408889634f / sqrtf((float)HD));
+      static_cast<const bf16*>(vp), prefix_len, static_cast<bf16*>(out), lse,
+      S, P, H, KV, 1.4426950408889634f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 

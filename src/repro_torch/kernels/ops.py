@@ -1,4 +1,4 @@
-"""Wrappers of the port's nine hand-written CUDA kernels.
+"""Wrappers of the port's ten hand-written CUDA kernels.
 
 Three attention kernels carry the serving path (block and adaptive
 joins): ``flash_attention``, ``chunked_prefill_attention`` and
@@ -21,6 +21,16 @@ GEMM's int8 variant, the dense product's bits on the dequantized
 weight.  (The JAX
 package's model calls its RMSNorm kernel nowhere; the port needs the
 row-blocked norm for this.)
+
+Training (``repro_torch.train``) differentiates through
+``flash_attention``: where grad is enabled and an input requires it, the
+call goes through :class:`_FlashFunction`, whose forward also writes each
+row's log-sum-exp and whose backward launches ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``).  Every other kernel has no backward on
+the card: reached with an input that requires grad while grad is enabled,
+its wrapper raises (:func:`refuse_grad`) instead of returning a result cut
+off from the autograd graph.  On the CPU the plain versions differentiate
+natively.
 
 Each wrapper takes the layouts of the JAX package's kernels (q
 ``(B, S, H, hd)``, K/V unrepeated with ``KV`` heads, pools ``(n_pages,
@@ -160,7 +170,9 @@ class CudaKernel:
         :attr:`shapes` (the integer arguments unless given), or once under
         each of ``keys`` where one launch does several things.  A decode
         pass makes ~300 launches, so this stays lean: the raw handle of
-        the current stream, ``get_device`` (no ``torch.device`` built)."""
+        the current stream, ``get_device`` (no ``torch.device`` built).
+        Raises where an input requires grad (:func:`refuse_grad`)."""
+        refuse_grad(self.name, ptrs)
         fn = self._fn or self._bind()
         rc = fn(*[t if t is None else t.data_ptr() for t in ptrs], *ints,
                 *floats, _raw_stream(ptrs[0].get_device()))
@@ -203,6 +215,20 @@ class _SplitDecode(CudaKernel):
         n_chunks = -(-cap // self.chunk())
         return torch.empty(B * KV * n_chunks * rows * (hd + 2),
                            dtype=torch.float32, device=device)
+
+
+def refuse_grad(name: str, tensors: Sequence[Optional[torch.Tensor]]) -> None:
+    """Raise where grad is enabled and one of ``tensors`` requires it: a
+    kernel launched there would return a result cut off from the
+    autograd graph, and training would silently give the inputs no
+    gradient.  Only ``flash_attention`` has a backward on the card."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: an input requires grad, and this kernel has no "
+            "backward on the card (ROADMAP.md queue A item 14); run the "
+            "pass under torch.no_grad(), or on the CPU, where the plain "
+            "version differentiates")
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -258,22 +284,99 @@ def _int32(t: torch.Tensor, device) -> torch.Tensor:
     return t.to(device=device, dtype=torch.int32).contiguous()
 
 
+def _flash_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> tuple:
+    """``(B, S, H, KV, hd)`` of a flash call; raises where q ``(B,S,H,hd)``
+    and k/v ``(B,S,KV,hd)`` do not fit."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if k.shape != (B, S, KV, hd) or v.shape != k.shape or H % KV:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)}/{tuple(v.shape)} do not fit")
+    return B, S, H, KV, hd
+
+
 class _FlashAttention(CudaKernel):
     def __call__(self, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor) -> torch.Tensor:
-        """Causal GQA attention: q ``(B,S,H,hd)``, k/v ``(B,S,KV,hd)``."""
+        """Causal GQA attention: q ``(B,S,H,hd)``, k/v ``(B,S,KV,hd)``.
+        Where grad is enabled and an input requires it, through
+        :class:`_FlashFunction` (the backward kernel on the card)."""
         if _on_cpu(q, k, v):
             return self.plain(q, k, v)
-        B, S, H, hd = q.shape
-        KV = k.shape[2]
-        if k.shape != (B, S, KV, hd) or v.shape != k.shape or H % KV:
-            raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
-                             f"{tuple(k.shape)}/{tuple(v.shape)} do not fit")
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _FlashFunction.apply(self, q, k, v)
+        return self.run(q, k, v)
+
+    def run(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One launch on CUDA tensors; with ``lse`` (``(B, H, S)`` fp32)
+        also each row's log-sum-exp of its scaled scores."""
+        B, S, H, KV, hd = _flash_shapes(self.name, q, k, v)
         dt = _check(self.name, (q, k, v), hd)
+        if lse is not None and (lse.shape != (B, H, S)
+                                or lse.dtype != torch.float32
+                                or not lse.is_contiguous()):
+            raise ValueError("flash_attention: lse must be a contiguous "
+                             f"({B}, {H}, {S}) float32 tensor")
         out = torch.empty_like(q)
         if out.numel():
-            self._launch((q, k, v, out), (B, S, H, KV, hd, dt))
+            self._launch((q, k, v, out, lse), (B, S, H, KV, hd, dt))
         return out
+
+
+class _FlashFunction(torch.autograd.Function):
+    """Flash attention with its backward on the card: the forward keeps
+    q, k, v, the output and each row's log-sum-exp; the backward launches
+    :data:`flash_attention_bwd` (looked up at each call)."""
+
+    @staticmethod
+    def forward(ctx, kernel, q, k, v):
+        B, S, H, _ = q.shape
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        out = kernel.run(q, k, v, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (None, *flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                           lse))
+
+
+class _FlashAttentionBwd(CudaKernel):
+    """The gradient of causal GQA flash attention: a pre-pass for
+    ``rowsum(dO * O)``, a dK/dV kernel and a dQ kernel queued by one C
+    call (one launch counted)."""
+
+    def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 out: torch.Tensor, dout: torch.Tensor,
+                 lse: torch.Tensor) -> tuple:
+        """``(dq, dk, dv)`` of ``out = flash_attention(q, k, v)`` for the
+        output's gradient ``dout``; ``lse`` ``(B, H, S)`` fp32 is the
+        forward's.  On the CPU the plain version (autograd of the plain
+        forward) ignores ``out`` and ``lse``."""
+        if _on_cpu(q, k, v, out, dout, lse):
+            return self.plain(q, k, v, dout)
+        B, S, H, KV, hd = _flash_shapes(self.name, q, k, v)
+        dt = _check(self.name, (q, k, v, out, dout), hd)
+        if out.shape != q.shape or dout.shape != q.shape:
+            raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} "
+                             f"and dout {tuple(dout.shape)} must be q's "
+                             f"{tuple(q.shape)}")
+        if (lse.shape != (B, H, S) or lse.dtype != torch.float32
+                or not lse.is_contiguous()):
+            raise ValueError("flash_attention_bwd: lse must be a contiguous "
+                             f"({B}, {H}, {S}) float32 tensor")
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        if q.numel():
+            delta = torch.empty((B, H, S), dtype=torch.float32,
+                                device=q.device)
+            self._launch((q, k, v, out, dout, lse, dq, dk, dv, delta),
+                         (B, S, H, KV, hd, dt))
+        return dq, dk, dv
 
 
 class _ChunkedPrefillAttention(CudaKernel):
@@ -599,6 +702,7 @@ class _RmsNorm(CudaKernel):
         if d < 0 or weight.get_device() != d:
             if _on_cpu(x, weight):
                 return self.plain(x, weight, eps)
+        refuse_grad(self.name, (x, weight))
         plan = (self._plans.get((x.shape, weight.shape, x.dtype, weight.dtype))
                 or self._plan(x, weight))
         if not (x.is_contiguous() and weight.is_contiguous()):
@@ -767,7 +871,7 @@ class _DecodeGemm(CudaKernel):
 
 flash_attention = _FlashAttention(
     "flash_attention", "flash_attention", "repro_flash_attention",
-    n_ptrs=4, n_ints=6, plain=L.flash_attention,
+    n_ptrs=5, n_ints=6, plain=L.flash_attention,
     replaces="src/repro/kernels/flash_attention.py:81")
 chunked_prefill_attention = _ChunkedPrefillAttention(
     "chunked_prefill_attention", "chunked_prefill",
@@ -804,14 +908,22 @@ decode_gemm = _DecodeGemm(
     replaces="none (the JAX package leaves these products to XLA): the "
              "repair of ROADMAP.md C1, greedy parity of speculative "
              "decoding on the card")
+flash_attention_bwd = _FlashAttentionBwd(
+    "flash_attention_bwd", "flash_attention_bwd",
+    "repro_flash_attention_bwd", n_ptrs=10, n_ints=6,
+    plain=L.flash_attention_bwd,
+    replaces="none (the JAX package trains through XLA's attention and "
+             "gives src/repro/kernels/flash_attention.py:81 no custom_vjp): "
+             "the gradient of the ported flash kernel's function")
 
 #: every kernel of the port: the three attention kernels of the paged
 #: engine in the order the model reaches them, the prefilter's top-k, the
 #: speculative verify and the dense engine's decode, the mamba2 scan,
-#: RMSNorm, and the decode and verify passes' GEMM
+#: RMSNorm, the decode and verify passes' GEMM, and training's flash
+#: backward
 KERNELS = (flash_attention, chunked_prefill_attention, paged_decode_attention,
            topk_similarity, spec_verify_attention, decode_attention,
-           ssd_scan, rmsnorm, decode_gemm)
+           ssd_scan, rmsnorm, decode_gemm, flash_attention_bwd)
 
 
 def decode_linear(x: torch.Tensor, w) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Shared layers in plain PyTorch, and the plain versions of the nine
-kernels (five attention kernels, the prefilter's top-k, the mamba2 SSD
-scan, RMSNorm and the decode GEMM).
+"""Shared layers in plain PyTorch, and the plain versions of the ten
+kernels (five attention kernels and the flash backward, the prefilter's
+top-k, the mamba2 SSD scan, RMSNorm and the decode GEMM).
 
 Conventions follow ``repro.models.layers``:
 
@@ -17,7 +17,9 @@ only; ``chip_smoke.py`` holds each kernel against them on the card.  They
 mirror ``repro.models.layers`` (``blockwise_causal_attention``,
 ``chunked_prefill_attention``, ``decode_attention``,
 ``paged_decode_attention``, ``spec_verify_attention(_paged)``,
-``topk_similarity``) and ``repro.kernels.ref``.  :func:`rms_norm` is the
+``topk_similarity``) and ``repro.kernels.ref``;
+:func:`flash_attention_bwd` is the plain version of the flash backward
+kernel (autograd of :func:`flash_attention`).  :func:`rms_norm` is the
 plain version of the RMSNorm kernel, :func:`ssd_chunk_scan` (after
 ``repro.models.mamba2._ssd_chunk_scan``) that of the SSD scan kernel,
 and :func:`matmul` that of the decode GEMM.
@@ -106,6 +108,24 @@ def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
                        bits).view(dtype)
 
 
+#: the score of a masked-out logit (``repro.models.layers._NEG_INF``)
+_NEG_INF = -1e30
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Mean NLL of ``labels (B, S)`` under ``logits (B, S, Vpad)`` fp32,
+    the padded vocab past ``vocab_size`` masked to ``_NEG_INF`` (granite's
+    49,155 -> 49,168), after ``repro.models.layers.cross_entropy``."""
+    vpad = logits.shape[-1]
+    if vpad > vocab_size:
+        mask = torch.arange(vpad, device=logits.device) < vocab_size
+        logits = torch.where(mask, logits, _NEG_INF)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
@@ -138,6 +158,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor) -> tuple:
+    """``(dq, dk, dv)`` of :func:`flash_attention` for the output's
+    gradient ``dout``, by autograd of the plain forward: the plain version
+    of the flash backward kernel."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*qkv)
+        return torch.autograd.grad(out, qkv, dout)
 
 
 def chunked_prefill_attention(

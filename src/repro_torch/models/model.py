@@ -50,12 +50,13 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
-from repro_torch.models.params import Spec, stack_specs, tree_map
+from repro_torch.models.params import Spec, stack_specs, tree_items, tree_map
 
 #: Families whose per-request state is a pure KV cache — the only ones the
 #: engine pages, prefix-caches and speculates for.  An SSM state (the
@@ -250,36 +251,76 @@ def _slot_ffn(cfg: ModelConfig, bp, s: int, x: torch.Tensor,
     return B.moe_apply(cfg, _take(bp["ffn_moe"], s // 2), x, decode)
 
 
+def _remat(cfg: ModelConfig, params, x: torch.Tensor) -> str:
+    """The pass's rematerialization: ``cfg.remat`` (``"block"``: each
+    layer, or hybrid superblock, of :func:`_backbone` is recomputed in the
+    backward; ``"slot"``: each slot of a hybrid superblock) where grad is
+    enabled and the pass is differentiated (``x`` or a weight requires
+    grad), else ``"none"``: serving passes and graph captures run as they
+    did.  As ``repro.models.model``'s ``jax.checkpoint``s."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return "none"
+    if x.requires_grad or any(isinstance(w, torch.Tensor) and w.requires_grad
+                              for _, w in tree_items(params)):
+        return cfg.remat
+    return "none"
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
 def _superblock(cfg: ModelConfig, bp, x: torch.Tensor,
                 positions: torch.Tensor, aux: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None, i: int = 0,
-                seq_valid: Optional[torch.Tensor] = None):
+                seq_valid: Optional[torch.Tensor] = None,
+                remat: str = "none"):
     """Hybrid superblock ``bp`` over full sequences → ``(x, aux)``: slot 0
     attention (flash), slots 1..P-1 mamba (the SSD scan), each followed
     by its FFN (:func:`_slot_ffn`), the MoE slots' aux losses added to
     ``aux``.  With ``cache`` (prefill), superblock ``i``'s K/V land at
     ``cache["k"/"v"][i, :, :S]`` and each mamba slot's final states at
     ``cache["conv"/"ssm"][i, s - 1]``, its mixer masked past
-    ``seq_valid`` (:func:`_mamba_prefill`)."""
+    ``seq_valid`` (:func:`_mamba_prefill`).  ``remat="slot"`` recomputes
+    each slot in the backward (no cache)."""
     for s in range(cfg.attn_period):
+        if cache is None and remat == "slot":
+            x, aux = _checkpointed(_slot, cfg, bp, s, x, positions, aux)
+            continue
+        if cache is None:
+            x, aux = _slot(cfg, bp, s, x, positions, aux)
+            continue
         if s == 0:
             out, (k, v) = B.attn_apply(cfg, bp["attn"], x, positions,
                                        return_kv=True)
             x = x + out
-            if cache is not None:
-                S = x.shape[1]
-                cache["k"][i, :, :S] = L.to_cache(k, cache["k"].dtype)
-                cache["v"][i, :, :S] = L.to_cache(v, cache["v"].dtype)
-        elif cache is None:
-            x = x + M.mamba_apply(cfg, _take(bp["mamba"], s - 1), x)
+            S = x.shape[1]
+            cache["k"][i, :, :S] = L.to_cache(k, cache["k"].dtype)
+            cache["v"][i, :, :S] = L.to_cache(v, cache["v"].dtype)
         else:
             x, cache["conv"][i, s - 1], cache["ssm"][i, s - 1] = \
                 _mamba_prefill(cfg, _take(bp["mamba"], s - 1), x, seq_valid)
-        out, a = _slot_ffn(cfg, bp, s, x)
-        x = x + out
-        if a is not None:
-            aux = aux + a
+        x, aux = _slot_out(cfg, bp, s, x, aux)
     return x, aux
+
+
+def _slot(cfg: ModelConfig, bp, s: int, x: torch.Tensor,
+          positions: torch.Tensor, aux: torch.Tensor):
+    """Slot ``s`` of hybrid superblock ``bp`` with no cache → ``(x,
+    aux)``: its mixer (attention on slot 0, else mamba), then its FFN."""
+    if s == 0:
+        x = x + B.attn_apply(cfg, bp["attn"], x, positions)
+    else:
+        x = x + M.mamba_apply(cfg, _take(bp["mamba"], s - 1), x)
+    return _slot_out(cfg, bp, s, x, aux)
+
+
+def _slot_out(cfg: ModelConfig, bp, s: int, x: torch.Tensor,
+              aux: torch.Tensor):
+    """Slot ``s``'s FFN added to ``x`` and its aux loss to ``aux``."""
+    out, a = _slot_ffn(cfg, bp, s, x)
+    return x + out, aux if a is None else aux + a
 
 
 def _embed_inputs(cfg: ModelConfig, params,
@@ -332,28 +373,38 @@ def _backbone(cfg: ModelConfig, params, x: torch.Tensor,
     families), as the JAX scan carries it.  With ``ks``/``vs`` ``(layers,
     B, >= S, KV, hd)`` each layer's K/V land at ``[i, :, :S]``; without
     them nothing is kept.  The hybrid family runs its superblocks
-    (:func:`_superblock`)."""
-    S = x.shape[1]
+    (:func:`_superblock`).  Where the pass is differentiated,
+    ``cfg.remat`` applies (:func:`_remat`)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = "none" if ks is not None else _remat(cfg, params, x)
     for i in range(n_stacks(cfg)):
         lp = _layer(params, i)
-        if _family(cfg) == "ssm":
-            x = x + M.mamba_apply(cfg, lp["mamba"], x)
-            continue
-        if _family(cfg) == "hybrid":
-            x, aux = _superblock(cfg, lp, x, positions, aux)
-            continue
-        out, (k, v) = B.attn_apply(cfg, lp["attn"], x, positions,
-                                   return_kv=True)
-        x = x + out
-        if ks is not None:
-            ks[i, :, :S] = L.to_cache(k, ks.dtype)
-            vs[i, :, :S] = L.to_cache(v, vs.dtype)
-        out, a = _ffn(cfg, lp, x)
-        x = x + out
-        if a is not None:
-            aux = aux + a
+        if remat == "block":
+            x, aux = _checkpointed(_block, cfg, lp, x, positions, aux)
+        else:
+            x, aux = _block(cfg, lp, x, positions, aux, ks, vs, i, remat)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def _block(cfg: ModelConfig, lp, x: torch.Tensor, positions: torch.Tensor,
+           aux: torch.Tensor, ks: Optional[torch.Tensor] = None,
+           vs: Optional[torch.Tensor] = None, i: int = 0,
+           remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layer (or hybrid superblock) ``lp`` of :func:`_backbone` →
+    ``(x, aux)``; with ``ks``/``vs`` its K/V land at ``[i, :, :S]``."""
+    if _family(cfg) == "ssm":
+        return x + M.mamba_apply(cfg, lp["mamba"], x), aux
+    if _family(cfg) == "hybrid":
+        return _superblock(cfg, lp, x, positions, aux, remat=remat)
+    out, (k, v) = B.attn_apply(cfg, lp["attn"], x, positions, return_kv=True)
+    x = x + out
+    if ks is not None:
+        S = x.shape[1]
+        ks[i, :, :S] = L.to_cache(k, ks.dtype)
+        vs[i, :, :S] = L.to_cache(v, vs.dtype)
+    out, a = _ffn(cfg, lp, x)
+    x = x + out
+    return x, aux if a is None else aux + a
 
 
 # ---------------------------------------------------------------------------

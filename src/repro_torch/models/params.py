@@ -13,7 +13,9 @@ a dict, so leaf ``i`` here is leaf ``i`` there.
 * :func:`from_numpy` — the weight bridge: the JAX ``init_params`` tree
   after ``jax.tree.map(np.asarray, …)`` becomes this package's tree, so
   both packages can run the same weights (a JAX ``QuantizedTensor`` leaf,
-  its ``q`` and ``scale`` as numpy, becomes the port's).
+  its ``q`` and ``scale`` as numpy, becomes the port's; a bfloat16 leaf
+  keeps its bits); :func:`train_state_from_numpy` does the same for a
+  JAX ``TrainState``.
 
 ``init_params(..., quant=True)`` draws the int8 tree of
 ``quantize_params(init_params(...))`` leaf by leaf, never holding a
@@ -75,6 +77,19 @@ def tree_items(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
             yield from tree_items(tree[k], f"{prefix}{k}/")
     else:
         yield prefix[:-1], tree
+
+
+def tree_from_items(items) -> Dict[str, Any]:
+    """The nested dict of ``(path, leaf)`` pairs (:func:`tree_items`'s
+    inverse)."""
+    out: Dict[str, Any] = {}
+    for path, leaf in items:
+        node = out
+        *parents, name = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[name] = leaf
+    return out
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
@@ -177,16 +192,10 @@ def init_params(tree: SpecTree, generator: torch.Generator,
     if torch.device(generator.device).type != device.type:
         raise ValueError(f"generator on {generator.device} cannot fill "
                          f"tensors on {device}")
-    out: Dict[str, Any] = {}
-    for path, spec in tree_items(tree):
-        node = out
-        *parents, leaf = path.split("/")
-        for k in parents:
-            node = node.setdefault(k, {})
-        init = (_init_quantized if quant and quantizable(spec)
-                else _init_one)
-        node[leaf] = init(spec, generator, dtype, device)
-    return out
+    return tree_from_items(
+        (path, (_init_quantized if quant and quantizable(spec)
+                else _init_one)(spec, generator, dtype, device))
+        for path, spec in tree_items(tree))
 
 
 def from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
@@ -197,7 +206,7 @@ def from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
     device = resolve_device(device)
 
     def tensor(a, dtype=None):
-        t = torch.from_numpy(np.array(a, copy=True))
+        t = numpy_tensor(a)
         return t.to(device=device, dtype=dtype or t.dtype)
 
     def conv(a):
@@ -206,6 +215,35 @@ def from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
         return tensor(a, dtype)
 
     return tree_map(conv, tree)
+
+
+def numpy_tensor(a) -> torch.Tensor:
+    """A CPU tensor holding a copy of numpy array ``a``; a bfloat16 array
+    (ml_dtypes', as JAX hands them out) keeps its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def train_state_from_numpy(state: Any, device="cuda", dtype=None):
+    """The weight bridge for training: a JAX ``TrainState`` with numpy
+    leaves (``jax.tree.map(np.asarray, state)``) becomes the port's
+    :class:`repro_torch.train.TrainState`: the parameters and AdamW's m
+    and v on ``device`` (parameters optionally cast to ``dtype``), the
+    step and AdamW's count as host int32 scalars."""
+    from repro_torch.train.train_step import TrainState
+
+    def counter(a):
+        return numpy_tensor(a).to(torch.int32)
+
+    opt = state.opt
+    return TrainState(
+        params=from_numpy(state.params, device, dtype),
+        opt={"m": from_numpy(opt["m"], device),
+             "v": from_numpy(opt["v"], device),
+             "count": counter(opt["count"])},
+        step=counter(state.step))
 
 
 def param_count(tree: SpecTree) -> int:

@@ -1302,3 +1302,111 @@ def test_capture_while_another_thread_launches(cuda):
     counts = ops.launch_counts()
     assert counts["rmsnorm"] == mine["rmsnorm"] + other["rmsnorm"]
     assert counts["decode_gemm"] == mine["decode_gemm"]
+
+
+# ---------------------------------------------------------------------------
+# Training: the flash backward kernel, and the kernels that have none
+# ---------------------------------------------------------------------------
+
+#: granite-3-2b's training shape, yi-9b's hd 128 (G 8), a ragged S, S 1,
+#: G 1 and hd 16
+FLASH_BWD_SHAPES = [(4, 1024, 32, 8, 64), (2, 256, 32, 4, 128),
+                    (1, 1000, 8, 2, 64), (2, 1, 8, 2, 64),
+                    (2, 130, 4, 4, 32), (2, 100, 4, 2, 16)]
+
+
+def _attention64(q, k, v):
+    """Causal GQA attention in fp64 (the oracle of the fp32 gradients)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / hd ** 0.5
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", p, v).reshape(B, S, H, hd)
+
+
+def _flash_grads(q, k, v, dout):
+    """``(out, (dq, dk, dv))`` through ``ops.flash_attention``'s autograd
+    route (the forward with its log-sum-exp, then the backward kernel)."""
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*qkv)
+    assert out.grad_fn is not None
+    return out.detach(), torch.autograd.grad(out, qkv, dout)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd", FLASH_BWD_SHAPES)
+def test_flash_backward_on_card(cuda, dtype, B, S, H, KV, hd):
+    """dQ, dK, dV against autograd of the plain version: bf16 at 2e-2;
+    fp32 against an fp64 oracle, the kernel's largest error within 4x the
+    plain fp32 autograd's plus 1e-5 (the two sum in different orders; at
+    S 1 dQ is 0 and the plain version hits it exactly, the kernel within
+    1.1e-6)."""
+    g = torch.Generator(cuda).manual_seed(S + hd)
+    q = _randn(g, dtype, B, S, H, hd)
+    k, v = _randn(g, dtype, B, S, KV, hd), _randn(g, dtype, B, S, KV, hd)
+    dout = _randn(g, dtype, B, S, H, hd)
+    before = (ops.flash_attention.launches, ops.flash_attention_bwd.launches)
+    out, got = _flash_grads(q, k, v, dout)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches,
+            ops.flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    # writing the log-sum-exp changes no bit of the forward
+    assert torch.equal(out, ops.flash_attention(q, k, v))
+    want = L.flash_attention_bwd(q, k, v, dout)
+    if dtype == torch.bfloat16:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                       atol=2e-2)
+        return
+    t64 = [t.double().requires_grad_() for t in (q, k, v)]
+    oracle = torch.autograd.grad(_attention64(*t64), t64, dout.double())
+    for name, a, b, o in zip("qkv", got, want, oracle):
+        err = float((a.double() - o).abs().max())
+        plain = float((b.double() - o).abs().max())
+        assert err <= 4 * plain + 1e-5, (name, err, plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_gives_the_same_bits_every_run(cuda, dtype):
+    g = torch.Generator(cuda).manual_seed(7)
+    for B, S, H, KV, hd in [(4, 1024, 32, 8, 64), (1, 1000, 8, 2, 64)]:
+        q = _randn(g, dtype, B, S, H, hd)
+        k, v = _randn(g, dtype, B, S, KV, hd), _randn(g, dtype, B, S, KV, hd)
+        dout = _randn(g, dtype, B, S, H, hd)
+        _, first = _flash_grads(q, k, v, dout)
+        _, second = _flash_grads(q, k, v, dout)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+def test_kernels_without_a_backward_raise_under_grad(cuda):
+    """A grad-requiring input, grad enabled: every kernel but flash raises
+    (no result cut off from the graph); without grad they launch."""
+    g = torch.Generator(cuda).manual_seed(5)
+    bf = torch.bfloat16
+    x, w = _randn(g, bf, 4, 2048), _randn(g, bf, 2048)
+    wm = _randn(g, bf, 2048, 512)
+    xs = _ssd_inputs(g, torch.float32, 1, 64, 2, 16, 8)
+    q = _randn(g, bf, 2, 1, 8, 64)
+    kp, vp = _randn(g, bf, 4, 16, 2, 64), _randn(g, bf, 4, 16, 2, 64)
+    table = torch.arange(4, device=cuda, dtype=torch.int32).view(2, 2)
+    lens = torch.tensor([20, 9], device=cuda, dtype=torch.int32)
+    calls = {
+        "rmsnorm": lambda t: ops.rmsnorm(t, w),
+        "decode_gemm": lambda t: ops.decode_linear(t, wm),
+        "ssd_scan": lambda t: ops.ssd_scan(t, *xs[1:], chunk=32),
+        "paged_decode_attention": lambda t: ops.paged_decode_attention(
+            t, kp, vp, table, lens),
+    }
+    inputs = {"rmsnorm": x, "decode_gemm": x, "ssd_scan": xs[0],
+              "paged_decode_attention": q}
+    for name, call in calls.items():
+        t = inputs[name].clone().requires_grad_()
+        with pytest.raises(NotImplementedError, match="queue A item 14"):
+            call(t)
+        with torch.no_grad():
+            call(t)
+        call(t.detach())
+    torch.cuda.synchronize()
