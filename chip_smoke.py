@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
 
-The port has ten CUDA kernels on seven paths (the sixth the cluster of
-phase 9d, the seventh training, phase 11), over the dense family
+The port has eleven CUDA kernels on seven paths (the sixth the cluster
+of phase 9d, the seventh training, phase 11), over the dense family
 (granite-3-2b; yi-9b and starcoder2-7b in phase 9b; mistral-large-123b
 cut to two layers in phase 3), the MoE family (grok-1-314b and
 arctic-480b cut in depth, phase 9c), the embedding-input families
@@ -282,7 +282,15 @@ no result line:
    against an fp64 oracle within ``FLASH_BWD_FP32`` of the plain fp32
    autograd's own error, every gradient bit for bit the same on a
    second run; and ``rmsnorm`` raising on an input that requires grad
-   (no kernel but flash has a backward on the card); (b) full-width,
+   (only flash and the scan have a backward on the card); the
+   scan's backward (``csrc/ssd_scan_bwd.cu``, reached through
+   ``ops.ssd_scan``'s autograd route) against autograd of the plain
+   version over ``SSD_BWD_SWEEP`` (mamba2-130m's 4 x 1,024 x 24 x 64, N
+   128, chunk 256; jamba-1.5-large-398b's 256 heads at S 512; the CPU
+   sweep): bf16 within ``SSD_BWD_BF16`` of the leaf's largest gradient,
+   fp32 against an fp64 oracle within ``SSD_BWD_FP32``, every gradient
+   bit for bit the same on a second run, the forward's bits those of a
+   launch without grad; (b) full-width,
    full-depth granite-3-2b in fp32 (at ``unit_scale``, as phase 3), one
    ``loss_fn`` + backward at 4 x 1,024 tokens with block remat through
    the kernels (80 flash launches, 40 of the backward) against the plain
@@ -298,17 +306,25 @@ no result line:
    crashed at step 4 after its checkpoint there (2.48 GiB of state in
    the JAX package's format): a new trainer restores it bit for bit and
    its losses at steps 4 and 5 match an uninterrupted run's within
-   ``TRAIN_RESUME_TOL``; then the backward kernel timed at granite's
-   shape in fp32 (the path's dtype) and bf16, beside autograd of the
-   plain version and SDPA's backward, with its bound (five products,
-   2.5x the forward's causal operations).
+   ``TRAIN_RESUME_TOL``; (e) full-width, full-depth mamba2-130m in fp32
+   (``TRAIN_SSM``): (b)'s gradients through the kernels against the plain
+   versions (48 scan launches, 24 of its backward), then at
+   ``unit_scale`` each leaf's distance from a run on fp64 weights
+   within ``TRAIN_SSM_FP64`` of the plain path's, and (c)'s 6 trainer
+   steps, only the scan and its backward launched; then the flash
+   backward timed at granite's shape in fp32 (the path's dtype) and
+   bf16, beside autograd of the plain version and SDPA's backward, with
+   its bound (five products, 2.5x the forward's causal operations), and
+   the scan's backward at mamba2-130m's, beside autograd of the plain
+   version, with its bound (``ssd_bwd_flops``, ~2.3x the forward's, at
+   the operands' rate).
 
 Each phase sets its engine's mode itself; ``REPRO_SPEC_DECODE``,
 ``REPRO_PAGED_KV`` and ``REPRO_PREFIX_CACHE`` are dropped if set.  The
 last lines are the ``{"kernels": [...]}`` summary (launches on each
 kernel's own path, and by path, phases 9e's, 9f's and 11's included;
-``flash_attention_bwd`` on the training path, timed in fp32 with its bf16
-time under ``bf16``; the six
+``flash_attention_bwd`` and ``ssd_scan_bwd`` on their training paths,
+timed in fp32 with their bf16 times under ``bf16``; the six
 kernels of phase 9b's and 9c's paths also timed at yi-9b's,
 grok-1-314b's and arctic-480b's shapes, ``yi_9b``, ``grok_1_314b``,
 ``arctic_480b``; the decode GEMM's int8 variant at granite's M 4 and 36
@@ -324,6 +340,7 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -1066,9 +1083,10 @@ DEPTH_CUTS = ("granite-3-2b", "yi-9b", "starcoder2-7b", "mistral-large-123b")
 #: the input dims each stacked block matrix contracts over (after its
 #: ``layers`` axis, and an MoE block's ``experts`` axis): q/k/v and the
 #: MLP's in-projections read d_model, the out projection (heads,
-#: head_dim), the down projection d_ff
+#: head_dim), the down projection d_ff; a mamba block's in-projection
+#: d_model, its out-projection d_inner
 CONTRACTED = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1,
-              "w_down": 1}
+              "w_down": 1, "w_in": 1, "w_out": 1}
 
 
 def unit_scale(params, n_layers: int) -> None:
@@ -3589,7 +3607,6 @@ def hybrid_unit_scale(rt, params, dtype=torch.float32) -> dict:
     axis of length 1): the scales rescaled, the int8 payloads shared,
     every other leaf cast to ``dtype``."""
     lead = {"attn": 1, "mamba": 2, "ffn_dense": 2, "ffn_moe": 3}
-    contracted = dict(CONTRACTED, w_in=1, w_out=1)
     nst = params["blocks"]["attn"]["wq"].shape[0]
     out = {}
     for path, w in rt.tree_items(params):
@@ -3599,7 +3616,7 @@ def hybrid_unit_scale(rt, params, dtype=torch.float32) -> dict:
             node = node.setdefault(k, {})
         if is_int8(w):
             n = lead[parents[1]]
-            fan = math.prod(w.shape[n:n + contracted[name]])
+            fan = math.prod(w.shape[n:n + CONTRACTED[name]])
             node[name] = rt.QuantizedTensor(w.q, w.scale * math.sqrt(nst / fan))
         else:
             node[name] = w.to(dtype)
@@ -4725,11 +4742,36 @@ FLASH_BWD_SWEEP = [(4, 1024, 32, 8, 64), (2, 256, 32, 4, 128),
 #: within this multiple of the plain fp32 autograd's, plus the floor (at S
 #: 1 dQ is 0, which the plain version hits exactly)
 FLASH_BWD_FP32 = (4.0, 1e-5)
+#: device kernels of the flash forward (both bodies) and of its backward,
+#: by name in ``torch.profiler``
+FLASH_FWD_KERNELS = ("prefill_attention_kernel", "prefill_mma_kernel")
+FLASH_BWD_KERNELS = ("delta_kernel", "dkv_kernel", "dq_kernel")
 #: phase 11's runs: granite-3-2b in fp32 at 4 x 1,024 tokens; the
 #: trainer's steps on a repeated batch; the crash step and the depth of
-#: the resume check (a small checkpoint)
+#: the resume check (a small checkpoint); the wrappers a step launches
+#: (the forward twice a layer under block remat, the backward once) and
+#: their device kernels' names
 TRAIN = dict(arch="granite-3-2b", B=4, S=1024, steps=6, crash_at=4,
-             resume_layers=2)
+             resume_layers=2, unit_scale=True,
+             kernels=("flash_attention", "flash_attention_bwd"),
+             device_kernels=(FLASH_FWD_KERNELS, FLASH_BWD_KERNELS))
+#: 11e: mamba2-130m in fp32 at full width and depth, 4 x 1,024 tokens.
+#: Its gradients are held within ``TRAIN_GRAD_TOL`` of the plain path's
+#: at the reference's draw, which does not saturate it.  At
+#: ``unit_scale`` the forward kernel's rounding grows through 24 layers
+#: past that bound, and the plain fp32 gradients lie further still from
+#: a run on fp64 weights: there each leaf is held against that fp64 run
+#: (``fp64`` names ``layers``' plain version of the forward kernel, run
+#: in fp64 in its place) within ``TRAIN_SSM_FP64`` of plain fp32's error
+TRAIN_SSM = dict(arch="mamba2-130m", B=4, S=1024, steps=6, unit_scale=False,
+                 kernels=("ssd_scan", "ssd_scan_bwd"),
+                 device_kernels=(("repro_ssd::",), ("repro_ssd_bwd::",)),
+                 fp64="ssd_chunk_scan")
+#: 11e at ``unit_scale``: each leaf's distance from the fp64 run through
+#: the kernels within this multiple of plain fp32's, plus this floor
+#: relative to the leaf's largest |gradient| (measured, H100, 700 W: at
+#: most 1.18x, worst leaf 2.13e-3 against 2.02e-3)
+TRAIN_SSM_FP64 = (1.5, 1e-5)
 #: 11b: each leaf's gradient through the kernels within this of the plain
 #: path's, relative to the leaf's largest |gradient|; the loss relative
 TRAIN_GRAD_TOL = 1e-4   # 1.0e-5 measured (H100, 700 W)
@@ -4737,10 +4779,20 @@ TRAIN_LOSS_TOL = 1e-5   # 0 measured
 #: 11d: the resumed run's losses within this (relative) of an
 #: uninterrupted run's
 TRAIN_RESUME_TOL = 1e-4   # 0 measured: the same bits
-#: device kernels of the flash forward (both bodies) and of its backward,
-#: by name in ``torch.profiler``
-FLASH_FWD_KERNELS = ("prefill_attention_kernel", "prefill_mma_kernel")
-FLASH_BWD_KERNELS = ("delta_kernel", "dkv_kernel", "dq_kernel")
+#: 11a's SSD backward sweep (B, S, H, P, N, chunk): mamba2-130m's
+#: training shape (``SSD_MAIN``), jamba-1.5-large-398b's mamba width
+#: (H 256, P 64, N 128) at S 512, and ``SSD_SWEEP``
+SSD_BWD_SWEEP = ([tuple(SSD_MAIN[k] for k in ("B", "S", "H", "P", "N",
+                                               "chunk")),
+                  (1, 512, 256, 64, 128, 256)] + SSD_SWEEP)
+#: fp32 gradients against an fp64 oracle: the kernel's largest error
+#: within this multiple of the plain fp32 autograd's, plus this share of
+#: the leaf's largest |gradient|
+SSD_BWD_FP32 = (4.0, 1e-6)
+#: bf16 gradients: within this of the plain version's, relative to the
+#: leaf's largest |gradient|
+SSD_BWD_BF16 = 2e-2
+SSD_GRADS = ("dx", "ddt", "dA", "db", "dc")
 
 
 def attention64(q, k, v):
@@ -4823,6 +4875,87 @@ def check_flash_backward(ops, L, dev, c: Checks) -> dict:
     return dict(fp32_from_fp64=fp32)
 
 
+def ssd_grads(ops, x, dt, A, b, c, dy, chunk: int) -> tuple:
+    """``(y, (dx, ddt, dA, db, dc))`` through ``ops.ssd_scan``'s autograd
+    route: the forward kernel, then the backward kernel."""
+    ins = [t.clone().requires_grad_() for t in (x, dt, A, b, c)]
+    y = ops.ssd_scan(*ins, chunk=chunk)
+    if y.grad_fn is None:
+        raise AssertionError("ssd_scan under grad gave no graph")
+    return y.detach(), torch.autograd.grad(y, ins, dy)
+
+
+def check_ssd_backward(ops, L, dev, c: Checks) -> dict:
+    """11a: the scan's backward against autograd of the plain version over
+    ``SSD_BWD_SWEEP``: bf16 within ``SSD_BWD_BF16``, fp32 against an fp64
+    oracle within ``SSD_BWD_FP32`` of the plain fp32 autograd's own
+    error; one forward and one backward launch a call, the forward's
+    bits those of a launch without grad, and every gradient bit for bit
+    the same on a second run."""
+    g = torch.Generator(dev).manual_seed(13)
+    fp32 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in SSD_BWD_SWEEP:
+            B, S, H, P, N, chunk = shape
+            chunk = L.pick_chunk(S, chunk)
+            x = ssd_inputs(g, dtype, B, S, H, P, N)
+            dy = _randn(g, dtype, B, S, H, P)
+            before = (ops.ssd_scan.launches, ops.ssd_scan_bwd.launches)
+            y, got = ssd_grads(ops, *x, dy, chunk)
+            torch.cuda.synchronize()
+            launched = (ops.ssd_scan.launches - before[0],
+                        ops.ssd_scan_bwd.launches - before[1])
+            _, again = ssd_grads(ops, *x, dy, chunk)
+            c.compare("ssd_scan", f"y under grad {shape} == without", y,
+                      ops.ssd_scan(*x, chunk=chunk), dtype, exact=True)
+            if launched != (1, 1):
+                c.failed.append(f"ssd_scan_bwd {shape}: launches {launched}")
+            want = L.ssd_chunk_scan_bwd(*x, dy, chunk)
+            main = shape == SSD_BWD_SWEEP[0]
+            for name, a, w, a2 in zip(SSD_GRADS, got, want, again):
+                c.compare("ssd_scan_bwd", f"{name} {shape} run 2 == run 1",
+                          a2, a, dtype, exact=True)
+                if dtype == torch.float32:
+                    continue
+                err = float((a.float() - w.float()).abs().max())
+                rel = err / max(float(w.float().abs().max()), 1e-30)
+                ok = rel <= SSD_BWD_BF16 and bool(torch.isfinite(a).all())
+                log(f"  {'ssd_scan_bwd':26s} bfloat16 {name} B,S,H,P,N,chunk="
+                    f"{shape}: against plain max_abs_err={err:.3e} "
+                    f"({rel:.2e} of the largest, bound {SSD_BWD_BF16:g}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    c.failed.append(f"ssd_scan_bwd bf16 {name} {shape}")
+                if main:
+                    c.max_err["ssd_scan_bwd"] = max(
+                        c.max_err.get("ssd_scan_bwd", 0.0), err)
+            if dtype == torch.bfloat16:
+                continue
+            t64 = [t.double().requires_grad_() for t in x]
+            oracle = torch.autograd.grad(
+                L.ssd_chunk_scan(*t64, chunk, dtype=torch.float64), t64,
+                dy.double())
+            times, floor = SSD_BWD_FP32
+            for name, a, w, o in zip(SSD_GRADS, got, want, oracle):
+                err = float((a.double() - o).abs().max())
+                plain = float((w.double() - o).abs().max())
+                bound_ = times * plain + floor * float(o.abs().max())
+                ok = err <= bound_
+                log(f"  {'ssd_scan_bwd':26s} float32  {name} B,S,H,P,N,chunk="
+                    f"{shape}: from fp64 kernel {err:.3e}, plain fp32 "
+                    f"{plain:.3e} (bound {times:g}x plain + {floor:g} x "
+                    f"{float(o.abs().max()):.3e}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    c.failed.append(f"ssd_scan_bwd fp32 {name} {shape}")
+                if main:
+                    fp32[name] = dict(kernel=err, plain=plain)
+            del t64, oracle
+    torch.cuda.synchronize()
+    if c.failed:
+        raise AssertionError(f"kernel checks failed: {c.failed}")
+    return dict(fp32_from_fp64=fp32)
+
+
 def _leaf_errors(got, want) -> dict:
     """Each leaf's largest |got - want| over its largest |want|."""
     from repro_torch.models.params import tree_items
@@ -4832,17 +4965,25 @@ def _leaf_errors(got, want) -> dict:
             for p, a in tree_items(got)}
 
 
-def check_training_gradients(rt, ops, dev, seed: int) -> dict:
-    """11b: one ``loss_fn`` + backward of full-width, full-depth
-    granite-3-2b in fp32 (block remat) at ``TRAIN``'s 4 x 1,024 tokens,
-    through the kernels and through the plain versions (``plain_kernels``)
-    on the same weights (at ``unit_scale``, as phase 3) and batch: the
-    loss and every leaf's gradient within ``TRAIN_*_TOL``."""
-    cfg = rt.get_config(TRAIN["arch"])
+def check_training_gradients(rt, ops, L, dev, seed: int, run=TRAIN) -> dict:
+    """11b (``TRAIN``, granite-3-2b) and 11e (``TRAIN_SSM``,
+    mamba2-130m): one ``loss_fn`` + backward of the full-width, full-depth
+    model in fp32 (block remat) at ``run``'s 4 x 1,024 tokens, through
+    the kernels and through the plain versions (``plain_kernels``) on the
+    same weights (at ``unit_scale`` where ``run`` says so, as phase 3)
+    and batch: the loss and every leaf's gradient within ``TRAIN_*_TOL``,
+    and the run's two wrappers launched, the forward twice a layer, the
+    backward once.  Where ``run`` names an ``fp64`` plain version (11e),
+    the weights are also taken to ``unit_scale``: there each leaf's
+    gradient through the kernels is held within ``TRAIN_SSM_FP64`` of
+    the plain path's distance from a run on fp64 weights, with that
+    plain version in fp64 in the forward kernel's place."""
+    cfg = rt.get_config(run["arch"])
     gen = torch.Generator(dev).manual_seed(seed)
     params = rt.init_params(rt.model_specs(cfg), gen, torch.float32, dev)
-    unit_scale(params, cfg.n_layers)
-    tokens = torch.randint(0, cfg.vocab_size, (TRAIN["B"], TRAIN["S"]),
+    if run["unit_scale"]:
+        unit_scale(params, cfg.n_layers)
+    tokens = torch.randint(0, cfg.vocab_size, (run["B"], run["S"]),
                            generator=gen, device=dev, dtype=torch.int32)
     batch = {"tokens": tokens}
     before = ops.launch_counts()
@@ -4864,23 +5005,58 @@ def check_training_gradients(rt, ops, dev, seed: int) -> dict:
     errs = _leaf_errors(grads_k, grads_p)
     worst = max(errs, key=errs.get)
     log(f"  full-width {cfg.name} x {cfg.n_layers} fp32, loss + backward at "
-        f"{TRAIN['B']} x {TRAIN['S']} tokens (block remat): kernels "
+        f"{run['B']} x {run['S']} tokens (block remat): kernels "
         f"{kernel_s:.3f} s, plain {plain_s:.3f} s, peak "
         f"{peak / 2 ** 30:.2f} GiB, launches {launches}")
     log(f"  loss kernels {float(loss_k):.6f} plain {float(loss_p):.6f} "
         f"(rel {loss_err:.2e}, bound {TRAIN_LOSS_TOL:g}); worst leaf "
         f"{worst} {errs[worst]:.2e} (bound {TRAIN_GRAD_TOL:g}); by leaf "
         + ", ".join(f"{p} {e:.1e}" for p, e in errs.items()))
-    expect = {"flash_attention": 2 * cfg.n_layers,
-              "flash_attention_bwd": cfg.n_layers}
+    fwd, bwd = run["kernels"]
+    expect = {fwd: 2 * cfg.n_layers, bwd: cfg.n_layers}
     if launches != expect:
         raise AssertionError(f"training launches {launches} != {expect}")
     if loss_err > TRAIN_LOSS_TOL or errs[worst] > TRAIN_GRAD_TOL:
         raise AssertionError("full-width gradients through the kernels "
                              "differ from the plain path's")
+    fp64 = {}
+    if run.get("fp64"):
+        fp64 = check_gradients_from_fp64(rt, ops, L, cfg, params, batch,
+                                         run)
     return dict(loss=float(loss_k), plain_loss=float(loss_p),
                 loss_rel_err=loss_err, grad_rel_err=errs, kernel_s=kernel_s,
-                plain_s=plain_s, peak_gib=peak / 2 ** 30, launches=launches)
+                plain_s=plain_s, peak_gib=peak / 2 ** 30, launches=launches,
+                unit_scale_from_fp64=fp64)
+
+
+def check_gradients_from_fp64(rt, ops, L, cfg, params, batch, run) -> dict:
+    """11e at ``unit_scale``: the gradients through the kernels and
+    through the plain versions, each leaf's distance from a run on fp64
+    weights with ``run["fp64"]`` (``layers``' plain version of the
+    forward kernel) in fp64 in the kernel's place (the norms, gates and
+    logits stay fp32, as the model casts them); the kernels' within
+    ``TRAIN_SSM_FP64`` of plain's."""
+    unit_scale(params, cfg.n_layers)
+    grads_k = rt.value_and_grad(cfg, params, batch)[2]
+    with plain_kernels(ops):
+        grads_p = rt.value_and_grad(cfg, params, batch)[2]
+        setattr(ops, run["kernels"][0], functools.partial(
+            getattr(L, run["fp64"]), dtype=torch.float64))
+        grads_64 = rt.value_and_grad(cfg, _to(params, torch.float64),
+                                     batch)[2]
+    kernel, plain = (_leaf_errors(g, grads_64) for g in (grads_k, grads_p))
+    between = _leaf_errors(grads_k, grads_p)
+    times, floor = TRAIN_SSM_FP64
+    bad = [p for p in kernel if kernel[p] > times * plain[p] + floor]
+    log(f"  at unit_scale, each leaf from fp64 weights (bound {times:g}x "
+        f"plain + {floor:g}): "
+        + ", ".join(f"{p} {kernel[p]:.2e} / {plain[p]:.2e}" for p in kernel)
+        + f"; kernels vs plain worst {max(between.values()):.2e} "
+        f"(recorded) {'ok' if not bad else 'FAIL'}")
+    if bad:
+        raise AssertionError(f"gradients at unit_scale further from fp64 "
+                             f"than {times:g}x plain's: {bad}")
+    return dict(kernels=kernel, plain=plain, kernels_vs_plain=between)
 
 
 def _device_ms_by(prof, names) -> float:
@@ -4890,18 +5066,20 @@ def _device_ms_by(prof, names) -> float:
                and any(n in e.key for n in names)) / 1e3
 
 
-def run_trainer_steps(rt, ops, dev, seed: int, out: Path) -> dict:
-    """11c: ``launch/train.py``'s trainer (``make_trainer``, full-width
-    granite-3-2b in fp32, full depth) for ``TRAIN["steps"]`` steps on one
-    repeated batch: the loss and the grad norm finite at every step, the
-    last loss below the first, flash and its backward on every layer of
-    every step and no other kernel; then one more step under
-    ``torch.profiler`` for the flash forward's and backward's share of a
-    step's device time."""
+def run_trainer_steps(rt, ops, dev, seed: int, out: Path,
+                      run=TRAIN) -> dict:
+    """11c (``TRAIN``, granite-3-2b) and 11e (``TRAIN_SSM``,
+    mamba2-130m): ``launch/train.py``'s trainer (``make_trainer``, the
+    full-width model in fp32, full depth) for ``run["steps"]`` steps on
+    one repeated batch: the loss and the grad norm finite at every step,
+    the loss falling after the first step (whose learning rate is 0), the
+    run's forward and backward kernels on every layer of every step and
+    no other kernel; then one more step under ``torch.profiler`` for the
+    two kernels' share of a step's device time."""
     from torch.profiler import ProfilerActivity, profile
-    steps = TRAIN["steps"]
+    steps = run["steps"]
     trainer = rt.train_launcher.make_trainer(
-        TRAIN["arch"], steps=steps, batch=TRAIN["B"], seq=TRAIN["S"],
+        run["arch"], steps=steps, batch=run["B"], seq=run["S"],
         ckpt_dir=str(out / "train_ckpt"), device=dev, seed=seed)
     trainer.tcfg.checkpoint_every = steps + 1   # 11d holds the checkpoint
     fixed = trainer.batch_fn(0)
@@ -4918,20 +5096,21 @@ def run_trainer_steps(rt, ops, dev, seed: int, out: Path) -> dict:
     norms = [m["grad_norm"] for m in log_]
     times = [m["step_time_s"] for m in log_]
     step_s = statistics.median(times[1:])
-    tokens = TRAIN["B"] * TRAIN["S"]
+    tokens = run["B"] * run["S"]
     log(f"  {steps} steps of {trainer.cfg.name} x {n_layers} fp32 at "
-        f"{TRAIN['B']} x {TRAIN['S']} tokens, one repeated batch: losses "
+        f"{run['B']} x {run['S']} tokens, one repeated batch: losses "
         f"{[round(x, 4) for x in losses]}, grad norms "
         f"{[round(x, 3) for x in norms]}, step s {[round(x, 3) for x in times]}"
         f" (median after the first {step_s:.3f} s, {tokens / step_s:.0f} "
         f"tokens/s), peak {peak / 2 ** 30:.2f} GiB, launches "
-        f"{ {k: n for k, n in counts.items() if n} }")
+        f"{ {k: n for k, n in counts.items() if n} } "
+        f"({ {k: n // steps for k, n in counts.items() if n} } a step)")
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError("a training step gave a non-finite loss or norm")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall: {losses}")
-    expect = {"flash_attention": 2 * n_layers * steps,
-              "flash_attention_bwd": n_layers * steps}
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"the loss did not fall after step 1: {losses}")
+    fwd_name, bwd_name = run["kernels"]
+    expect = {fwd_name: 2 * n_layers * steps, bwd_name: n_layers * steps}
     if {k: n for k, n in counts.items() if n} != expect:
         raise AssertionError(f"training launches {counts} != {expect}")
     batch = {k: torch.from_numpy(v).to(dev) for k, v in fixed.items()}
@@ -4947,21 +5126,22 @@ def run_trainer_steps(rt, ops, dev, seed: int, out: Path) -> dict:
                      for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA), reverse=True)
     busy = max(sum(ms for ms, _ in dev_ms), 1e-9)
-    fwd = _device_ms_by(prof, FLASH_FWD_KERNELS)
-    bwd = _device_ms_by(prof, FLASH_BWD_KERNELS)
+    fwd = _device_ms_by(prof, run["device_kernels"][0])
+    bwd = _device_ms_by(prof, run["device_kernels"][1])
     log("  the step's device time by kernel: " + "; ".join(
         f"{ms:.1f} ms {k[:70]}" for ms, k in dev_ms[:8]))
     log(f"  one step under torch.profiler: wall {wall * 1e3:.1f} ms, device "
-        f"{busy:.1f} ms; flash forward (and its remat recompute) "
-        f"{fwd:.1f} ms ({100 * fwd / busy:.1f}%), flash backward {bwd:.1f} "
+        f"{busy:.1f} ms; {fwd_name} (and its remat recompute) "
+        f"{fwd:.1f} ms ({100 * fwd / busy:.1f}%), {bwd_name} {bwd:.1f} "
         f"ms ({100 * bwd / busy:.1f}%)")
     trainer.state = state = None
     return dict(losses=losses, grad_norms=norms, step_s=times,
                 median_step_s=step_s, tokens_per_s=tokens / step_s,
-                peak_gib=peak / 2 ** 30, profiled_step=dict(
-                    wall_ms=wall * 1e3, device_ms=busy, flash_fwd_ms=fwd,
-                    flash_bwd_ms=bwd, flash_fwd_share=fwd / busy,
-                    flash_bwd_share=bwd / busy,
+                peak_gib=peak / 2 ** 30, launches_a_step={
+                    k: n // steps for k, n in counts.items() if n},
+                profiled_step=dict(
+                    wall_ms=wall * 1e3, device_ms=busy, fwd_ms=fwd,
+                    bwd_ms=bwd, fwd_share=fwd / busy, bwd_share=bwd / busy,
                     top=[(k, ms) for ms, k in dev_ms[:12]]),
                 path=dict(launches=counts, shapes=shapes))
 
@@ -5062,16 +5242,62 @@ def time_flash_bwd(ops, L, g, dtype, B, S, H, KV, hd) -> dict:
                         for a, b in zip(got, want)))
 
 
+def ssd_bwd_flops(B, S, H, P, N, chunk) -> int:
+    """The scan's gradient's multiply-adds, x 2: per (row, chunk) the
+    causal pairs' G = C.B^T, dC = dG.B and dB = dG^T.C (c(c+1)/2 x N
+    each, once: B and C are shared by the heads); per (row, head, chunk)
+    the pairs' dy.x^T and W^T.dy (c(c+1)/2 x P each); per chunk boundary
+    and head the state recomputed, the state gradient's part C^T dy,
+    dh^T B, dh x and h dy (c x N x P each).  The masked upper triangle
+    is not counted: the least work, not the kernel's."""
+    c, n = chunk, S // chunk
+    pairs = c * (c + 1) // 2
+    per_row = 3 * n * pairs * N + H * (2 * n * pairs * P
+                                       + 5 * (n - 1) * c * N * P)
+    return 2 * B * per_row
+
+
+def time_ssd_bwd(ops, L, g, dtype, B, S, H, P, N, chunk) -> dict:
+    """The scan's backward kernel at one shape (x, b, c, dy in
+    ``dtype``), beside autograd of the plain version, with its bound at
+    the operands' rate (``ssd_bwd_flops``; each input read once, each
+    gradient written once).  No single PyTorch call computes it: no
+    yardstick."""
+    def inputs():
+        return (*ssd_inputs(g, dtype, B, S, H, P, N),
+                _randn(g, dtype, B, S, H, P))
+    x0 = inputs()
+    sets = [x0] + [inputs() for _ in range(n_sets(_nbytes(*x0)) - 1)]
+    b_ms, b_by = bound(2 * _nbytes(*x0) - _nbytes(x0[5]),
+                       ssd_bwd_flops(B, S, H, P, N, chunk), dtype)
+    kernel = lambda *t: ops.ssd_scan_bwd(*t, chunk=chunk)  # noqa: E731
+    got, want = kernel(*x0), L.ssd_chunk_scan_bwd(*x0, chunk)
+    return dict(
+        shape=dict(B=B, S=S, H=H, P=P, N=N, chunk=chunk,
+                   dtype=str(dtype)[6:]),
+        ms=time_ms(kernel, sets, 10),
+        device_us_by_kernel=device_us_by_kernel(kernel, x0, 10),
+        plain_ms=time_ms(lambda *t: L.ssd_chunk_scan_bwd(*t, chunk),
+                         sets[:2], 10),
+        library_ms=None, library="none: no single PyTorch call",
+        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(got, want)))
+
+
 def run_training_phase(rt, ops, L, dev, seed: int, out: Path,
                        checks: Checks) -> dict:
-    """Phase 11: the flash backward sweep (11a), full-width gradients
-    through the kernels against the plain path (11b), the trainer's
-    steps (11c), crash and resume (11d), and the backward kernel timed
-    at granite-3-2b's shape in fp32 (the path's dtype) and bf16."""
+    """Phase 11: the flash and scan backward sweeps (11a), full-width
+    gradients through the kernels against the plain path (11b), the
+    trainer's steps (11c), crash and resume (11d) on granite-3-2b; the
+    gradients and the trainer's steps of full-width mamba2-130m (11e);
+    then both backward kernels timed at their training shapes in fp32
+    (the paths' dtype) and bf16."""
     t0 = time.perf_counter()
     sweep = check_flash_backward(ops, L, dev, checks)
+    ssd_sweep = check_ssd_backward(ops, L, dev, checks)
     log(f"  (11a {time.perf_counter() - t0:.1f} s)")
-    grads = check_training_gradients(rt, ops, dev, seed)
+    grads = check_training_gradients(rt, ops, L, dev, seed)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  (11b {time.perf_counter() - t0:.1f} s)")
@@ -5081,6 +5307,13 @@ def run_training_phase(rt, ops, L, dev, seed: int, out: Path,
     log(f"  (11c {time.perf_counter() - t0:.1f} s)")
     resume = run_crash_resume(rt, dev, seed, out)
     log(f"  (11d {time.perf_counter() - t0:.1f} s)")
+    ssm_grads = check_training_gradients(rt, ops, L, dev, seed, TRAIN_SSM)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_steps = run_trainer_steps(rt, ops, dev, seed, out, TRAIN_SSM)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (11e {time.perf_counter() - t0:.1f} s)")
     g = torch.Generator(dev).manual_seed(12)
     B, S, H, KV, hd = FLASH_BWD_SWEEP[0]
     timing = {str(dt)[6:]: time_flash_bwd(ops, L, g, dt, B, S, H, KV, hd)
@@ -5091,9 +5324,22 @@ def run_training_phase(rt, ops, L, dev, seed: int, out: Path,
             f" backward {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
             f"ms ({r['bound_by']}), kernel/bound "
             f"{r['ms'] / r['bound_ms']:.1f}x")
+    m = SSD_MAIN
+    ssd_timing = {str(dt)[6:]: time_ssd_bwd(
+        ops, L, g, dt, *(m[k] for k in ("B", "S", "H", "P", "N", "chunk")))
+        for dt in (torch.float32, torch.bfloat16)}
+    for name, r in ssd_timing.items():
+        log(f"  ssd_scan_bwd {name} {json.dumps(r['shape'])}: kernel "
+            f"{r['ms']:.4f} ms, plain autograd {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), kernel/bound "
+            f"{r['ms'] / r['bound_ms']:.1f}x; device us by kernel "
+            + str({k[:40]: round(us, 1)
+                   for k, us in r["device_us_by_kernel"].items()}))
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
-    return dict(sweep=sweep, gradients=grads, steps=steps, resume=resume,
-                timing=timing, path=steps.pop("path"))
+    return dict(sweep=sweep, ssd_sweep=ssd_sweep, gradients=grads,
+                steps=steps, resume=resume, ssm_gradients=ssm_grads,
+                ssm_steps=ssm_steps, timing=timing, ssd_timing=ssd_timing,
+                path=steps.pop("path"), ssm_path=ssm_steps.pop("path"))
 
 
 def port() -> types.SimpleNamespace:
@@ -5260,7 +5506,8 @@ def main() -> int:
         "fp32)")
     check_main_shapes(ops, L, dev, every, checks)
     home = {k.name: paths[HOME_PATH.get(k.name, "block_adaptive")]["shapes"][
-        k.name] for k in ops.KERNELS if k.name != "flash_attention_bwd"}
+        k.name] for k in ops.KERNELS
+        if k.name not in ("flash_attention_bwd", "ssd_scan_bwd")}
     timing = time_kernels(ops, L, dev, home, paths, cuda_core_prefill(build),
                           pass_calls(engine.params, engine.cfg))
     profiles = None
@@ -5270,9 +5517,10 @@ def main() -> int:
         profiles = profile_joins(rt, engine, ssm_engine, out)
     log(f"  ({time.perf_counter() - _T_PHASE[0]:.1f} s)")
 
-    log("== phase 11: training, full-width granite-3-2b in fp32: the flash "
-        "backward sweep, gradients through the kernels against the plain "
-        "path, the trainer's steps, crash and resume")
+    log("== phase 11: training in fp32: the flash and scan backward sweeps; "
+        "full-width granite-3-2b's gradients through the kernels against the "
+        "plain path, the trainer's steps, crash and resume; full-width "
+        "mamba2-130m's gradients and trainer steps")
     del engine, ssm_engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -5280,21 +5528,26 @@ def main() -> int:
         " GiB allocated at the start of phase 11")
     train = run_training_phase(rt, ops, L, dev, args.seed, out, checks)
     family_paths["train"] = train["path"]
+    family_paths["train_ssm"] = train["ssm_path"]
     log(f"  ({time.perf_counter() - _T_PHASE[0]:.1f} s)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     every_path = {**paths, **family_paths}
     for k in ops.KERNELS:
-        if k.name == "flash_attention_bwd":
-            # the training path's kernel, in its dtype (fp32), with its
-            # bf16 time beside
-            r, r16 = train["timing"]["float32"], train["timing"]["bfloat16"]
+        if k.name in ("flash_attention_bwd", "ssd_scan_bwd"):
+            # a training path's kernel, in its dtype (fp32), with its bf16
+            # time beside: flash's on granite-3-2b, the scan's on
+            # mamba2-130m
+            flash = k.name == "flash_attention_bwd"
+            t = train["timing" if flash else "ssd_timing"]
+            r, r16 = t["float32"], t["bfloat16"]
             kernels.append(dict(
                 name=k.name, route="cuda",
                 source=f"src/repro_torch/kernels/csrc/{k.source}.cu",
                 replaces=k.replaces,
-                launches=train["path"]["launches"][k.name],
+                launches=train["path" if flash else "ssm_path"][
+                    "launches"][k.name],
                 launches_by_path={name: pth["launches"].get(k.name, 0)
                                   for name, pth in every_path.items()},
                 max_abs_err=max(checks.max_err[k.name], r16["max_abs_err"]),

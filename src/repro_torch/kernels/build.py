@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_attention", "chunked_prefill", "paged_decode_attention",
            "topk_sim", "spec_verify_attention", "decode_attention",
-           "ssd_scan", "rmsnorm", "decode_gemm", "flash_attention_bwd")
+           "ssd_scan", "rmsnorm", "decode_gemm", "flash_attention_bwd",
+           "ssd_scan_bwd")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v", "-lineinfo")

@@ -1,4 +1,4 @@
-"""Wrappers of the port's ten hand-written CUDA kernels.
+"""Wrappers of the port's eleven hand-written CUDA kernels.
 
 Three attention kernels carry the serving path (block and adaptive
 joins): ``flash_attention``, ``chunked_prefill_attention`` and
@@ -22,13 +22,15 @@ weight.  (The JAX
 package's model calls its RMSNorm kernel nowhere; the port needs the
 row-blocked norm for this.)
 
-Training (``repro_torch.train``) differentiates through
-``flash_attention``: where grad is enabled and an input requires it, the
-call goes through :class:`_FlashFunction`, whose forward also writes each
-row's log-sum-exp and whose backward launches ``flash_attention_bwd``
-(``csrc/flash_attention_bwd.cu``).  Every other kernel has no backward on
-the card: reached with an input that requires grad while grad is enabled,
-its wrapper raises (:func:`refuse_grad`) instead of returning a result cut
+Training (``repro_torch.train``) differentiates through two kernels.
+Where grad is enabled and an input requires it, ``flash_attention`` goes
+through :class:`_FlashFunction`, whose forward also writes each row's
+log-sum-exp and whose backward launches ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``), and ``ssd_scan`` through
+:class:`_SsdScanFunction`, whose backward launches ``ssd_scan_bwd``
+(``csrc/ssd_scan_bwd.cu``).  Every other kernel has no backward on the
+card: reached with an input that requires grad while grad is enabled, its
+wrapper raises (:func:`refuse_grad`) instead of returning a result cut
 off from the autograd graph.  On the CPU the plain versions differentiate
 natively.
 
@@ -56,7 +58,7 @@ exact when several threads launch at once (the replicas of a serving
 cluster): they move under one lock (``COUNT_LOCK``), and a thread may
 also keep its own tally (:func:`counting_into`).
 
-Persistent scratch (the scan's buffer, the decode GEMM's fp32 partials
+Persistent scratch (the scan's buffers, the decode GEMM's fp32 partials
 and counters) is kept per thread and device: calls of one thread run in
 order (on its stream, or joined to it), so a thread's buffers are never
 written by two calls at once, and a graph captured by a thread keeps
@@ -221,7 +223,9 @@ def refuse_grad(name: str, tensors: Sequence[Optional[torch.Tensor]]) -> None:
     """Raise where grad is enabled and one of ``tensors`` requires it: a
     kernel launched there would return a result cut off from the
     autograd graph, and training would silently give the inputs no
-    gradient.  Only ``flash_attention`` has a backward on the card."""
+    gradient.  Only ``flash_attention`` and ``ssd_scan`` have a backward
+    on the card (their wrappers go through an autograd Function before
+    they launch)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
@@ -599,12 +603,13 @@ class _SsdScan(CudaKernel):
         kernel)."""
         fn = getattr(self, "_scratch_fn", None)
         if fn is None:
-            fn = self._scratch_fn = self._lib().repro_ssd_scan_scratch
+            fn = self._scratch_fn = getattr(self._lib(),
+                                            self.symbol + "_scratch")
             fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_longlong
         n = int(fn(B, S, H, P, N, chunk))
         if n < 0:
-            raise ValueError(f"ssd_scan: shapes {(B, S, H, P, N, chunk)} not "
-                             "taken")
+            raise ValueError(f"{self.name}: shapes {(B, S, H, P, N, chunk)} "
+                             "not taken")
         return n
 
     def _plan(self, key, x, dt, A, b, c, chunk) -> tuple:
@@ -612,22 +617,36 @@ class _SsdScan(CudaKernel):
         N = b.shape[-1]
         if (dt.shape != (B, S, H) or A.shape != (H,)
                 or b.shape != (B, S, N) or c.shape != b.shape):
-            raise ValueError(f"ssd_scan: x {tuple(x.shape)}, dt "
+            raise ValueError(f"{self.name}: x {tuple(x.shape)}, dt "
                              f"{tuple(dt.shape)}, A {tuple(A.shape)}, b/c "
                              f"{tuple(b.shape)}/{tuple(c.shape)} do not fit")
         if P > SSD_MAX_P or N > SSD_MAX_N:
-            raise ValueError(f"ssd_scan: P {P} / N {N} above the kernel's "
+            raise ValueError(f"{self.name}: P {P} / N {N} above the kernel's "
                              f"caps of {SSD_MAX_P} / {SSD_MAX_N}")
         if dt.dtype != torch.float32 or A.dtype != torch.float32:
-            raise TypeError("ssd_scan: dt and A must be float32")
+            raise TypeError(f"{self.name}: dt and A must be float32")
         dtype = _check(self.name, (x, b, c))
         chunk = L.pick_chunk(S, chunk) if S else chunk
         if chunk > SSD_MAX_CHUNK:
-            raise ValueError(f"ssd_scan: chunk {chunk} above the kernel's "
+            raise ValueError(f"{self.name}: chunk {chunk} above the kernel's "
                              f"cap of {SSD_MAX_CHUNK}")
         ints = (B, S, H, P, N, chunk, dtype)
         nbytes = self.scratch_bytes(*ints[:6]) if x.numel() else 0
         plan = self._plans[key] = (ints, nbytes)
+        return plan
+
+    def _plan_of(self, x, dt, A, b, c, chunk) -> tuple:
+        """``(ints, scratch bytes)`` of a call on CUDA tensors, checked
+        once per shapes, dtypes and chunk; raises on inputs that are not
+        contiguous."""
+        key = (x.shape, dt.shape, A.shape, b.shape, c.shape, x.dtype,
+               dt.dtype, A.dtype, b.dtype, c.dtype, chunk)
+        plan = (self._plans.get(key)
+                or self._plan(key, x, dt, A, b, c, chunk))
+        if not (x.is_contiguous() and dt.is_contiguous()
+                and A.is_contiguous() and b.is_contiguous()
+                and c.is_contiguous()):
+            raise ValueError(f"{self.name}: inputs must be contiguous")
         return plan
 
     def _buffer(self, device: int, nbytes: int) -> torch.Tensor:
@@ -643,26 +662,81 @@ class _SsdScan(CudaKernel):
                  chunk: int = 256) -> torch.Tensor:
         """The SSD chunked scan: x ``(B,S,H,P)``, dt ``(B,S,H)`` fp32, A
         ``(H,)`` fp32, b/c ``(B,S,N)`` → y ``(B,S,H,P)`` in x's dtype,
-        over chunks of ``pick_chunk(S, chunk)`` positions."""
+        over chunks of ``pick_chunk(S, chunk)`` positions.  Where grad is
+        enabled and an input requires it, through :class:`_SsdScanFunction`
+        (the backward kernel on the card)."""
         d = x.get_device()   # -1 on the CPU
         if (d < 0 or dt.get_device() != d or A.get_device() != d
                 or b.get_device() != d or c.get_device() != d):
             if _on_cpu(x, dt, A, b, c):
                 return self.plain(x, dt, A, b, c, chunk)
-        key = (x.shape, dt.shape, A.shape, b.shape, c.shape, x.dtype,
-               dt.dtype, A.dtype, b.dtype, c.dtype, chunk)
-        ints, nbytes = (self._plans.get(key)
-                        or self._plan(key, x, dt, A, b, c, chunk))
-        if not (x.is_contiguous() and dt.is_contiguous()
-                and A.is_contiguous() and b.is_contiguous()
-                and c.is_contiguous()):
-            raise ValueError("ssd_scan: inputs must be contiguous")
+        if torch.is_grad_enabled() and (
+                x.requires_grad or dt.requires_grad or A.requires_grad
+                or b.requires_grad or c.requires_grad):
+            return _SsdScanFunction.apply(self, x, dt, A, b, c, chunk)
+        return self.run(x, dt, A, b, c, chunk)
+
+    def run(self, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor, chunk: int) -> torch.Tensor:
+        """One launch on CUDA tensors of one device."""
+        ints, nbytes = self._plan_of(x, dt, A, b, c, chunk)
         y = torch.empty_like(x)
         if nbytes:
-            buf = self._buffer(d, nbytes)
+            buf = self._buffer(x.get_device(), nbytes)
             self._launch((x, dt, A, b, c, y, buf), ints + (buf.numel(),),
                          key=ints)
         return y
+
+
+class _SsdScanFunction(torch.autograd.Function):
+    """The SSD scan with its backward on the card: the forward keeps its
+    inputs (the backward recomputes the chunk states from them) and
+    launches the scan; the backward launches :data:`ssd_scan_bwd` (looked
+    up at each call)."""
+
+    @staticmethod
+    def forward(ctx, kernel, x, dt, A, b, c, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, b, c)
+        return kernel.run(x, dt, A, b, c, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, A, b, c = ctx.saved_tensors
+        return (None, *ssd_scan_bwd(x, dt, A, b, c, dy.contiguous(),
+                                    chunk=ctx.chunk), None)
+
+
+class _SsdScanBwd(_SsdScan):
+    """The gradient of the SSD scan: one C call queues its kernels (the
+    log-decay sums, the recomputed states and the state gradients with
+    their serial carries, the tile pairs, dx, dB/dC, then ddt and dA):
+    one launch counted.  Its scratch is one buffer per thread and device,
+    as the forward's."""
+
+    def __call__(self, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor, *,
+                 chunk: int = 256) -> tuple:
+        """``(dx, ddt, dA, db, dc)`` of ``y = ssd_scan(x, dt, A, b, c,
+        chunk=chunk)`` for the output's gradient ``dy`` (x's shape and
+        dtype), each in its input's dtype."""
+        if _on_cpu(x, dt, A, b, c, dy):
+            return self.plain(x, dt, A, b, c, dy, chunk)
+        ints, nbytes = self._plan_of(x, dt, A, b, c, chunk)
+        if dy.shape != x.shape or dy.dtype != x.dtype:
+            raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} {dy.dtype} "
+                             f"is not x's {tuple(x.shape)} {x.dtype}")
+        if not dy.is_contiguous():
+            raise ValueError("ssd_scan_bwd: inputs must be contiguous")
+        grads = tuple(torch.empty_like(t) for t in (x, dt, A, b, c))
+        if nbytes:
+            buf = self._buffer(x.get_device(), nbytes)
+            self._launch((x, dt, A, b, c, dy, *grads, buf),
+                         ints + (buf.numel(),), key=ints)
+        else:
+            for g in grads:
+                g.zero_()
+        return grads
 
 
 class _RmsNorm(CudaKernel):
@@ -908,6 +982,13 @@ decode_gemm = _DecodeGemm(
     replaces="none (the JAX package leaves these products to XLA): the "
              "repair of ROADMAP.md C1, greedy parity of speculative "
              "decoding on the card")
+ssd_scan_bwd = _SsdScanBwd(
+    "ssd_scan_bwd", "ssd_scan_bwd", "repro_ssd_scan_bwd", n_ptrs=12,
+    n_ints=7, n_longs=1, plain=L.ssd_chunk_scan_bwd,
+    replaces="none (the JAX package trains through XLA's autodiff of "
+             "src/repro/models/mamba2.py:70 and gives "
+             "src/repro/kernels/ssd_scan.py:65 no custom_vjp): the gradient "
+             "of the ported scan kernel's function")
 flash_attention_bwd = _FlashAttentionBwd(
     "flash_attention_bwd", "flash_attention_bwd",
     "repro_flash_attention_bwd", n_ptrs=10, n_ints=6,
@@ -919,11 +1000,11 @@ flash_attention_bwd = _FlashAttentionBwd(
 #: every kernel of the port: the three attention kernels of the paged
 #: engine in the order the model reaches them, the prefilter's top-k, the
 #: speculative verify and the dense engine's decode, the mamba2 scan,
-#: RMSNorm, the decode and verify passes' GEMM, and training's flash
-#: backward
+#: RMSNorm, the decode and verify passes' GEMM, and training's flash and
+#: scan backwards
 KERNELS = (flash_attention, chunked_prefill_attention, paged_decode_attention,
            topk_similarity, spec_verify_attention, decode_attention,
-           ssd_scan, rmsnorm, decode_gemm, flash_attention_bwd)
+           ssd_scan, rmsnorm, decode_gemm, flash_attention_bwd, ssd_scan_bwd)
 
 
 def decode_linear(x: torch.Tensor, w) -> torch.Tensor:

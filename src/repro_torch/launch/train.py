@@ -11,10 +11,10 @@ would have seen.  Under ``torch.distributed`` (initialized by the
 caller) each process takes its rows of the global batch
 (``host_batch_slice``); the TPU launcher's XLA flags and
 ``jax.distributed`` have no counterpart here.  On the card attention's
-backward runs on the flash backward kernel; an arch whose path reaches
-another kernel (the ssm and hybrid families' SSD scan) raises there,
-as its backward is not ported to the card: train it with ``--device
-cpu``.
+backward runs on the flash backward kernel and the SSD scan's (the ssm
+and hybrid families) on the scan's backward kernel; every other kernel
+a training pass could reach is off the differentiated path (decode and
+verify passes only).
 """
 
 from __future__ import annotations

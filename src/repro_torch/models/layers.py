@@ -1,6 +1,7 @@
-"""Shared layers in plain PyTorch, and the plain versions of the ten
+"""Shared layers in plain PyTorch, and the plain versions of the eleven
 kernels (five attention kernels and the flash backward, the prefilter's
-top-k, the mamba2 SSD scan, RMSNorm and the decode GEMM).
+top-k, the mamba2 SSD scan and its backward, RMSNorm and the decode
+GEMM).
 
 Conventions follow ``repro.models.layers``:
 
@@ -22,7 +23,8 @@ mirror ``repro.models.layers`` (``blockwise_causal_attention``,
 kernel (autograd of :func:`flash_attention`).  :func:`rms_norm` is the
 plain version of the RMSNorm kernel, :func:`ssd_chunk_scan` (after
 ``repro.models.mamba2._ssd_chunk_scan``) that of the SSD scan kernel,
-and :func:`matmul` that of the decode GEMM.
+:func:`ssd_chunk_scan_bwd` (its autograd) that of the scan's backward
+kernel, and :func:`matmul` that of the decode GEMM.
 """
 
 from __future__ import annotations
@@ -285,7 +287,8 @@ def pick_chunk(seq_len: int, target: int = 512) -> int:
 
 def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    b: torch.Tensor, c: torch.Tensor,
-                   chunk: int = 256) -> torch.Tensor:
+                   chunk: int = 256, *,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The Mamba2 SSD chunked scan, after ``mamba2._ssd_chunk_scan``: a
     loop over chunks of ``pick_chunk(S, chunk)`` positions, each with its
     intra-chunk quadratic term and the inter-chunk term of the ``(N, P)``
@@ -301,15 +304,17 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     mamba2-130m's widths that alone moves y by ~1.5e-3 against fp64
     arithmetic), so the sum and its differences are taken in fp64 and
     rounded to fp32 once, before the exp — as the kernel takes them.
+    ``dtype=torch.float64`` takes everything in fp64: the oracle that
+    the checks hold the fp32 gradients against.
     """
     B, S, H, P = x.shape
     N = b.shape[-1]
     chunk = pick_chunk(S, chunk)
-    xf, bf, cf = x.float(), b.float(), c.float()
-    dt, A = dt.float(), A.float()
+    xf, bf, cf = x.to(dtype), b.to(dtype), c.to(dtype)
+    dt, A = dt.to(dtype), A.to(dtype)
     ii = torch.arange(chunk, device=x.device)
     causal = (ii[:, None] >= ii[None, :])[None, :, :, None]   # (1,c,c,1)
-    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    h = torch.zeros((B, H, N, P), dtype=dtype, device=x.device)
     ys = []
     for s0 in range(0, S, chunk):
         xk = xf[:, s0:s0 + chunk]                 # (B,c,H,P)
@@ -319,20 +324,34 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         # L[i,j] = exp(cum_i - cum_j) for i >= j, else 0.  Mask BEFORE
         # exp: the upper triangle's positive differences overflow, and
         # inf * 0 is NaN
-        diff = (cum[:, :, None, :] - cum[:, None, :, :]).float()  # (B,c,c,H)
+        diff = (cum[:, :, None, :] - cum[:, None, :, :]).to(dtype)  # (B,c,c,H)
         Lm = torch.exp(diff.masked_fill(~causal, float("-inf")))
         cb = torch.einsum("bin,bjn->bij", ck, bk)             # (B,c,c)
         w = cb[..., None] * Lm * dtk[:, None, :, :]           # (B,c,c,H)
         y = torch.einsum("bijh,bjhp->bihp", w, xk)
         y = y + (torch.einsum("bin,bhnp->bihp", ck, h)
-                 * torch.exp(cum.float())[..., None])
+                 * torch.exp(cum.to(dtype))[..., None])
         # h' = exp(cum_last) h + sum_j exp(cum_last - cum_j) dt_j B_j x_j
-        w_state = torch.exp((cum[:, -1:, :] - cum).float()) * dtk  # (B,c,H)
-        h = (h * torch.exp(cum[:, -1, :].float())[:, :, None, None]
+        w_state = torch.exp((cum[:, -1:, :] - cum).to(dtype)) * dtk  # (B,c,H)
+        h = (h * torch.exp(cum[:, -1, :].to(dtype))[:, :, None, None]
              + torch.einsum("bjn,bjhp->bhnp", bk,
                             xk * w_state[..., None]))
         ys.append(y.to(x.dtype))
     return torch.cat(ys, dim=1)
+
+
+def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                       chunk: int = 256) -> tuple:
+    """``(dx, ddt, dA, db, dc)`` of :func:`ssd_chunk_scan` for the
+    output's gradient ``dy``, by autograd of the plain forward (each in
+    its input's dtype): the plain version of the scan's backward kernel.
+    Autograd takes the log-decay terms in fp32 and sums them in fp64, as
+    ``cum`` is fp64, and rounds their gradient to fp32 once."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, dt, A, b, c)]
+        y = ssd_chunk_scan(*ins, chunk)
+        return torch.autograd.grad(y, ins, dy)
 
 
 # ---------------------------------------------------------------------------

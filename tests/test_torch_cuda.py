@@ -1382,31 +1382,189 @@ def test_flash_backward_gives_the_same_bits_every_run(cuda, dtype):
 
 
 def test_kernels_without_a_backward_raise_under_grad(cuda):
-    """A grad-requiring input, grad enabled: every kernel but flash raises
-    (no result cut off from the graph); without grad they launch."""
+    """A grad-requiring input, grad enabled: every kernel without a
+    backward on the card raises (no result cut off from the graph) --
+    RMSNorm, the decode GEMM, the three decode-side attention kernels,
+    chunked prefill and top-k; without grad they launch.  The scan has a
+    backward now: its call under grad gives a graph and a gradient."""
     g = torch.Generator(cuda).manual_seed(5)
     bf = torch.bfloat16
     x, w = _randn(g, bf, 4, 2048), _randn(g, bf, 2048)
     wm = _randn(g, bf, 2048, 512)
     xs = _ssd_inputs(g, torch.float32, 1, 64, 2, 16, 8)
     q = _randn(g, bf, 2, 1, 8, 64)
+    qv = _randn(g, bf, 2, 3, 8, 64)
     kp, vp = _randn(g, bf, 4, 16, 2, 64), _randn(g, bf, 4, 16, 2, 64)
+    kc, vc = _randn(g, bf, 2, 32, 2, 64), _randn(g, bf, 2, 32, 2, 64)
     table = torch.arange(4, device=cuda, dtype=torch.int32).view(2, 2)
     lens = torch.tensor([20, 9], device=cuda, dtype=torch.int32)
+    qs, ks, vs = (_randn(g, bf, 2, 8, h, 64) for h in (8, 2, 2))
+    plen = torch.tensor([16, 3], device=cuda, dtype=torch.int32)
+    e1, e2 = _unit(g, 8, 32), _unit(g, 20, 32)
     calls = {
-        "rmsnorm": lambda t: ops.rmsnorm(t, w),
-        "decode_gemm": lambda t: ops.decode_linear(t, wm),
-        "ssd_scan": lambda t: ops.ssd_scan(t, *xs[1:], chunk=32),
-        "paged_decode_attention": lambda t: ops.paged_decode_attention(
-            t, kp, vp, table, lens),
+        "rmsnorm": (x, lambda t: ops.rmsnorm(t, w)),
+        "decode_gemm": (x, lambda t: ops.decode_linear(t, wm)),
+        "paged_decode_attention": (q, lambda t: ops.paged_decode_attention(
+            t, kp, vp, table, lens)),
+        "spec_verify_attention": (qv, lambda t: ops.spec_verify_attention(
+            t, kp, vp, table, lens)),
+        "decode_attention": (q, lambda t: ops.decode_attention(
+            t, kc, vc, lens)),
+        "chunked_prefill_attention": (qs, lambda t:
+                                      ops.chunked_prefill_attention(
+                                          t, ks, vs, kc, vc, plen)),
+        "topk_similarity": (e1, lambda t: ops.topk_similarity(t, e2, k=4)),
     }
-    inputs = {"rmsnorm": x, "decode_gemm": x, "ssd_scan": xs[0],
-              "paged_decode_attention": q}
-    for name, call in calls.items():
-        t = inputs[name].clone().requires_grad_()
+    for name, (inp, call) in calls.items():
+        t = inp.clone().requires_grad_()
         with pytest.raises(NotImplementedError, match="queue A item 14"):
             call(t)
         with torch.no_grad():
             call(t)
         call(t.detach())
+    x0 = xs[0].clone().requires_grad_()
+    before = ops.ssd_scan_bwd.launches
+    y = ops.ssd_scan(x0, *xs[1:], chunk=32)
+    assert y.grad_fn is not None
+    (dx,) = torch.autograd.grad(y, (x0,), torch.ones_like(y))
+    assert ops.ssd_scan_bwd.launches == before + 1
+    assert bool(torch.isfinite(dx).all()) and bool(dx.abs().max() > 0)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# Training: the SSD scan's backward kernel
+# ---------------------------------------------------------------------------
+
+#: mamba2-130m's training shape, jamba-1.5-large-398b's mamba width at S
+#: 512, the CPU sweep, S 1024 in 8 chunks, and ragged tiles (chunk 100,
+#: P 40, N 100)
+SSD_BWD_SHAPES = [(4, 1024, 24, 64, 128, 256), (1, 512, 256, 64, 128, 256),
+                  (1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16),
+                  (1, 48, 4, 8, 16, 12), (2, 1024, 24, 64, 128, 128),
+                  (1, 300, 3, 40, 100, 100)]
+SSD_GRADS = ("dx", "ddt", "dA", "db", "dc")
+
+
+def _ssd_grads(x, dt, A, b, c, dy, chunk):
+    """``(y, grads)`` through ``ops.ssd_scan``'s autograd route."""
+    ins = [t.clone().requires_grad_() for t in (x, dt, A, b, c)]
+    y = ops.ssd_scan(*ins, chunk=chunk)
+    assert y.grad_fn is not None
+    return y.detach(), torch.autograd.grad(y, ins, dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_BWD_SHAPES)
+def test_ssd_backward_on_card(cuda, dtype, B, S, H, P, N, chunk):
+    """dx, ddt, dA, db and dc against autograd of the plain version: bf16
+    within 2e-2 of the leaf's largest |gradient|; fp32 against an fp64
+    oracle, the kernel's largest error within 4x the plain fp32
+    autograd's plus 1e-6 of the leaf's largest |gradient| (the two sum in
+    different orders).  One forward and one backward launch, the
+    forward's bits those of a launch without grad, and the gradients the
+    same bits on a second run."""
+    g = torch.Generator(cuda).manual_seed(S + H + P)
+    x = _ssd_inputs(g, dtype, B, S, H, P, N)
+    dy = _randn(g, dtype, B, S, H, P)
+    before = (ops.ssd_scan.launches, ops.ssd_scan_bwd.launches)
+    y, got = _ssd_grads(*x, dy, chunk)
+    torch.cuda.synchronize()
+    assert (ops.ssd_scan.launches,
+            ops.ssd_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, ops.ssd_scan(*x, chunk=chunk))
+    _, again = _ssd_grads(*x, dy, chunk)
+    for name, a, a2 in zip(SSD_GRADS, got, again):
+        assert torch.equal(a, a2), name
+    want = L.ssd_chunk_scan_bwd(*x, dy, chunk)
+    for name, a, w in zip(SSD_GRADS, got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+    if dtype == torch.bfloat16:
+        for name, a, w in zip(SSD_GRADS, got, want):
+            err = float((a.float() - w.float()).abs().max())
+            assert err <= 2e-2 * float(w.float().abs().max()), (name, err)
+        return
+    t64 = [t.double().requires_grad_() for t in x]
+    oracle = torch.autograd.grad(
+        L.ssd_chunk_scan(*t64, chunk, dtype=torch.float64), t64, dy.double())
+    for name, a, w, o in zip(SSD_GRADS, got, want, oracle):
+        err = float((a.double() - o).abs().max())
+        plain = float((w.double() - o).abs().max())
+        assert err <= 4 * plain + 1e-6 * float(o.abs().max()), (
+            name, err, plain)
+
+
+def test_ssd_backward_sums_b_and_c_over_the_heads(cuda):
+    """mamba2-130m's widths: each head alone (b and c shared), its db and
+    dc summed over the heads from the last to the first, give the call
+    over all heads' db and dc (to fp32 rounding), and each head's dx,
+    ddt and dA its slices."""
+    g = torch.Generator(cuda).manual_seed(3)
+    x, dt, A, b, c = _ssd_inputs(g, torch.float32, 2, 512, 24, 64, 128)
+    dy = _randn(g, torch.float32, 2, 512, 24, 64)
+    full = ops.ssd_scan_bwd(x, dt, A, b, c, dy, chunk=256)
+    db, dc = torch.zeros_like(b), torch.zeros_like(c)
+    for h in reversed(range(24)):
+        one = ops.ssd_scan_bwd(x[:, :, h:h + 1].contiguous(),
+                               dt[:, :, h:h + 1].contiguous(), A[h:h + 1],
+                               b, c, dy[:, :, h:h + 1].contiguous(),
+                               chunk=256)
+        db, dc = db + one[3], dc + one[4]
+        for k, part in ((0, full[0][:, :, h:h + 1]),
+                        (1, full[1][:, :, h:h + 1]), (2, full[2][h:h + 1])):
+            scale = float(full[k].abs().max())
+            torch.testing.assert_close(one[k], part, rtol=1e-5,
+                                       atol=1e-5 * scale)
+    for got, want in ((full[3], db), (full[4], dc)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+
+def test_ssd_backward_rejects_what_it_does_not_take(cuda):
+    g = torch.Generator(cuda).manual_seed(0)
+    x, dt, A, b, c = _ssd_inputs(g, torch.float32, 1, 16, 2, 80, 8)
+    with pytest.raises(ValueError, match="caps"):
+        ops.ssd_scan_bwd(x, dt, A, b, c, torch.ones_like(x))   # P 80 > 64
+    x, dt, A, b, c = _ssd_inputs(g, torch.float32, 1, 16, 2, 8, 8)
+    with pytest.raises(ValueError, match="dy"):
+        ops.ssd_scan_bwd(x, dt, A, b, c, torch.ones_like(x).bfloat16())
+    with pytest.raises(TypeError, match="float32"):
+        ops.ssd_scan_bwd(x, dt.bfloat16(), A, b, c, torch.ones_like(x))
+
+
+def _plain_kernels(monkeypatch):
+    """Every wrapper of ``ops`` routed to its plain version (on any
+    device) for the rest of the test."""
+    for k in ops.KERNELS:
+        monkeypatch.setattr(ops, k.name, k.plain)
+
+
+@pytest.mark.parametrize("remat", ["block", "slot"])
+def test_jamba_gradients_through_the_kernels(cuda, monkeypatch, remat):
+    """jamba-1.5-large-398b's smoke config in fp32: the loss and every
+    leaf's gradient through the kernels (flash and the scan, forward and
+    backward) within 1e-4 of the leaf's largest |gradient| of the plain
+    path's (the forward and backward sum in other orders; a wiring fault
+    moves a gradient by its own size)."""
+    from repro_torch.models.params import tree_items
+    from repro_torch.train.train_step import value_and_grad
+    cfg = dataclasses.replace(get_smoke_config("jamba-1.5-large-398b"),
+                              remat=remat)
+    g = torch.Generator(cuda).manual_seed(4)
+    params = init_params(model_specs(cfg), g, torch.float32, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=g,
+                           device=cuda, dtype=torch.int32)
+    before = ops.launch_counts()
+    loss_k, _, grads_k = value_and_grad(cfg, params, {"tokens": tokens})
+    launched = {k: n - before[k] for k, n in ops.launch_counts().items()
+                if n != before[k]}
+    assert set(launched) == {"flash_attention", "flash_attention_bwd",
+                             "ssd_scan", "ssd_scan_bwd"}, launched
+    _plain_kernels(monkeypatch)
+    loss_p, _, grads_p = value_and_grad(cfg, params, {"tokens": tokens})
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    want = dict(tree_items(grads_p))
+    for path, got in tree_items(grads_k):
+        scale = float(want[path].abs().max())
+        err = float((got - want[path]).abs().max())
+        assert err <= 1e-4 * max(scale, 1e-30), (path, err, scale)
