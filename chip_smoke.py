@@ -278,10 +278,12 @@ no result line:
    reached through ``ops.flash_attention``'s autograd route, whose
    forward also writes each row's log-sum-exp) against autograd of the
    plain version over ``FLASH_BWD_SWEEP`` (granite-3-2b's 4 x 1,024 x 32
-   / 8 x 64, yi-9b's hd 128, S 1000, S 1, G 1, hd 16): bf16 at 2e-2, fp32
-   against an fp64 oracle within ``FLASH_BWD_FP32`` of the plain fp32
-   autograd's own error, every gradient bit for bit the same on a
-   second run; and ``rmsnorm`` raising on an input that requires grad
+   / 8 x 64, yi-9b's hd 128, S 1000, S 1, G 1, hd 16, hd 128 at S 77):
+   bf16 at 2e-2 (the main shape's distance from an fp64 oracle printed
+   beside plain bf16's), fp32 against the fp64 oracle within
+   ``FLASH_BWD_FP32`` of the plain fp32 autograd's own error, every
+   gradient bit for bit the same on a second run; and ``rmsnorm``
+   raising on an input that requires grad
    (only flash and the scan have a backward on the card); the
    scan's backward (``csrc/ssd_scan_bwd.cu``, reached through
    ``ops.ssd_scan``'s autograd route) against autograd of the plain
@@ -311,10 +313,14 @@ no result line:
    versions (48 scan launches, 24 of its backward), then at
    ``unit_scale`` each leaf's distance from a run on fp64 weights
    within ``TRAIN_SSM_FP64`` of the plain path's, and (c)'s 6 trainer
-   steps, only the scan and its backward launched; then the flash
+   steps, only the scan and its backward launched; (f) (c)'s trainer in
+   bf16 (``TRAIN_BF16``: 4 steps, flash's bf16 forward and tensor-core
+   backward on every layer, losses and norms finite); then the flash
    backward timed at granite's shape in fp32 (the path's dtype) and
-   bf16, beside autograd of the plain version and SDPA's backward, with
-   its bound (five products, 2.5x the forward's causal operations), and
+   bf16 and at yi-9b's hd 128 in bf16 (its device time by kernel from
+   (c)'s and (f)'s profiled steps), beside autograd of the plain version
+   and SDPA's backward, with its bound (five products, 2.5x the
+   forward's causal operations), and
    the scan's backward at mamba2-130m's, beside autograd of the plain
    version, with its bound (``ssd_bwd_flops``, ~2.3x the forward's, at
    the operands' rate).
@@ -4734,18 +4740,21 @@ def time_kernels(ops, L, dev, shapes, paths, cores, calls) -> dict:
 
 #: the flash backward's sweep (``tests/test_torch_cuda.py``'s
 #: ``FLASH_BWD_SHAPES``): granite-3-2b's training shape first, yi-9b's hd
-#: 128 (G 8), a ragged S, S 1, G 1 and hd 16
+#: 128 (G 8), a ragged S, S 1, G 1, hd 16, and hd 128 at an S that is not
+#: a multiple of 16
 FLASH_BWD_SWEEP = [(4, 1024, 32, 8, 64), (2, 256, 32, 4, 128),
                    (1, 1000, 8, 2, 64), (2, 1, 8, 2, 64), (2, 130, 4, 4, 32),
-                   (2, 100, 4, 2, 16)]
+                   (2, 100, 4, 2, 16), (1, 77, 16, 2, 128)]
 #: fp32 gradients against an fp64 oracle: the kernel's largest error
 #: within this multiple of the plain fp32 autograd's, plus the floor (at S
 #: 1 dQ is 0, which the plain version hits exactly)
 FLASH_BWD_FP32 = (4.0, 1e-5)
-#: device kernels of the flash forward (both bodies) and of its backward,
-#: by name in ``torch.profiler``
+#: device kernels of the flash forward (both bodies) and of its backward
+#: (the fp32 body, then the bf16 tensor-core body; the delta pre-pass
+#: serves both), by name in ``torch.profiler``
 FLASH_FWD_KERNELS = ("prefill_attention_kernel", "prefill_mma_kernel")
-FLASH_BWD_KERNELS = ("delta_kernel", "dkv_kernel", "dq_kernel")
+FLASH_BWD_KERNELS = ("delta_kernel", "dkv_kernel", "dq_kernel",
+                     "dkv_mma_kernel", "dq_mma_kernel")
 #: phase 11's runs: granite-3-2b in fp32 at 4 x 1,024 tokens; the
 #: trainer's steps on a repeated batch; the crash step and the depth of
 #: the resume check (a small checkpoint); the wrappers a step launches
@@ -4755,6 +4764,10 @@ TRAIN = dict(arch="granite-3-2b", B=4, S=1024, steps=6, crash_at=4,
              resume_layers=2, unit_scale=True,
              kernels=("flash_attention", "flash_attention_bwd"),
              device_kernels=(FLASH_FWD_KERNELS, FLASH_BWD_KERNELS))
+#: 11f: granite-3-2b in bf16 (``TrainerConfig.dtype``) at full width and
+#: depth, 4 x 1,024 tokens, through the bf16 tensor-core backward: 11c's
+#: trainer steps and checks, fewer steps
+TRAIN_BF16 = dict(TRAIN, steps=4, dtype=torch.bfloat16)
 #: 11e: mamba2-130m in fp32 at full width and depth, 4 x 1,024 tokens.
 #: Its gradients are held within ``TRAIN_GRAD_TOL`` of the plain path's
 #: at the reference's draw, which does not saturate it.  At
@@ -4820,9 +4833,12 @@ def check_flash_backward(ops, L, dev, c: Checks) -> dict:
     """11a: the flash backward against autograd of the plain version over
     ``FLASH_BWD_SWEEP`` in bf16 (2e-2) and fp32 (``FLASH_BWD_FP32``
     against an fp64 oracle), two runs bit for bit the same, and a
-    grad-requiring input into a kernel without a backward raising."""
+    grad-requiring input into a kernel without a backward raising.  At
+    the main shape the bf16 kernel's and the plain bf16 backward's
+    largest distance from the fp64 oracle are printed, not held: what
+    rounding P and dS to bf16 costs."""
     g = torch.Generator(dev).manual_seed(11)
-    fp32 = {}
+    fp32, bf16 = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for shape in FLASH_BWD_SWEEP:
             B, S, H, KV, hd = shape
@@ -4838,11 +4854,23 @@ def check_flash_backward(ops, L, dev, c: Checks) -> dict:
                 if dtype == torch.bfloat16:
                     c.compare("flash_attention_bwd", f"{name} B,S,H,KV,hd="
                               f"{shape}", a, b, dtype, main)
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and not main:
                 continue
             t64 = [t.double().requires_grad_() for t in (q, k, v)]
             oracle = torch.autograd.grad(attention64(*t64), t64,
                                          dout.double())
+            if dtype == torch.bfloat16:
+                for name, a, b, o in zip(("dq", "dk", "dv"), got, want,
+                                         oracle):
+                    bf16[name] = dict(
+                        kernel=float((a.double() - o).abs().max()),
+                        plain=float((b.double() - o).abs().max()))
+                log(f"  {'flash_attention_bwd':26s} bfloat16 B,S,H,KV,hd="
+                    f"{shape} from fp64 (recorded, not held): " + ", ".join(
+                        f"{n} kernel {e['kernel']:.3e} plain "
+                        f"{e['plain']:.3e}" for n, e in bf16.items()))
+                del t64, oracle
+                continue
             times, floor = FLASH_BWD_FP32
             for name, a, b, o in zip(("dq", "dk", "dv"), got, want, oracle):
                 err = float((a.double() - o).abs().max())
@@ -4872,7 +4900,7 @@ def check_flash_backward(ops, L, dev, c: Checks) -> dict:
     torch.cuda.synchronize()
     if c.failed:
         raise AssertionError(f"kernel checks failed: {c.failed}")
-    return dict(fp32_from_fp64=fp32)
+    return dict(fp32_from_fp64=fp32, bf16_from_fp64=bf16)
 
 
 def ssd_grads(ops, x, dt, A, b, c, dy, chunk: int) -> tuple:
@@ -5068,19 +5096,23 @@ def _device_ms_by(prof, names) -> float:
 
 def run_trainer_steps(rt, ops, dev, seed: int, out: Path,
                       run=TRAIN) -> dict:
-    """11c (``TRAIN``, granite-3-2b) and 11e (``TRAIN_SSM``,
-    mamba2-130m): ``launch/train.py``'s trainer (``make_trainer``, the
-    full-width model in fp32, full depth) for ``run["steps"]`` steps on
-    one repeated batch: the loss and the grad norm finite at every step,
-    the loss falling after the first step (whose learning rate is 0), the
-    run's forward and backward kernels on every layer of every step and
-    no other kernel; then one more step under ``torch.profiler`` for the
-    two kernels' share of a step's device time."""
+    """11c (``TRAIN``, granite-3-2b), 11e (``TRAIN_SSM``, mamba2-130m)
+    and 11f (``TRAIN_BF16``, granite-3-2b in bf16):
+    ``launch/train.py``'s trainer (``make_trainer``, the full-width model
+    in ``run``'s dtype, fp32 by default, full depth) for ``run["steps"]``
+    steps on one repeated batch: the loss and the grad norm finite at
+    every step, the loss falling after the first step (whose learning
+    rate is 0), the run's forward and backward kernels on every layer of
+    every step and no other kernel; then one more step under
+    ``torch.profiler`` for the two kernels' share of a step's device
+    time."""
     from torch.profiler import ProfilerActivity, profile
     steps = run["steps"]
+    dtype = run.get("dtype", torch.float32)
     trainer = rt.train_launcher.make_trainer(
         run["arch"], steps=steps, batch=run["B"], seq=run["S"],
         ckpt_dir=str(out / "train_ckpt"), device=dev, seed=seed)
+    trainer.tcfg.dtype = dtype
     trainer.tcfg.checkpoint_every = steps + 1   # 11d holds the checkpoint
     fixed = trainer.batch_fn(0)
     trainer.batch_fn = lambda step: fixed       # a repeated batch
@@ -5097,7 +5129,8 @@ def run_trainer_steps(rt, ops, dev, seed: int, out: Path,
     times = [m["step_time_s"] for m in log_]
     step_s = statistics.median(times[1:])
     tokens = run["B"] * run["S"]
-    log(f"  {steps} steps of {trainer.cfg.name} x {n_layers} fp32 at "
+    log(f"  {steps} steps of {trainer.cfg.name} x {n_layers} "
+        f"{str(dtype)[6:]} at "
         f"{run['B']} x {run['S']} tokens, one repeated batch: losses "
         f"{[round(x, 4) for x in losses]}, grad norms "
         f"{[round(x, 3) for x in norms]}, step s {[round(x, 3) for x in times]}"
@@ -5128,20 +5161,27 @@ def run_trainer_steps(rt, ops, dev, seed: int, out: Path,
     busy = max(sum(ms for ms, _ in dev_ms), 1e-9)
     fwd = _device_ms_by(prof, run["device_kernels"][0])
     bwd = _device_ms_by(prof, run["device_kernels"][1])
+    # the backward's device ms a launch (one a layer), kernel by kernel
+    by_kernel = {n: _device_ms_by(prof, (n,)) / n_layers
+                 for n in run["device_kernels"][1]}
+    by_kernel = {n: ms for n, ms in by_kernel.items() if ms > 0}
     log("  the step's device time by kernel: " + "; ".join(
         f"{ms:.1f} ms {k[:70]}" for ms, k in dev_ms[:8]))
     log(f"  one step under torch.profiler: wall {wall * 1e3:.1f} ms, device "
         f"{busy:.1f} ms; {fwd_name} (and its remat recompute) "
         f"{fwd:.1f} ms ({100 * fwd / busy:.1f}%), {bwd_name} {bwd:.1f} "
-        f"ms ({100 * bwd / busy:.1f}%)")
+        f"ms ({100 * bwd / busy:.1f}%); {bwd_name} device ms a launch by "
+        "kernel: " + ", ".join(f"{n} {ms:.4f}" for n, ms in by_kernel.items()))
     trainer.state = state = None
-    return dict(losses=losses, grad_norms=norms, step_s=times,
-                median_step_s=step_s, tokens_per_s=tokens / step_s,
+    return dict(dtype=str(dtype)[6:], losses=losses, grad_norms=norms,
+                step_s=times, median_step_s=step_s,
+                tokens_per_s=tokens / step_s,
                 peak_gib=peak / 2 ** 30, launches_a_step={
                     k: n // steps for k, n in counts.items() if n},
                 profiled_step=dict(
                     wall_ms=wall * 1e3, device_ms=busy, fwd_ms=fwd,
                     bwd_ms=bwd, fwd_share=fwd / busy, bwd_share=bwd / busy,
+                    bwd_ms_a_launch_by_kernel=by_kernel,
                     top=[(k, ms) for ms, k in dev_ms[:12]]),
                 path=dict(launches=counts, shapes=shapes))
 
@@ -5211,7 +5251,8 @@ def time_flash_bwd(ops, L, g, dtype, B, S, H, KV, hd) -> dict:
     """The backward kernel at one shape beside autograd of the plain
     version and SDPA's backward (``is_causal``, ``enable_gqa``; the port
     never calls it); its bound counts the five products of the gradient,
-    2.5x the forward's causal operations."""
+    2.5x the forward's causal operations.  Its device time by kernel is
+    read from the trainer's profiled step (``run_trainer_steps``)."""
     def inputs():
         q, k, v = flash_inputs(g, dtype, B, S, H, KV, hd)
         lse = torch.empty((B, H, S), dtype=torch.float32, device=g.device)
@@ -5291,8 +5332,9 @@ def run_training_phase(rt, ops, L, dev, seed: int, out: Path,
     gradients through the kernels against the plain path (11b), the
     trainer's steps (11c), crash and resume (11d) on granite-3-2b; the
     gradients and the trainer's steps of full-width mamba2-130m (11e);
-    then both backward kernels timed at their training shapes in fp32
-    (the paths' dtype) and bf16."""
+    the trainer's steps of granite-3-2b in bf16 (11f); then both
+    backward kernels timed at their training shapes in fp32 and bf16,
+    and the flash backward in bf16 at yi-9b's hd 128."""
     t0 = time.perf_counter()
     sweep = check_flash_backward(ops, L, dev, checks)
     ssd_sweep = check_ssd_backward(ops, L, dev, checks)
@@ -5314,10 +5356,18 @@ def run_training_phase(rt, ops, L, dev, seed: int, out: Path,
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  (11e {time.perf_counter() - t0:.1f} s)")
+    bf16_steps = run_trainer_steps(rt, ops, dev, seed, out, TRAIN_BF16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (11f {time.perf_counter() - t0:.1f} s)")
     g = torch.Generator(dev).manual_seed(12)
     B, S, H, KV, hd = FLASH_BWD_SWEEP[0]
     timing = {str(dt)[6:]: time_flash_bwd(ops, L, g, dt, B, S, H, KV, hd)
               for dt in (torch.float32, torch.bfloat16)}
+    # yi-9b's hd 128, where the bf16 dK/dV kernel reads K and V from
+    # shared memory at each k-step
+    timing["bfloat16_hd128"] = time_flash_bwd(ops, L, g, torch.bfloat16,
+                                              *FLASH_BWD_SWEEP[1])
     for name, r in timing.items():
         log(f"  flash_attention_bwd {name} {json.dumps(r['shape'])}: kernel "
             f"{r['ms']:.4f} ms, plain autograd {r['plain_ms']:.4f} ms, SDPA's"
@@ -5338,8 +5388,10 @@ def run_training_phase(rt, ops, L, dev, seed: int, out: Path,
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
     return dict(sweep=sweep, ssd_sweep=ssd_sweep, gradients=grads,
                 steps=steps, resume=resume, ssm_gradients=ssm_grads,
-                ssm_steps=ssm_steps, timing=timing, ssd_timing=ssd_timing,
-                path=steps.pop("path"), ssm_path=ssm_steps.pop("path"))
+                ssm_steps=ssm_steps, bf16_steps=bf16_steps, timing=timing,
+                ssd_timing=ssd_timing, path=steps.pop("path"),
+                ssm_path=ssm_steps.pop("path"),
+                bf16_path=bf16_steps.pop("path"))
 
 
 def port() -> types.SimpleNamespace:
@@ -5517,10 +5569,11 @@ def main() -> int:
         profiles = profile_joins(rt, engine, ssm_engine, out)
     log(f"  ({time.perf_counter() - _T_PHASE[0]:.1f} s)")
 
-    log("== phase 11: training in fp32: the flash and scan backward sweeps; "
+    log("== phase 11: training: the flash and scan backward sweeps; "
         "full-width granite-3-2b's gradients through the kernels against the "
-        "plain path, the trainer's steps, crash and resume; full-width "
-        "mamba2-130m's gradients and trainer steps")
+        "plain path, the trainer's steps, crash and resume (fp32); full-width "
+        "mamba2-130m's gradients and trainer steps (fp32); granite-3-2b's "
+        "trainer steps in bf16")
     del engine, ssm_engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -5529,6 +5582,7 @@ def main() -> int:
     train = run_training_phase(rt, ops, L, dev, args.seed, out, checks)
     family_paths["train"] = train["path"]
     family_paths["train_ssm"] = train["ssm_path"]
+    family_paths["train_bf16"] = train["bf16_path"]
     log(f"  ({time.perf_counter() - _T_PHASE[0]:.1f} s)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 

@@ -1309,10 +1309,11 @@ def test_capture_while_another_thread_launches(cuda):
 # ---------------------------------------------------------------------------
 
 #: granite-3-2b's training shape, yi-9b's hd 128 (G 8), a ragged S, S 1,
-#: G 1 and hd 16
+#: G 1, hd 16, and hd 128 at an S that is not a multiple of 16
 FLASH_BWD_SHAPES = [(4, 1024, 32, 8, 64), (2, 256, 32, 4, 128),
                     (1, 1000, 8, 2, 64), (2, 1, 8, 2, 64),
-                    (2, 130, 4, 4, 32), (2, 100, 4, 2, 16)]
+                    (2, 130, 4, 4, 32), (2, 100, 4, 2, 16),
+                    (1, 77, 16, 2, 128)]
 
 
 def _attention64(q, k, v):
@@ -1342,7 +1343,7 @@ def test_flash_backward_on_card(cuda, dtype, B, S, H, KV, hd):
     fp32 against an fp64 oracle, the kernel's largest error within 4x the
     plain fp32 autograd's plus 1e-5 (the two sum in different orders; at
     S 1 dQ is 0 and the plain version hits it exactly, the kernel within
-    1.1e-6)."""
+    1.1e-6).  A second run gives the same bits."""
     g = torch.Generator(cuda).manual_seed(S + hd)
     q = _randn(g, dtype, B, S, H, hd)
     k, v = _randn(g, dtype, B, S, KV, hd), _randn(g, dtype, B, S, KV, hd)
@@ -1352,6 +1353,8 @@ def test_flash_backward_on_card(cuda, dtype, B, S, H, KV, hd):
     torch.cuda.synchronize()
     assert (ops.flash_attention.launches,
             ops.flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(_flash_grads(q, k, v, dout)[1], got):
+        assert torch.equal(a, b)
     # writing the log-sum-exp changes no bit of the forward
     assert torch.equal(out, ops.flash_attention(q, k, v))
     want = L.flash_attention_bwd(q, k, v, dout)
