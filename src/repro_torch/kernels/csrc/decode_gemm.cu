@@ -82,18 +82,27 @@
 // contract, bit for bit: the product equals this kernel's product with
 // the dense weight deq(q, s) = q * s rounded once in x's dtype, at every
 // M, so row invariance (C1) holds with int8 weights.  The design keeps
-// the bf16 path and changes how a tile reaches shared memory: the TMA box
-// is 64 x 64 int8 (4 KB, no swizzle: 64-byte rows), as many in the ring
-// as bf16 tiles; after a tile lands, the block converts it into one bf16
-// tile in the 128-byte-swizzled layout that ldmatrix.trans reads, each
-// element bf16(q) * bf16(s[n]) rounded once (the product of a 7-bit
-// integer and a bf16 is exact in fp32, so one rounding to bf16 is deq's);
-// every thread converts the same 16 columns, their scales held in
-// registers per item.  Then the same mma sequence and the same K splits as
-// the bf16 path.  fp32 dequantizes in the tile load, float(q) * s.  What
+// the bf16 path and changes how W reaches the mma: the TMA box is 64 x 64
+// int8 (4 KB, 64-byte rows with the 64-byte swizzle), as many in the ring
+// as bf16 tiles, and each warp builds its B fragments in registers
+// straight from the landed slot -- no bf16 copy of the tile, no block
+// barrier between the conversion and the mma.  A (K, N) row-major tile
+// puts a fragment's k-pairs in different rows, so the warp's 16 columns
+// are renamed: n-tile nt's column r is the warp's column 2r + nt.  A
+// thread then reads one 16-bit word (columns 2g, 2g + 1) from each of
+// rows 2tig, 2tig + 1, 2tig + 8 and 2tig + 9 of a k16 step -- the four
+// rows sit in one 16-byte chunk column of the swizzle, so a warp's reads
+// fall in distinct banks -- and holds both n-tiles' fragments; the
+// epilogue writes through the same map (a thread's columns 4tig..4tig+3
+// of its row).  Each column's sum over k is the dense kernel's: only the
+// output columns are renamed.  Each element is bf16(q) * bf16(s[n])
+// rounded once (a 7-bit integer times a bf16 is exact in fp32, so one
+// rounding to bf16 is deq's), converted without I2F: byte q + 128 (q xor
+// 0x80) placed by prmt in the mantissa of 2^15 gives the fp32 2^15 + 128
+// + q, and fma(that, s, -32896 s) = q s exactly (32896 s is exact: 9
+// bits times 8).  fp32 dequantizes in the tile load, float(q) * s.  What
 // bounds it is still bytes: half the bf16 weights' (granite-3-2b's pass
-// at M 4: 2.63 GB, >= 0.79 ms at 3.35 TB/s); the conversion adds a
-// block-wide barrier a stage.
+// at M 4: 2.63 GB, >= 0.79 ms at 3.35 TB/s).
 #include <cooperative_groups.h>
 
 #include <cuda.h>   // CUtensorMap and its enums (types only: no -lcuda)
@@ -134,11 +143,10 @@ constexpr size_t kXResidentMax = 40960;
 __host__ __device__ constexpr int stages_of(bool x_stream) {
   return x_stream ? 3 : 4;
 }
-// the ring (1024-byte aligned for the 128-byte swizzle, with the slack to
-// align it), then one mbarrier a stage, padded to 16 bytes; int8 weights
-// put the bf16 tile they convert into first, then a ring of int8 tiles
+// the ring (1024-byte aligned for the swizzle, with the slack to align
+// it) of bf16 or int8 tiles, then one mbarrier a stage, padded to 16 bytes
 __host__ __device__ constexpr size_t ring_bytes(int stages, bool q = false) {
-  return 1024 + (q ? kTileBytes + stages * kTileBytesQ : stages * kTileBytes) +
+  return 1024 + stages * (q ? kTileBytesQ : kTileBytes) +
          16 * ((stages * 8 + 15) / 16);
 }
 
@@ -165,7 +173,7 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 
 struct Group {
   CUtensorMap map[kMaxGroup];   // W_p in 64 x 64 boxes, 128-byte swizzle
-                                // (int8: unswizzled)
+                                // (int8: 64-byte)
   bf16* y[kMaxGroup];
   const float* scale[kMaxGroup];   // int8 weights: their column scales
   int n[kMaxGroup];
@@ -224,12 +232,27 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// bf16(q) * bf16(s), rounded once: deq(q, s, bf16) of models/quant.py
-__device__ __forceinline__ uint32_t deq2(int8_t a, int8_t b, float sa,
-                                         float sb) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(__fmul_rn((float)a, sa),
-                                           __fmul_rn((float)b, sb));
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two int8 elements of one column as a bf16x2 B register: byte `which`
+// (0 or 1) of the words lo (k) and hi (k + 1), each already xor 0x80, as
+// bf16(q) * s rounded once (s the column's bf16-rounded scale, c =
+// -32896 s): deq(q, s, bf16) of models/quant.py
+__device__ __forceinline__ uint32_t deq_pair(uint32_t lo, uint32_t hi,
+                                             int which, float s, float c) {
+  const uint32_t sel = 0x7604u | (which << 4);   // 0x47, 0, byte, 0
+  return pack_bf16(fmaf(__uint_as_float(__byte_perm(lo, 0x47000000u, sel)),
+                        s, c),
+                   fmaf(__uint_as_float(__byte_perm(hi, 0x47000000u, sel)),
+                        s, c));
+}
+
+// four consecutive columns of a row (int8 weights' renamed columns)
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(bf16* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(a, b), pack_bf16(c, d));
 }
 
 template <bool kNK, bool kXStream, int kRows, bool kQ>
@@ -249,11 +272,9 @@ gemm_bf16_kernel(const bf16* __restrict__ x,   // (M, K)
   // either way rows of an odd number of 16-byte chunks
   const int xld = kXStream ? kBK + 8 : per * kBK + 8;
   const int x_stage = kXStream ? Mp * xld : 0;   // elements a stage
-  unsigned char* base =
+  unsigned char* base =   // the ring, 1024-byte aligned
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  // int8: the converted bf16 tile first (1024-byte aligned), then the ring
-  const uint32_t conv = smem_addr(base);
-  const uint32_t ring = conv + (kQ ? kTileBytes : 0);     // [kStages][kSlot]
+  const uint32_t ring = smem_addr(base);                  // [kStages][kSlot]
   const uint32_t full = ring + kStages * kSlot;           // [kStages] u64
   bf16* xs = reinterpret_cast<bf16*>(smem_raw + ring_bytes(kStages, kQ));
   float* part = reinterpret_cast<float*>(
@@ -325,7 +346,9 @@ gemm_bf16_kernel(const bf16* __restrict__ x,   // (M, K)
   __syncthreads();   // barriers initialised (and resident x staged)
 
   float acc[kRows / 16][2][4];
-  float sc[16];   // int8: the bf16-rounded scales of this thread's columns
+  // int8: this thread's columns 2g + nt of the warp's 16 (n-tile nt),
+  // their bf16-rounded scales and -32896 x each
+  float sq[2], cq[2];
   int slot = 0, t = 0, j = 0;   // stage s's ring slot, k-tile and item
   uint32_t phase = 0;           // of the slot's barrier
   for (int s = 0; s < total; ++s) {
@@ -341,55 +364,48 @@ gemm_bf16_kernel(const bf16* __restrict__ x,   // (M, K)
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-    }
-    if (kQ) {
-      // The int8 tile into the bf16 tile: thread t converts 16-byte chunk
-      // t % 4 (columns 16 (t % 4) ..) of rows t / 4 and t / 4 + 32.  A
-      // new item first takes its columns' scales.
-      const int cc = threadIdx.x & 3;
-      if (t == 0) {
+      if (kQ) {   // a new item: its columns' scales
         int p, tile;
         locate(g, cid + j * n_clusters, p, tile);
         const float* sp = pick(g.scale, p);
         const int ns = pick(g.ns, p), N = pick(g.n, p);
-        const int c0 = tile * kBN + cc * 16;
 #pragma unroll
-        for (int i = 0; i < 16; ++i)
-          sc[i] = c0 + i < N
-                      ? __bfloat162float(__float2bfloat16_rn(sp[(c0 + i) % ns]))
-                      : 0.f;
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = tile * kBN + warp * 16 + 2 * (lane >> 2) + nt;
+          sq[nt] = col < N ? __bfloat162float(
+                                 __float2bfloat16_rn(sp[col % ns]))
+                           : 0.f;
+          cq[nt] = -32896.f * sq[nt];
+        }
       }
-      const unsigned char* src =
-          base + kTileBytes + (size_t)slot * kTileBytesQ;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = (threadIdx.x >> 2) + 32 * h;
-        const int4 v = *reinterpret_cast<const int4*>(src + row * 64 + cc * 16);
-        const int8_t* q = reinterpret_cast<const int8_t*>(&v);
-        uint4 lo, hi;
-        lo.x = deq2(q[0], q[1], sc[0], sc[1]);
-        lo.y = deq2(q[2], q[3], sc[2], sc[3]);
-        lo.z = deq2(q[4], q[5], sc[4], sc[5]);
-        lo.w = deq2(q[6], q[7], sc[6], sc[7]);
-        hi.x = deq2(q[8], q[9], sc[8], sc[9]);
-        hi.y = deq2(q[10], q[11], sc[10], sc[11]);
-        hi.z = deq2(q[12], q[13], sc[12], sc[13]);
-        hi.w = deq2(q[14], q[15], sc[14], sc[15]);
-        unsigned char* dst = base + row * 128;
-        *reinterpret_cast<uint4*>(dst + (((2 * cc) ^ (row & 7)) << 4)) = lo;
-        *reinterpret_cast<uint4*>(dst + (((2 * cc + 1) ^ (row & 7)) << 4)) =
-            hi;
-      }
-      __syncthreads();   // the bf16 tile is whole
     }
-    // the box's 128-byte rows hold 16-byte chunk c at c ^ (row % 8); the
-    // 8 rows an ldmatrix phase reads have row % 8 == lane % 8
-    const uint32_t wt = kQ ? conv : ring + slot * kTileBytes;
+    // bf16: the box's 128-byte rows hold 16-byte chunk c at c ^ (row % 8);
+    // the 8 rows an ldmatrix phase reads have row % 8 == lane % 8.  int8:
+    // the 64-byte rows hold chunk c at c ^ (row / 2 % 4) (the swizzle XORs
+    // address bits 7-8 into 4-5); rows 16kk + 2tig (+ 1, 8, 9) have
+    // row / 2 % 4 == tig, and the warp's columns are chunk `warp`
+    const uint32_t wt = ring + slot * kSlot;
+    const unsigned char* wq =
+        base + slot * kSlot + 128 * (lane & 3) +
+        (((warp ^ (lane & 3)) << 4) | (2 * (lane >> 2)));
     const bf16* Xs = kXStream ? xs + slot * x_stage : xs + t * kBK;
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       uint32_t b[4];   // k 16kk.. (lo 8, hi 8) x this warp's 16 columns
-      if (kNK) {   // rows n, chunks of k
+      if (kQ) {        // words of rows 16kk + 2tig, + 1, + 8, + 9
+        const unsigned char* w = wq + kk * 16 * 64;
+        const uint32_t w0 = *reinterpret_cast<const uint16_t*>(w) ^ 0x8080u;
+        const uint32_t w1 =
+            *reinterpret_cast<const uint16_t*>(w + 64) ^ 0x8080u;
+        const uint32_t w8 =
+            *reinterpret_cast<const uint16_t*>(w + 8 * 64) ^ 0x8080u;
+        const uint32_t w9 =
+            *reinterpret_cast<const uint16_t*>(w + 9 * 64) ^ 0x8080u;
+        b[0] = deq_pair(w0, w1, 0, sq[0], cq[0]);   // n-tile 0: columns 2g
+        b[1] = deq_pair(w8, w9, 0, sq[0], cq[0]);
+        b[2] = deq_pair(w0, w1, 1, sq[1], cq[1]);   // n-tile 1: 2g + 1
+        b[3] = deq_pair(w8, w9, 1, sq[1], cq[1]);
+      } else if (kNK) {   // rows n, chunks of k
         const int row = warp * 16 + (lane >> 4) * 8 + (lane & 7);
         const int ch = kk * 2 + ((lane >> 3) & 1);
         ldmatrix_x4(b, wt + row * 128 + ((ch ^ (lane & 7)) << 4));
@@ -432,10 +448,22 @@ gemm_bf16_kernel(const bf16* __restrict__ x,   // (M, K)
 #pragma unroll
       for (int mt = 0; mt < kRows / 16; ++mt) {
         if (mt < n_mt) {
+          const int r = mt * 16 + (lane >> 2);
+          if (kQ) {   // renamed columns: 4tig.. = n-tiles 0, 1 of c0, c1
+            const int col = n0 + warp * 16 + 4 * (lane & 3);
+            if (col < N) {
+              if (r < M)
+                store4(y + (size_t)r * N + col, acc[mt][0][0],
+                       acc[mt][1][0], acc[mt][0][1], acc[mt][1][1]);
+              if (r + 8 < M)
+                store4(y + (size_t)(r + 8) * N + col, acc[mt][0][2],
+                       acc[mt][1][2], acc[mt][0][3], acc[mt][1][3]);
+            }
+            continue;
+          }
 #pragma unroll
           for (int nt = 0; nt < 2; ++nt) {
             const int col = n0 + warp * 16 + nt * 8 + 2 * (lane & 3);
-            const int r = mt * 16 + (lane >> 2);
             if (col < N) {
               if (r < M)
                 store2(y + (size_t)r * N + col, acc[mt][nt][0],
@@ -456,10 +484,18 @@ gemm_bf16_kernel(const bf16* __restrict__ x,   // (M, K)
 #pragma unroll
     for (int mt = 0; mt < kRows / 16; ++mt) {
       if (mt < n_mt) {
+        const int r = mt * 16 + (lane >> 2);
+        if (kQ) {
+          const int c = warp * 16 + 4 * (lane & 3);
+          store4(mine + r * kPartLd + c, acc[mt][0][0], acc[mt][1][0],
+                 acc[mt][0][1], acc[mt][1][1]);
+          store4(mine + (r + 8) * kPartLd + c, acc[mt][0][2], acc[mt][1][2],
+                 acc[mt][0][3], acc[mt][1][3]);
+          continue;
+        }
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
           const int c = warp * 16 + nt * 8 + 2 * (lane & 3);
-          const int r = mt * 16 + (lane >> 2);
           store2(mine + r * kPartLd + c, acc[mt][nt][0], acc[mt][nt][1]);
           store2(mine + (r + 8) * kPartLd + c, acc[mt][nt][2],
                  acc[mt][nt][3]);
@@ -504,15 +540,15 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
 
 // The tensor map of a bf16 weight whose rows hold `inner` elements
 // (`outer` rows), in 64 x 64 boxes with the 128-byte swizzle and zeros
-// past its edges; of an int8 weight (`q`), in 64 x 64 boxes of bytes,
-// unswizzled.  Weights do not move, so maps are cached by (pointer,
-// inner, outer, element type): the same key always encodes the same map
-// (an int8 weight at a freed bf16 weight's address never takes its map),
-// so a slot may
-// be taken over by another key, whose weight's map is then encoded
-// again.  A launch copies its maps into its parameters (a captured graph
-// keeps its own copies).  The cache is shared by every host thread that
-// launches (the replicas of a serving cluster), so it is read and written
+// past its edges; of an int8 weight (`q`), in 64 x 64 boxes of bytes
+// with the 64-byte swizzle.  Weights do not move, so maps are cached by
+// (pointer, inner, outer, element type): the same key always encodes the
+// same map (an int8 weight at a freed bf16 weight's address never takes
+// its map), so a slot may be taken over by another key, whose weight's
+// map is then encoded again.  A launch copies its maps into its
+// parameters (a captured graph keeps its own copies).  The cache is
+// shared by every host thread that launches (the replicas of a serving
+// cluster), so it is read and written
 // under one lock.
 int weight_map(const void* w, int inner, int outer, bool q,
                CUtensorMap* out) {
@@ -561,7 +597,7 @@ int weight_map(const void* w, int inner, int outer, bool q,
                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
              2, const_cast<void*>(w), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE,
-             q ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+             q ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
     slot->w = nullptr;   // no half-written entry is ever matched

@@ -840,7 +840,7 @@ class _DecodeGemm(CudaKernel):
         contiguous tables; or every ``w`` an int8 ``QuantizedTensor``
         (``q`` a contiguous ``(K, N_i)`` matrix, its fp32 scales ``s``
         of one column each, column ``n`` reading ``s[n % len(s)]``), for
-        ``x @ deq(w, x.dtype)``: the kernel dequantizes each tile as
+        ``x @ deq(w, x.dtype)``: the kernel dequantizes each element as
         ``deq`` does, so the result has the bits of the dense call on
         the dequantized weight.  Each result's bits are those of its
         product alone.  On the card the rows go in blocks of

@@ -795,12 +795,17 @@ def test_decode_gemm_rejects_what_it_does_not_take(cuda):
 #: int8 decode products (K, N, scales): granite-3-2b's (wq and wk/wv read
 #: one scale per head_dim index, 64; wo and the MLP one per column), then
 #: jamba-1.5-large-398b's (q, k/v over 128, the mamba in- and
-#: out-projections, the dense MLP), and a ragged width
+#: out-projections, the dense MLP), and ragged widths: the kernel renames
+#: a warp's 16 columns, so the last 64-column tile is tried with 1, 3 and
+#: 1 of its 4 warps' columns in N (80, 48, 208) and with 16 repeating
+#: scales (112); then K of an odd number of 64-deep k-tiles a split
+#: (1088: 2 splits of 9 and 8; 8256: 8 splits, the last of 10)
 QGEMM_SHAPES = [(2048, 2048, 64), (2048, 512, 64), (2048, 8192, 8192),
                 (8192, 2048, 2048), (8192, 8192, 128), (8192, 1024, 128),
                 (8192, 33280, 33280), (16384, 8192, 8192),
                 (8192, 24576, 24576), (24576, 8192, 8192),
-                (1024, 80, 80)]
+                (1024, 80, 80), (1024, 48, 48), (2048, 112, 16),
+                (4096, 208, 208), (1088, 256, 256), (8256, 192, 192)]
 
 
 def _int8_weight(g, K, N, ns):
@@ -842,7 +847,8 @@ def test_int8_decode_gemm_equals_dense_on_deq(cuda, dtype, K, N, ns):
 @pytest.mark.parametrize("K,shapes", [
     (2048, ((2048, 64), (512, 64), (512, 64))),      # granite q/k/v
     (8192, ((8192, 128), (1024, 128), (1024, 128))),  # jamba q/k/v
-    (8192, ((24576, 24576), (24576, 24576)))])        # jamba gate/up
+    (8192, ((24576, 24576), (24576, 24576))),         # jamba gate/up
+    (1024, ((80, 80), (48, 16), (208, 208)))])         # ragged last tiles
 def test_int8_decode_gemm_group_equals_single_products(cuda, dtype, K,
                                                        shapes):
     """One grouped int8 launch gives every product the bits of its own
@@ -1382,6 +1388,27 @@ def test_flash_backward_gives_the_same_bits_every_run(cuda, dtype):
         _, second = _flash_grads(q, k, v, dout)
         for a, b in zip(first, second):
             assert torch.equal(a, b)
+
+
+def test_flash_backward_calls_give_the_same_bits_in_fp32(cuda):
+    """Two direct calls of the fp32 backward (the 3xTF32 tensor-core body)
+    on the same inputs give the same bits at every shape of the sweep,
+    hd 16 to 128; one launch each."""
+    g = torch.Generator(cuda).manual_seed(29)
+    for B, S, H, KV, hd in FLASH_BWD_SHAPES:
+        q = _randn(g, torch.float32, B, S, H, hd)
+        k = _randn(g, torch.float32, B, S, KV, hd)
+        v = _randn(g, torch.float32, B, S, KV, hd)
+        dout = _randn(g, torch.float32, B, S, H, hd)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda)
+        out = ops.flash_attention.run(q, k, v, lse)
+        before = ops.flash_attention_bwd.launches
+        first = ops.flash_attention_bwd(q, k, v, out, dout, lse)
+        second = ops.flash_attention_bwd(q, k, v, out, dout, lse)
+        torch.cuda.synchronize()
+        assert ops.flash_attention_bwd.launches == before + 2
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), (B, S, H, KV, hd)
 
 
 def test_kernels_without_a_backward_raise_under_grad(cuda):

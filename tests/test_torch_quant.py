@@ -170,6 +170,39 @@ def test_deq_matches_jax_bit_for_bit(dtype):
                                       jnp.asarray(q), jnp.asarray(s)))))
 
 
+def _deq_in_registers(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The int8 decode GEMM's conversion (csrc/decode_gemm.cu,
+    ``deq_pair``) as a plain function: the byte ``q xor 0x80`` placed in
+    the mantissa of 2^15 (bits 8-15 of ``0x47000000``) is the fp32 2^15 +
+    128 + q; one fma with the column's bf16-rounded scale ``s`` and ``c =
+    -32896 s`` (exact in fp32) gives ``q s``, rounded once to bf16."""
+    u = (q.to(torch.int32) & 0xFF) ^ 0x80
+    f = (0x47000000 | (u << 8)).view(torch.float32)
+    sb = s.to(torch.bfloat16).float()
+    c = -32896.0 * sb
+    assert torch.equal(c.double(), -32896.0 * sb.double())   # exact
+    # the fma: the product exact in fp64 (24 + 8 bits), one rounding
+    return (f.double() * sb.double() + c.double()).float().to(torch.bfloat16)
+
+
+def test_int8_gemm_conversion_gives_deq_bits():
+    """Over every int8 value and 80 drawn scales (decades around the
+    quantizer's ``amax / 127``, its smallest ``1e-8 / 127`` among them),
+    the decode GEMM's in-register conversion has the bits of ``deq(w,
+    bf16)``, which the int8 body is held to bit for bit."""
+    rng = np.random.default_rng(29)
+    s = np.concatenate([10.0 ** rng.uniform(-6, 1, 76),
+                        [1e-8 / 127, 1 / 127, 0.5 / (127 * 2048 ** 0.5),
+                         3.0]]).astype(np.float32)
+    q = torch.arange(-128, 128, dtype=torch.int8)[:, None].repeat(1, s.size)
+    st = torch.from_numpy(s)
+    got = _deq_in_registers(q, st[None, :])
+    want = deq(QuantizedTensor(q, st), torch.bfloat16)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert torch.equal(got.float(), (q.float() * st.bfloat16().float())
+                       .bfloat16().float())
+
+
 def test_slices_share_the_reduced_scales():
     """``leaf[i]`` keeps layer ``i``'s scales; a scale axis of one (a
     superblock's slots, an MoE block's experts) is shared by every
