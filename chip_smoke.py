@@ -291,7 +291,8 @@ no result line:
    ``ops.ssd_scan``'s autograd route) against autograd of the plain
    version over ``SSD_BWD_SWEEP`` (mamba2-130m's 4 x 1,024 x 24 x 64, N
    128, chunk 256; jamba-1.5-large-398b's 256 heads at S 512; the CPU
-   sweep): bf16 within ``SSD_BWD_BF16`` of the leaf's largest gradient,
+   sweep; ragged tiles of the tensor-core bodies, over 2 chunks and in
+   one): bf16 within ``SSD_BWD_BF16`` of the leaf's largest gradient,
    fp32 against an fp64 oracle within ``SSD_BWD_FP32``, every gradient
    bit for bit the same on a second run, the forward's bits those of a
    launch without grad; (b) full-width,
@@ -316,7 +317,9 @@ no result line:
    versions (48 scan launches, 24 of its backward), then at
    ``unit_scale`` each leaf's distance from a run on fp64 weights
    within ``TRAIN_SSM_FP64`` of the plain path's, and (c)'s 6 trainer
-   steps, only the scan and its backward launched; (f) (c)'s trainer in
+   steps, only the scan and its backward launched, the profiled step's
+   backward kernels held by name to its 3xTF32 tensor-core body
+   (``Tf32x3``); (f) (c)'s trainer in
    bf16 (``TRAIN_BF16``: 4 steps, flash's bf16 forward and tensor-core
    backward (``Bf16``) on every layer, losses and norms finite); then the flash
    backward timed at granite's shape in fp32 (the path's dtype) and
@@ -325,9 +328,11 @@ no result line:
    and SDPA's backward, with its bound (five products, 2.5x the
    forward's causal operations; in fp32 also on the tensor cores at the
    TF32 rate, three products each), and
-   the scan's backward at mamba2-130m's, beside autograd of the plain
-   version, with its bound (``ssd_bwd_flops``, ~2.3x the forward's, at
-   the operands' rate).
+   the scan's backward at mamba2-130m's in fp32 and bf16, host-inclusive
+   and in device time by kernel, beside autograd of the plain version,
+   with its bound (``ssd_bwd_flops``, ~2.3x the forward's) at the
+   operands' rate and on the tensor cores (three TF32 products in fp32,
+   two bf16 products in bf16).
 
 Each phase sets its engine's mode itself; ``REPRO_SPEC_DECODE``,
 ``REPRO_PAGED_KV`` and ``REPRO_PREFIX_CACHE`` are dropped if set.  The
@@ -4775,6 +4780,13 @@ FLASH_BWD_FP32 = (4.0, 1e-5)
 #: ``torch.profiler``
 FLASH_FWD_KERNELS = ("prefill_attention_kernel", "prefill_mma_kernel")
 FLASH_BWD_KERNELS = ("delta_kernel", "dkv_mma_kernel", "dq_mma_kernel")
+#: the scan backward's kernels (``csrc/ssd_scan_bwd.cu``): those with
+#: products, whose template argument names the body (``Tf32x3`` for fp32,
+#: ``Bf16``), and the small serial ones on the CUDA cores
+SSD_BWD_TC_KERNELS = ("state_kernel", "pair_kernel", "dx_kernel",
+                      "bc_state_kernel", "bc_final_kernel")
+SSD_BWD_SCALAR_KERNELS = ("cum_kernel", "carry_kernel", "da_kernel",
+                          "dA_kernel")
 #: phase 11's runs: granite-3-2b in fp32 at 4 x 1,024 tokens; the
 #: trainer's steps on a repeated batch; the crash step and the depth of
 #: the resume check (a small checkpoint); the wrappers a step launches
@@ -4784,7 +4796,8 @@ TRAIN = dict(arch="granite-3-2b", B=4, S=1024, steps=6, crash_at=4,
              resume_layers=2, unit_scale=True,
              kernels=("flash_attention", "flash_attention_bwd"),
              device_kernels=(FLASH_FWD_KERNELS, FLASH_BWD_KERNELS),
-             bwd_body="Tf32x3")
+             bwd_body="Tf32x3", bwd_kernels=FLASH_BWD_KERNELS[1:],
+             bwd_scalar=FLASH_BWD_KERNELS[:1])
 #: 11f: granite-3-2b in bf16 (``TrainerConfig.dtype``) at full width and
 #: depth, 4 x 1,024 tokens, through the bf16 tensor-core backward: 11c's
 #: trainer steps and checks, fewer steps
@@ -4800,7 +4813,9 @@ TRAIN_BF16 = dict(TRAIN, steps=4, dtype=torch.bfloat16, bwd_body="Bf16")
 TRAIN_SSM = dict(arch="mamba2-130m", B=4, S=1024, steps=6, unit_scale=False,
                  kernels=("ssd_scan", "ssd_scan_bwd"),
                  device_kernels=(("repro_ssd::",), ("repro_ssd_bwd::",)),
-                 fp64="ssd_chunk_scan")
+                 fp64="ssd_chunk_scan", bwd_body="Tf32x3",
+                 bwd_kernels=SSD_BWD_TC_KERNELS,
+                 bwd_scalar=SSD_BWD_SCALAR_KERNELS)
 #: 11e at ``unit_scale``: each leaf's distance from the fp64 run through
 #: the kernels within this multiple of plain fp32's, plus this floor
 #: relative to the leaf's largest |gradient| (measured, H100, 700 W: at
@@ -4815,10 +4830,14 @@ TRAIN_LOSS_TOL = 1e-5   # 0 measured
 TRAIN_RESUME_TOL = 1e-4   # 0 measured: the same bits
 #: 11a's SSD backward sweep (B, S, H, P, N, chunk): mamba2-130m's
 #: training shape (``SSD_MAIN``), jamba-1.5-large-398b's mamba width
-#: (H 256, P 64, N 128) at S 512, and ``SSD_SWEEP``
+#: (H 256, P 64, N 128) at S 512, ``SSD_SWEEP``, and ragged tiles of the
+#: tensor-core bodies: a chunk that is no multiple of 64, H no multiple
+#: of the 8-head group, N and P below the padded widths (over 2 chunks,
+#: and in one chunk: no state, no carry)
 SSD_BWD_SWEEP = ([tuple(SSD_MAIN[k] for k in ("B", "S", "H", "P", "N",
                                                "chunk")),
-                  (1, 512, 256, 64, 128, 256)] + SSD_SWEEP)
+                  (1, 512, 256, 64, 128, 256)] + SSD_SWEEP
+                 + [(2, 200, 9, 48, 100, 100), (2, 130, 9, 40, 72, 130)])
 #: fp32 gradients against an fp64 oracle: the kernel's largest error
 #: within this multiple of the plain fp32 autograd's, plus this share of
 #: the leaf's largest |gradient|
@@ -5191,11 +5210,15 @@ def run_trainer_steps(rt, ops, dev, seed: int, out: Path,
             name = e.key.split("(")[0].removeprefix("void ")
             by_kernel[name] = (by_kernel.get(name, 0.0)
                                + e.self_device_time_total / 1e3 / n_layers)
+    # the kernels with products run the dtype's tensor-core body, by name
     body = run.get("bwd_body")
-    if body is not None and not all(
-            body in n for n in by_kernel if "delta_kernel" not in n):
-        raise AssertionError(f"{bwd_name} in {str(dtype)[6:]} did not run "
-                             f"its {body} body: {sorted(by_kernel)}")
+    if body is not None:
+        bare = {n: n.split("<")[0].split("::")[-1] for n in by_kernel}
+        tc = [n for n in by_kernel if bare[n] not in run["bwd_scalar"]]
+        if (sorted(bare[n] for n in tc) != sorted(run["bwd_kernels"])
+                or not all(body in n for n in tc)):
+            raise AssertionError(f"{bwd_name} in {str(dtype)[6:]} did not "
+                                 f"run its {body} body: {sorted(by_kernel)}")
     log("  the step's device time by kernel: " + "; ".join(
         f"{ms:.1f} ms {k[:70]}" for ms, k in dev_ms[:8]))
     log(f"  one step under torch.profiler: wall {wall * 1e3:.1f} ms, device "
@@ -5338,24 +5361,33 @@ def ssd_bwd_flops(B, S, H, P, N, chunk) -> int:
 
 def time_ssd_bwd(ops, L, g, dtype, B, S, H, P, N, chunk) -> dict:
     """The scan's backward kernel at one shape (x, b, c, dy in
-    ``dtype``), beside autograd of the plain version, with its bound at
-    the operands' rate (``ssd_bwd_flops``; each input read once, each
-    gradient written once).  No single PyTorch call computes it: no
+    ``dtype``), host-inclusive and in device time by kernel, beside
+    autograd of the plain version, with its bound at the operands' rate
+    (``ssd_bwd_flops``; each input read once, each gradient written once)
+    and on the tensor cores in the units its body uses (``bound_tc_ms``:
+    fp32 three TF32 products a product, bf16 two bf16 products, as for
+    the split fp32 operands).  No single PyTorch call computes it: no
     yardstick."""
     def inputs():
         return (*ssd_inputs(g, dtype, B, S, H, P, N),
                 _randn(g, dtype, B, S, H, P))
     x0 = inputs()
     sets = [x0] + [inputs() for _ in range(n_sets(_nbytes(*x0)) - 1)]
-    b_ms, b_by = bound(2 * _nbytes(*x0) - _nbytes(x0[5]),
-                       ssd_bwd_flops(B, S, H, P, N, chunk), dtype)
+    nbytes = 2 * _nbytes(*x0) - _nbytes(x0[5])
+    flops = ssd_bwd_flops(B, S, H, P, N, chunk)
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    tc_ms, tc_by = (bound(nbytes, 3 * flops, "tf32")
+                    if dtype == torch.float32
+                    else bound(nbytes, 2 * flops, torch.bfloat16))
     kernel = lambda *t: ops.ssd_scan_bwd(*t, chunk=chunk)  # noqa: E731
     got, want = kernel(*x0), L.ssd_chunk_scan_bwd(*x0, chunk)
+    by_kernel = device_us_by_kernel(kernel, x0, 10)
     return dict(
         shape=dict(B=B, S=S, H=H, P=P, N=N, chunk=chunk,
                    dtype=str(dtype)[6:]),
         ms=time_ms(kernel, sets, 10),
-        device_us_by_kernel=device_us_by_kernel(kernel, x0, 10),
+        device_ms=sum(by_kernel.values()) / 1e3,
+        device_us_by_kernel=by_kernel, bound_tc_ms=tc_ms, bound_tc_by=tc_by,
         plain_ms=time_ms(lambda *t: L.ssd_chunk_scan_bwd(*t, chunk),
                          sets[:2], 10),
         library_ms=None, library="none: no single PyTorch call",
@@ -5421,11 +5453,14 @@ def run_training_phase(rt, ops, L, dev, seed: int, out: Path,
         for dt in (torch.float32, torch.bfloat16)}
     for name, r in ssd_timing.items():
         log(f"  ssd_scan_bwd {name} {json.dumps(r['shape'])}: kernel "
-            f"{r['ms']:.4f} ms, plain autograd {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), kernel/bound "
-            f"{r['ms'] / r['bound_ms']:.1f}x; device us by kernel "
-            + str({k[:40]: round(us, 1)
-                   for k, us in r["device_us_by_kernel"].items()}))
+            f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain autograd "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), kernel/bound {r['ms'] / r['bound_ms']:.1f}x; "
+            f"tensor-core bound {r['bound_tc_ms']:.4f} ms ({r['bound_tc_by']}"
+            f"), kernel/bound {r['ms'] / r['bound_tc_ms']:.1f}x; device us "
+            "by kernel " + str({k.removeprefix("void ").removeprefix(
+                "repro_ssd_bwd::"): round(us, 1)
+                for k, us in r["device_us_by_kernel"].items()}))
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
     return dict(sweep=sweep, ssd_sweep=ssd_sweep, gradients=grads,
                 steps=steps, resume=resume, ssm_gradients=ssm_grads,
@@ -5648,11 +5683,12 @@ def main() -> int:
                 max_abs_err=max(checks.max_err[k.name], r16["max_abs_err"]),
                 ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
-                bound_tc_ms=r.get("bound_tc_ms"),
+                bound_tc_ms=r.get("bound_tc_ms"), device_ms=r.get("device_ms"),
                 shape=r["shape"], fp32_max_abs_err=r["max_abs_err"],
-                bf16={x: r16[x] for x in ("shape", "ms", "plain_ms",
-                                          "library_ms", "bound_ms",
-                                          "bound_by")}))
+                bf16={x: r16.get(x) for x in ("shape", "ms", "plain_ms",
+                                              "library_ms", "bound_ms",
+                                              "bound_by", "bound_tc_ms",
+                                              "device_ms")}))
             continue
         r = timing["main"][k.name]
         # each kernel with the launches of the path it was timed for: the

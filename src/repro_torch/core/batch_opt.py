@@ -110,6 +110,17 @@ def optimal_batch_sizes(
     def _align2(b2i: int) -> int:
         return math.ceil(r2 / math.ceil(r2 / b2i))
 
+    def _aligned_up_to(b2i: int):
+        """Each b2 <= b2i that starts a new right-hand call count, largest
+        first: ceil(r2 / k) over the k where it changes value."""
+        k = math.ceil(r2 / b2i)
+        while True:
+            b = math.ceil(r2 / k)
+            yield b
+            if b == 1:
+                return
+            k = math.ceil(r2 / (b - 1))
+
     def _true_cost(b1i: int, b2i: int) -> float:
         outer = math.ceil(r1 / b1i)
         calls = outer * math.ceil(r2 / b2i)
@@ -143,10 +154,14 @@ def optimal_batch_sizes(
             b2i -= 1
         if not _feasible(b1i, b2i):
             continue
-        b2i = _align2(b2i)
-        c = _true_cost(b1i, b2i)
-        if c < best_cost:
-            best, best_cost = (b1i, b2i), c
+        # not only the boundary's b2: where output tokens dominate, a
+        # smaller b2 and more calls can cost less (ROADMAP.md C4: at r1 60,
+        # r2 40, s 2 / 16 / 2, sigma 1, t 936 the boundary's (60, 6) costs
+        # 6,622 against 6,480 at (60, 5))
+        for b2a in _aligned_up_to(_align2(b2i)):
+            c = _true_cost(b1i, b2a)
+            if c < best_cost:
+                best, best_cost = (b1i, b2a), c
 
     if best is None:
         return 1, 1  # feasibility of (1,1) was checked at entry

@@ -1468,11 +1468,14 @@ def test_kernels_without_a_backward_raise_under_grad(cuda):
 
 #: mamba2-130m's training shape, jamba-1.5-large-398b's mamba width at S
 #: 512, the CPU sweep, S 1024 in 8 chunks, and ragged tiles (chunk 100,
-#: P 40, N 100)
+#: P 40, N 100); S in one chunk (no state, no carry) at mamba2-130m's
+#: and at jamba's 256 heads; a chunk of 100 with H 9, no multiple of the
+#: 8-head group, P 48 and N 100 below the padded widths
 SSD_BWD_SHAPES = [(4, 1024, 24, 64, 128, 256), (1, 512, 256, 64, 128, 256),
                   (1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16),
                   (1, 48, 4, 8, 16, 12), (2, 1024, 24, 64, 128, 128),
-                  (1, 300, 3, 40, 100, 100)]
+                  (1, 300, 3, 40, 100, 100), (2, 256, 24, 64, 128, 256),
+                  (1, 256, 256, 64, 128, 256), (2, 200, 9, 48, 100, 100)]
 SSD_GRADS = ("dx", "ddt", "dA", "db", "dc")
 
 
@@ -1522,6 +1525,27 @@ def test_ssd_backward_on_card(cuda, dtype, B, S, H, P, N, chunk):
         plain = float((w.double() - o).abs().max())
         assert err <= 4 * plain + 1e-6 * float(o.abs().max()), (
             name, err, plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_unaligned_rows_give_the_same_bits(cuda, dtype):
+    """x, b, c and dy at an address off the 16-byte grid go through the
+    backward's scalar staging: the same bits as the cp.async staging of
+    the same values, over several chunks of two 64-row tiles."""
+    g = torch.Generator(cuda).manual_seed(10)
+    x, dt, A, b, c = _ssd_inputs(g, dtype, 2, 512, 4, 64, 128)
+    dy = _randn(g, dtype, 2, 512, 4, 64)
+
+    def shifted(t):   # the same values one element past a 16-byte address
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    want = ops.ssd_scan_bwd(x, dt, A, b, c, dy, chunk=128)
+    got = ops.ssd_scan_bwd(shifted(x), dt, A, shifted(b), shifted(c),
+                           shifted(dy), chunk=128)
+    for name, a, w in zip(SSD_GRADS, got, want):
+        assert torch.equal(a, w), name
 
 
 def test_ssd_backward_sums_b_and_c_over_the_heads(cuda):
