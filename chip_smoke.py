@@ -330,9 +330,27 @@ no result line:
    TF32 rate, three products each), and
    the scan's backward at mamba2-130m's in fp32 and bf16, host-inclusive
    and in device time by kernel, beside autograd of the plain version,
-   with its bound (``ssd_bwd_flops``, ~2.3x the forward's) at the
+   with its bound (``roofline.ssd_bwd_flops``, ~2.3x the forward's) at the
    operands' rate and on the tensor cores (three TF32 products in fp32,
    two bf16 products in bf16).
+12. The planner (``repro_torch.launch.dryrun``: each pass traced on meta
+   tensors under ``utils.op_analysis``, every kernel wrapper on its meta
+   branch, costed by ``utils.roofline``).  Its table of every arch x
+   cell is traced by ``PLANNER_WORKERS`` processes of lowest priority
+   started right after phase 1 (meta tensors on the host, no card), and
+   read and printed here: fits the card, peak, FLOPs, bytes, dominant
+   term, bound.  Then held against the card: the wrappers' mirrors of
+   the library's plans (the split-context chunk, the fp32 GEMM's splits,
+   the scan's scratch) equal to the library's; 11c's and 11f's trainer
+   step planned at their shapes and dtypes, its launches by kernel equal
+   to the run's a step, its peak within ``PLANNER_PEAK_TOL`` of
+   ``max_memory_allocated`` (less what was allocated before the run),
+   its bound at most the profiled step's device time (the share
+   printed); one granite decode pass at phase 4's engine shape (phase
+   9's captured paged decode pass: its inputs' shapes), its launches
+   equal to a replay's, its bound at most the replay's device time, its
+   decode GEMM bytes within ``PLANNER_WEIGHT_TOL`` of PERF.md's pass
+   bound (``GEMM_PASS_BOUND_MS``).  The phase prints its time.
 
 Each phase sets its engine's mode itself; ``REPRO_SPEC_DECODE``,
 ``REPRO_PAGED_KV`` and ``REPRO_PREFIX_CACHE`` are dropped if set.  The
@@ -345,7 +363,8 @@ grok-1-314b's and arctic-480b's shapes, ``yi_9b``, ``grok_1_314b``,
 ``arctic_480b``; the decode GEMM's int8 variant at granite's M 4 and 36
 and jamba's M 4, ``int8``), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
-the repository's ``src/`` beside it.
+the repository's ``src/`` beside it; the planner's processes (phase 12)
+are stopped when it exits.
 """
 
 from __future__ import annotations
@@ -375,10 +394,6 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12                # H100 SXM, NVIDIA's data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12,    # dense tensor-core rate
-              torch.float32: 67e12,      # fp32 outside the tensor cores
-              "tf32": 495e12}            # TF32 on the tensor cores
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
 L2_BYTES = 50 * 2 ** 20
 MAIN = dict(H=32, KV=8, hd=64, page=16, B=4)   # granite-3-2b at full width
@@ -2260,7 +2275,12 @@ def bench_pass(ops, engine, kind: str, label: str) -> dict:
         replay_kernels_ms=kernels_ms["replay"],
         warm_s=graph.warm_s, capture_s=graph.capture_s,
         pool_mib=graph.pool_bytes / 2 ** 20,
-        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        # a pass's launches (a replay adds them, as an eager pass does),
+        # and its inputs' shapes and dtypes: phase 12 plans the pass
+        launches={k.name: n for k, n, _ in graph.delta},
+        inputs={n: [list(t.shape), str(t.dtype)[6:]]
+                for n, t in graph.inputs.items()})
     engine.release_state(state)
     med = {k: float(np.median(out[k])) for k in (
         "eager_host_ms", "eager_span_ms", "graph_host_ms", "graph_span_ms")}
@@ -2728,7 +2748,7 @@ def expert_share(rt, L, engine) -> dict:
                  for w in ("w_gate", "w_up", "w_down"))
     out = dict(pass_ms=pass_ms, experts_ms=experts_ms,
                share=experts_ms / pass_ms, expert_gb=nbytes / 1e9,
-               experts_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               experts_bound_ms=nbytes / roofline().HBM_BW * 1e3,
                slots=G * C, experts=E)
     log(f"  {cfg.name} x {nl}: expert products {experts_ms:.3f} ms of an "
         f"eager decode pass's {pass_ms:.3f} ms device time "
@@ -3510,11 +3530,9 @@ def int8_pass(ops, L, rt, g, calls, M: int, label: str,
     def plain():
         return [L.matmul(xs[k_of(w)], rt.deq(w, dt)) for ws in calls
                 for w in ws]
-    nbytes = sum((w.q.numel() + 4 * w.scale.numel()) if is_int8(w)
-                 else w.numel() * w.element_size() for w in flat) + sum(
-        2 * M * (k_of(w) + (w.q if is_int8(w) else w).shape[1]) for w in flat)
-    flops = 2 * M * sum(w.numel() for w in flat)
-    b_ms, b_by = bound(nbytes, flops, dt)
+    b_ms, b_by = bound(sum(roofline().decode_gemm_cost(
+        M, k_of(w), [(w.q if is_int8(w) else w).shape[1]], dt,
+        scales=[w.scale.numel()] if is_int8(w) else None) for w in flat))
     k_ms, d_ms = in_turns(lambda fn: device_ms(fn, [()], 3),
                           lambda: run(calls), lambda: run(dense_calls))
     lib_ms = device_ms(library, [()], 3)
@@ -3680,8 +3698,8 @@ def hybrid_expert_share(rt, engine, pass_ms: float) -> dict:
                   for w in ("w_gate", "w_up", "w_down"))
     out = dict(experts_ms=ms, pass_ms=pass_ms, share=ms / pass_ms,
                int8_gb=q_bytes / 1e9, slots=G * C, experts=E,
-               int8_bound_ms=q_bytes / HBM_BYTES_PER_S * 1e3,
-               deq_bound_ms=5 * q_bytes / HBM_BYTES_PER_S * 1e3)
+               int8_bound_ms=q_bytes / roofline().HBM_BW * 1e3,
+               deq_bound_ms=5 * q_bytes / roofline().HBM_BW * 1e3)
     log(f"  jamba expert products with their dequantization: {ms:.3f} ms of "
         f"a decode pass's {pass_ms:.3f} ms device time "
         f"({100 * out['share']:.1f}%; {len(slots)} MoE slots x {E} experts x "
@@ -4083,11 +4101,17 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(nbytes: float, flops: float, dtype) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+def roofline():
+    """``repro_torch.utils.roofline``: the card's rates and every kernel's
+    cost function, the one source of the bounds this script states."""
+    from repro_torch.utils import roofline as R
+    return R
+
+
+def bound(cost) -> tuple:
+    """``(ms, "bytes" or "operations")`` of a kernel's
+    :class:`~repro_torch.utils.roofline.KernelCost`."""
+    return cost.bound_ms, cost.bound_by
 
 
 def sdpa():
@@ -4136,9 +4160,7 @@ def time_flash(ops, L, g, dtype, B, S, H, KV, hd, cores=None):
     sets = [x0] + [flash_inputs(g, dtype, B, S, H, KV, hd)
                    for _ in range(n_sets(2 * _nbytes(*x0)) - 1)]
     call = sdpa()
-    pairs = S * (S + 1) // 2
-    b_ms, b_by = bound(_nbytes(*x0) + _nbytes(x0[0]), 4 * hd * pairs * B * H,
-                   dtype)
+    b_ms, b_by = bound(roofline().flash_cost(B, S, H, KV, hd, dtype))
     return dict(
         shape=dict(B=B, S=S, H=H, KV=KV, hd=hd),
         ms=time_ms(ops.flash_attention, sets, 20),
@@ -4166,11 +4188,8 @@ def time_chunked(ops, L, g, dtype, B, S, P, H, KV, hd, plens, cores=None):
     lib_sets = [(s[0], torch.cat([s[3], s[1]], 1), torch.cat([s[4], s[2]], 1))
                 for s in sets]
     call = sdpa()
-    valid = int(plen.clamp(0, P).sum())
-    row = KV * hd * q.element_size()
-    pairs = S * (S + 1) // 2 * B + S * valid
-    b_ms, b_by = bound(_nbytes(q, k, v, plen) + 2 * valid * row + _nbytes(q),
-                   4 * hd * H * pairs, dtype)
+    b_ms, b_by = bound(roofline().chunked_prefill_cost(
+        B, S, P, H, KV, hd, dtype, prefix_len=plens))
     return dict(
         shape=dict(B=B, S=S, P=P, H=H, KV=KV, hd=hd, prefix_len=plens),
         ms=time_ms(ops.chunked_prefill_attention, sets, 20),
@@ -4205,9 +4224,8 @@ def time_decode(ops, L, g, dtype, B, H, KV, hd, page, n_slots, lens,
                                 .to(dtype) for p in (s[1], s[2]))
                 for s in sets]
     call = sdpa()
-    used_slots = sum(-(-n // page) for n in lens)
-    b_ms, b_by = bound(2 * _nbytes(q) + 2 * sum(lens) * KV * hd * es
-                       + 4 * (used_slots + B), 4 * hd * H * sum(lens), dtype)
+    b_ms, b_by = bound(roofline().paged_decode_cost(
+        B, H, KV, hd, page, n_slots, dtype, kp.dtype, cache_len=lens))
     return dict(
         shape=dict(B=B, H=H, KV=KV, hd=hd, page=page, n_slots=n_slots,
                    cache_len=lens, kv_dtype=str(kp.dtype)[6:]),
@@ -4243,10 +4261,8 @@ def time_verify(ops, L, g, dtype, B, K, H, KV, hd, page, n_slots, lens):
     lib_sets = [(s[0],) + tuple(p[s[3].long()].reshape(B, cap, KV, hd)
                                 for p in (s[1], s[2])) for s in sets]
     call = sdpa()
-    keys = sum(min(n + j + 1, cap) for n in lens for j in range(K))
-    used_slots = sum(-(-min(n + K, cap) // page) for n in lens)
-    b_ms, b_by = bound(2 * _nbytes(q) + 2 * read * KV * hd * es
-                       + 4 * (used_slots + B), 4 * hd * H * keys, dtype)
+    b_ms, b_by = bound(roofline().spec_verify_cost(
+        B, K, H, KV, hd, page, n_slots, dtype, cache_len=lens))
     return dict(
         shape=dict(B=B, K=K, H=H, KV=KV, hd=hd, page=page, n_slots=n_slots,
                    cache_len=lens),
@@ -4274,8 +4290,8 @@ def time_dense_decode(ops, L, g, dtype, B, H, KV, hd, Skv, lens):
     mask = (torch.arange(Skv, device=q.device)[None]
             < clen[:, None])[:, None, None]          # (B, 1, 1, Skv)
     call = sdpa()
-    b_ms, b_by = bound(2 * _nbytes(q) + 2 * sum(lens) * KV * hd * es + 4 * B,
-                       4 * hd * H * sum(lens), dtype)
+    b_ms, b_by = bound(roofline().decode_attention_cost(
+        B, H, KV, hd, Skv, dtype, cache_len=lens))
     return dict(
         shape=dict(B=B, H=H, KV=KV, hd=hd, Skv=Skv, cache_len=lens),
         ms=time_ms(ops.decode_attention, sets, 50),
@@ -4297,8 +4313,7 @@ def time_topk(ops, L, g, M, N, D, k):
     x0 = mk()
     sets = [x0] + [mk() for _ in range(n_sets(_nbytes(*x0)) - 1)]
     kk = min(k, N)
-    b_ms, b_by = bound(_nbytes(*x0) + M * kk * 8, 2 * M * N * D,
-                       torch.float32)
+    b_ms, b_by = bound(roofline().topk_cost(M, N, D, k))
     got, want = ops.topk_similarity(*x0, k=k), L.topk_similarity(*x0, k)
     return dict(
         shape=dict(M=M, N=N, D=D, k=k),
@@ -4311,23 +4326,6 @@ def time_topk(ops, L, g, M, N, D, k):
         bound_ms=b_ms, bound_by=b_by,
         indices_equal=bool(torch.equal(got[0], want[0])),
         max_abs_err=float((got[1] - want[1]).abs().max()))
-
-
-def ssd_flops(B, S, H, P, N, chunk, split: int = 1) -> int:
-    """The scan's multiply-adds, x 2.  B and C form one group shared by
-    every head, so the causal pairs' C.B (c(c+1)/2 x N) is needed once per
-    (row, chunk); per (row, head, chunk) come the pairs' W.x (c(c+1)/2 x
-    P), and, per chunk boundary, the state's update after the chunk
-    before and its read C.h in the chunk after (c x N x P each; a single
-    chunk needs neither: the scan returns y, not the final state).  The
-    masked upper triangle is not counted: the least work, not the
-    kernel's.  ``split`` counts the products of the operands the bf16
-    kernel splits into two bf16 parts (W, w x, h) that many times."""
-    c, n = chunk, S // chunk
-    pairs = c * (c + 1) // 2
-    per_row = n * pairs * N + H * split * (n * pairs * P
-                                           + 2 * (n - 1) * c * N * P)
-    return 2 * B * per_row
 
 
 def kernels_queued(fn, args, calls: int) -> dict:
@@ -4375,11 +4373,10 @@ def time_ssd(ops, L, g, dtype, B, S, H, P, N, chunk):
     x0 = ssd_inputs(g, dtype, B, S, H, P, N)
     sets = [x0] + [ssd_inputs(g, dtype, B, S, H, P, N)
                    for _ in range(n_sets(_nbytes(*x0)) - 1)]
-    nbytes = _nbytes(*x0) + _nbytes(x0[0])
-    b_ms, b_by = bound(nbytes, ssd_flops(B, S, H, P, N, chunk),
-                       torch.float32)
-    tc_ms, tc_by = bound(nbytes, ssd_flops(B, S, H, P, N, chunk, split=2),
-                         torch.bfloat16)
+    R = roofline()
+    b_ms, b_by = bound(R.ssd_scan_cost(B, S, H, P, N, chunk, dtype,
+                                       rate="float32"))
+    tc_ms, tc_by = bound(R.ssd_scan_cost(B, S, H, P, N, chunk, dtype))
     kernel = lambda *x: ops.ssd_scan(*x, chunk=chunk)  # noqa: E731
     return dict(
         shape=dict(B=B, S=S, H=H, P=P, N=N, chunk=chunk),
@@ -4403,8 +4400,7 @@ def time_rmsnorm(ops, L, g, dtype, rows, D):
     sets = [x0] + [mk() for _ in range(n_sets(2 * _nbytes(*x0)) - 1)]
     F = torch.nn.functional
     lib = lambda x, w: F.rms_norm(x, (D,), w, eps=1e-5)  # noqa: E731
-    b_ms, b_by = bound(2 * _nbytes(x0[0]) + _nbytes(x0[1]), 4 * rows * D,
-                       torch.float32)
+    b_ms, b_by = bound(roofline().rmsnorm_cost(rows, D, dtype))
     host_k, host_l = in_turns(lambda fn: time_ms(fn, sets, 2000), ops.rmsnorm,
                               lib)
     dev_k, dev_l = in_turns(lambda fn: device_ms(fn, sets, 50), ops.rmsnorm,
@@ -4520,9 +4516,8 @@ def time_decode_gemm(ops, L, g, calls, M, layer_calls: int = 4):
     def per_product(mm, ws_list=calls):
         return [mm(xs[w.shape[0]], w) for ws in ws_list for w in ws]
     es = weights[0].element_size()
-    nbytes = sum(w.numel() * es + M * sum(w.shape) * es for w in weights)
-    flops = 2 * M * sum(w.numel() for w in weights)
-    b_ms, b_by = bound(nbytes, flops, dtype)
+    b_ms, b_by = bound(sum(roofline().decode_gemm_cost(
+        M, w.shape[0], [w.shape[1]], dtype) for w in weights))
     got = [y for ys in kernel() for y in ys]
     err = max(float((y.float() - L.matmul(xs[w.shape[0]], w).float())
                     .abs().max()) for y, w in zip(got, weights))
@@ -5157,6 +5152,7 @@ def run_trainer_steps(rt, ops, dev, seed: int, out: Path,
     fixed = trainer.batch_fn(0)
     trainer.batch_fn = lambda step: fixed       # a repeated batch
     n_layers = trainer.cfg.n_layers
+    base = torch.cuda.memory_allocated()   # allocated before the run
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     state = trainer.run(torch.Generator(dev).manual_seed(seed))
@@ -5231,7 +5227,10 @@ def run_trainer_steps(rt, ops, dev, seed: int, out: Path,
     return dict(dtype=str(dtype)[6:], losses=losses, grad_norms=norms,
                 step_s=times, median_step_s=step_s,
                 tokens_per_s=tokens / step_s,
-                peak_gib=peak / 2 ** 30, launches_a_step={
+                peak_gib=peak / 2 ** 30, peak_bytes=peak, base_bytes=base,
+                batch=[list(fixed["tokens"].shape),
+                       str(fixed["tokens"].dtype)],
+                launches_a_step={
                     k: n // steps for k, n in counts.items() if n},
                 profiled_step=dict(
                     wall_ms=wall * 1e3, device_ms=busy, fwd_ms=fwd,
@@ -5324,11 +5323,11 @@ def time_flash_bwd(ops, L, g, dtype, B, S, H, KV, hd) -> dict:
     lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
                                              enable_gqa=True)
     lib_dout = x0[4].transpose(1, 2)
-    pairs = S * (S + 1) // 2
-    nbytes, flops = _nbytes(*x0) + _nbytes(*x0[:3]), 5 * 2 * hd * pairs * B * H
-    b_ms, b_by = bound(nbytes, flops, dtype)
+    R = roofline()
+    b_ms, b_by = bound(R.flash_bwd_cost(B, S, H, KV, hd, dtype,
+                                        rate=R.rate_name(dtype)))
     # fp32 on the tensor cores: each product three TF32 products
-    tc_ms, tc_by = (bound(nbytes, 3 * flops, "tf32")
+    tc_ms, tc_by = (bound(R.flash_bwd_cost(B, S, H, KV, hd, dtype))
                     if dtype == torch.float32 else (None, None))
     got = ops.flash_attention_bwd(*x0)
     want = L.flash_attention_bwd(x0[0], x0[1], x0[2], x0[4])
@@ -5344,41 +5343,24 @@ def time_flash_bwd(ops, L, g, dtype, B, S, H, KV, hd) -> dict:
                         for a, b in zip(got, want)))
 
 
-def ssd_bwd_flops(B, S, H, P, N, chunk) -> int:
-    """The scan's gradient's multiply-adds, x 2: per (row, chunk) the
-    causal pairs' G = C.B^T, dC = dG.B and dB = dG^T.C (c(c+1)/2 x N
-    each, once: B and C are shared by the heads); per (row, head, chunk)
-    the pairs' dy.x^T and W^T.dy (c(c+1)/2 x P each); per chunk boundary
-    and head the state recomputed, the state gradient's part C^T dy,
-    dh^T B, dh x and h dy (c x N x P each).  The masked upper triangle
-    is not counted: the least work, not the kernel's."""
-    c, n = chunk, S // chunk
-    pairs = c * (c + 1) // 2
-    per_row = 3 * n * pairs * N + H * (2 * n * pairs * P
-                                       + 5 * (n - 1) * c * N * P)
-    return 2 * B * per_row
-
-
 def time_ssd_bwd(ops, L, g, dtype, B, S, H, P, N, chunk) -> dict:
     """The scan's backward kernel at one shape (x, b, c, dy in
     ``dtype``), host-inclusive and in device time by kernel, beside
     autograd of the plain version, with its bound at the operands' rate
-    (``ssd_bwd_flops``; each input read once, each gradient written once)
-    and on the tensor cores in the units its body uses (``bound_tc_ms``:
-    fp32 three TF32 products a product, bf16 two bf16 products, as for
-    the split fp32 operands).  No single PyTorch call computes it: no
-    yardstick."""
+    (``roofline.ssd_bwd_cost``; each input read once, each gradient
+    written once) and on the tensor cores in the units its body uses
+    (``bound_tc_ms``: fp32 three TF32 products a product, bf16 two bf16
+    products, as for the split fp32 operands).  No single PyTorch call
+    computes it: no yardstick."""
     def inputs():
         return (*ssd_inputs(g, dtype, B, S, H, P, N),
                 _randn(g, dtype, B, S, H, P))
     x0 = inputs()
     sets = [x0] + [inputs() for _ in range(n_sets(_nbytes(*x0)) - 1)]
-    nbytes = 2 * _nbytes(*x0) - _nbytes(x0[5])
-    flops = ssd_bwd_flops(B, S, H, P, N, chunk)
-    b_ms, b_by = bound(nbytes, flops, dtype)
-    tc_ms, tc_by = (bound(nbytes, 3 * flops, "tf32")
-                    if dtype == torch.float32
-                    else bound(nbytes, 2 * flops, torch.bfloat16))
+    R = roofline()
+    b_ms, b_by = bound(R.ssd_bwd_cost(B, S, H, P, N, chunk, dtype,
+                                      rate=R.rate_name(dtype)))
+    tc_ms, tc_by = bound(R.ssd_bwd_cost(B, S, H, P, N, chunk, dtype))
     kernel = lambda *t: ops.ssd_scan_bwd(*t, chunk=chunk)  # noqa: E731
     got, want = kernel(*x0), L.ssd_chunk_scan_bwd(*x0, chunk)
     by_kernel = device_us_by_kernel(kernel, x0, 10)
@@ -5470,6 +5452,271 @@ def run_training_phase(rt, ops, L, dev, seed: int, out: Path,
                 bf16_path=bf16_steps.pop("path"))
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the planner
+# ---------------------------------------------------------------------------
+
+#: processes tracing the planner's table of every arch x cell (meta
+#: tensors on the host, no card), started after phase 1 at the lowest
+#: priority and read in phase 12
+PLANNER_WORKERS = 2
+#: the decode GEMM's bound over a granite-3-2b decode pass at M 4 (ms,
+#: bytes; PERF.md section 6, the kernel table's decode GEMM row): the
+#: planner's decode pass reads its weights within PLANNER_WEIGHT_TOL of it
+GEMM_PASS_BOUND_MS = 1.517
+PLANNER_WEIGHT_TOL = 0.02
+#: the planner's peak within this of the card's ``max_memory_allocated``
+#: over a training run (less what was allocated before the run began)
+PLANNER_PEAK_TOL = 0.10
+#: the most phase 12 waits for the table's processes (they start ~10
+#: minutes before it and trace for ~2-5)
+PLANNER_WAIT_S = 120
+#: the processes of the planner's table (stopped at exit)
+_PLANNER_PROCS: list = []
+
+
+def _die_with_parent() -> None:
+    """In a planner process before it runs: the lowest priority, and
+    killed when this script's process dies (Linux ``PR_SET_PDEATHSIG``)."""
+    os.nice(19)
+    try:
+        ctypes.CDLL(None).prctl(1, 9)   # PR_SET_PDEATHSIG, SIGKILL
+    except (AttributeError, OSError):
+        pass
+
+
+def start_planner_table(out: Path) -> Path:
+    """``repro_torch.launch.dryrun``'s every arch x cell (``run_cell``),
+    dealt to ``PLANNER_WORKERS`` processes, the heaviest cells (training
+    steps of the largest models) first, each writing its records under
+    ``out / "dryrun_torch"``; returns that directory."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ARCH_IDS, SHAPES, cells, get_config
+    from repro_torch.models import model_specs, param_count
+    todo = sorted(((a, c.name) for a in ARCH_IDS for c in cells(a)),
+                  key=lambda c: -param_count(model_specs(get_config(c[0])))
+                  * (100 if SHAPES[c[1]].kind == "train" else 1))
+    dest = out / "dryrun_torch"
+    shutil.rmtree(dest, ignore_errors=True)
+    dest.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
+                               if os.environ.get("PYTHONPATH") else [])))
+    for w in range(PLANNER_WORKERS):
+        mine = todo[w::PLANNER_WORKERS]
+        code = ("import json, sys\n"
+                "from repro_torch.launch import dryrun as D\n"
+                "for a, s in json.loads(sys.argv[1]):\n"
+                "    D.run_cell(a, s, out_dir=sys.argv[2])\n")
+        _PLANNER_PROCS.append(subprocess.Popen(
+            [sys.executable, "-c", code, json.dumps(mine), str(dest)],
+            env=env, stdout=open(out / f"dryrun_torch.{w}.log", "w"),
+            stderr=subprocess.STDOUT, preexec_fn=_die_with_parent))
+    return dest
+
+
+def stop_planner_table() -> None:
+    for proc in _PLANNER_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def hold_meta_plans(ops) -> dict:
+    """The wrappers' Python mirrors of the library's plans, which size a
+    meta call's scratch, against the library at the shapes the card ran:
+    the split-context chunk, the fp32 decode GEMM's K splits at granite's
+    products, the scan's and its backward's scratch at the ssm path's and
+    training's shapes (held equal); the top-k split plan at the prefilter's
+    shapes (printed: its mirror assumes the blocks an SM the launch
+    bounds promise, the card's occupancy may allow more)."""
+    bad = []
+    chunk = ops.paged_decode_attention.chunk()
+    if chunk != ops.SPLIT_CHUNK:
+        bad.append(("chunk", chunk, ops.SPLIT_CHUNK))
+    gemm = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+            (2048, 49168), (4096, 4096), (6144, 8)]
+    for K, N in gemm:
+        got, want = ops.decode_gemm.meta_splits(K, N), ops.decode_gemm.splits(
+            K, N)
+        if got != want:
+            bad.append(("decode_gemm splits", (K, N), got, want))
+    scans = [tuple(SSD_MAIN[k] for k in ("B", "S", "H", "P", "N", "chunk"))]
+    scans += [tuple(x) for x in SSD_SWEEP] + [tuple(x) for x in
+                                              SSD_BWD_SWEEP]
+    for kernel in (ops.ssd_scan, ops.ssd_scan_bwd):
+        for sh in scans:
+            got, want = kernel.meta_scratch_bytes(*sh), kernel.scratch_bytes(
+                *sh)
+            if got != want:
+                bad.append((kernel.name, sh, got, want))
+    topk = {str(sh): dict(library=ops.topk_similarity.plan(
+        *sh, torch.device("cuda")), meta=ops._topk_plan_meta(*sh))
+        for sh in ((10_000, 1_000, 8), (1_000, 10_000, 8), (96, 48, 4))}
+    log(f"  meta plans against the library: chunk {chunk}, {len(gemm)} GEMM "
+        f"split counts, {2 * len(scans)} scan scratch sizes: "
+        f"{'equal ok' if not bad else f'FAIL {bad}'}; top-k plans (not "
+        f"held) {topk}")
+    if bad:
+        raise AssertionError(f"meta plans differ from the library's: {bad}")
+    return dict(chunk=chunk, gemm_shapes=gemm, scan_shapes=scans, topk=topk)
+
+
+def _pass_bound_ms(R, a) -> float:
+    return R.roofline(a.flops_by_rate(), a.bytes, 0).bound_time_s * 1e3
+
+
+def hold_planned_step(label: str, run: dict, rec: dict) -> dict:
+    """The planner's trace of one trainer step of ``run`` (its config at
+    full width and depth, its dtype, the trainer's AdamW) on meta tensors
+    against what the card's run measured (``rec``, phase 11): launches
+    by kernel equal to the run's a step; the peak within
+    ``PLANNER_PEAK_TOL`` of ``max_memory_allocated`` less what was
+    allocated before the run; the bound at most the profiled step's
+    device time."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.utils import roofline as R
+    t = time.perf_counter()
+    cfg = get_config(run["arch"])
+    shape = InputShape("train", run["S"], run["B"], "train")
+    a = D.trace_cell(cfg, shape, dtype=run.get("dtype", torch.float32),
+                     ocfg=AdamWConfig())
+    launches = {n: k["launches"] for n, k in a.kernel_summary().items()}
+    peak = a.memory_analysis()["peak_device_bytes"]
+    card_peak = rec["peak_bytes"] - rec["base_bytes"]
+    bound_ms = _pass_bound_ms(R, a)
+    dev_ms = rec["profiled_step"]["device_ms"]
+    terms = R.roofline(a.flops_by_rate(), a.bytes, 0)
+    out = dict(launches=launches, card_launches=rec["launches_a_step"],
+               peak_bytes=peak, card_peak_bytes=card_peak,
+               card_base_bytes=rec["base_bytes"], peak_ratio=peak / card_peak,
+               bound_ms=bound_ms, device_ms=dev_ms, share=bound_ms / dev_ms,
+               compute_ms=terms.compute_s * 1e3,
+               memory_ms=terms.memory_s * 1e3, dominant=terms.dominant,
+               flops_by_rate=a.flops_by_rate(), bytes=a.bytes,
+               trace_s=time.perf_counter() - t)
+    ok = dict(launches=launches == rec["launches_a_step"],
+              peak=abs(peak / card_peak - 1) <= PLANNER_PEAK_TOL,
+              bound=bound_ms <= dev_ms)
+    log(f"  {label} planned on meta ({out['trace_s']:.1f} s): launches "
+        f"{launches} against the card's {rec['launches_a_step']} a step; "
+        f"peak {peak / 2 ** 30:.3f} GiB against the run's "
+        f"{card_peak / 2 ** 30:.3f} GiB (max_memory_allocated "
+        f"{rec['peak_bytes'] / 2 ** 30:.3f} GiB less "
+        f"{rec['base_bytes'] / 2 ** 30:.3f} GiB allocated before it; ratio "
+        f"{out['peak_ratio']:.4f}); bound "
+        f"{bound_ms:.1f} ms ({terms.dominant}: compute {out['compute_ms']:.1f}"
+        f", memory {out['memory_ms']:.1f}) against the profiled step's "
+        f"device {dev_ms:.1f} ms: share {out['share']:.3f} "
+        f"{'ok' if all(ok.values()) else f'FAIL {ok}'}")
+    if not all(ok.values()):
+        raise AssertionError(f"{label}: the planner's step against the card: "
+                             f"{ok}")
+    return out
+
+
+def hold_planned_decode(rt, rec: dict, timing: dict) -> dict:
+    """The planner's trace of one granite-3-2b decode pass at phase 4's
+    engine shape (the captured pass's inputs, ``rec``: phase 9's paged
+    decode graph; bf16 weights; every row's length at the table's
+    capacity, as a meta call takes them) against the graph: launches by
+    kernel equal to a replay's; the bound at most the replay's device
+    time; the decode GEMM's bytes, at the HBM rate, within
+    ``PLANNER_WEIGHT_TOL`` of PERF.md's pass bound
+    (``GEMM_PASS_BOUND_MS``)."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.utils import roofline as R
+    from repro_torch.utils.op_analysis import OpAnalysis
+    t = time.perf_counter()
+    cfg = rt.get_config("granite-3-2b")
+    params = D._meta_params(rt.model_specs(cfg), torch.bfloat16)
+    x = {n: torch.empty(shape, dtype=getattr(torch, dt), device="meta")
+         for n, (shape, dt) in rec["inputs"].items()}
+    cache = {n: x[n] for n in ("len", "pages", "k", "v")}
+    a = OpAnalysis()
+    with a:
+        a.arguments(params, x)
+        rt.decode_step(cfg, params, cache, x["tokens"], active=x["active"])
+    launches = {n: k["launches"] for n, k in a.kernel_summary().items()}
+    bound_ms = _pass_bound_ms(R, a)
+    dev_ms = rec["replay_device_ms"]
+    gemm_ms = a.kernels["decode_gemm"]["bytes"] / R.HBM_BW * 1e3
+    run_gemm_ms = timing["main"]["decode_gemm"]["bound_ms"]
+    out = dict(launches=launches, card_launches=rec["launches"],
+               bound_ms=bound_ms, device_ms=dev_ms, share=bound_ms / dev_ms,
+               gemm_bytes_ms=gemm_ms, gemm_pass_bound_ms=GEMM_PASS_BOUND_MS,
+               run_gemm_pass_bound_ms=run_gemm_ms, bytes=a.bytes,
+               flops_by_rate=a.flops_by_rate(),
+               trace_s=time.perf_counter() - t)
+    ok = dict(launches=launches == rec["launches"], bound=bound_ms <= dev_ms,
+              weights=abs(gemm_ms / GEMM_PASS_BOUND_MS - 1)
+              <= PLANNER_WEIGHT_TOL)
+    log(f"  granite decode pass planned on meta ({out['trace_s']:.1f} s): "
+        f"launches {launches} against a replay's {rec['launches']}; bound "
+        f"{bound_ms:.3f} ms against the graph's device {dev_ms:.3f} ms: "
+        f"share {out['share']:.3f}; the decode GEMM's bytes {gemm_ms:.4f} ms "
+        f"against PERF.md's pass bound {GEMM_PASS_BOUND_MS} ms (this run's "
+        f"phase 10: {run_gemm_ms:.4f}) "
+        f"{'ok' if all(ok.values()) else f'FAIL {ok}'}")
+    if not all(ok.values()):
+        raise AssertionError(f"the planner's decode pass against the card: "
+                             f"{ok}")
+    return out
+
+
+def read_planner_table(dest: Path) -> list:
+    """Wait for the planner's processes and read their records: every arch
+    x cell traced, each process exited 0; prints the table."""
+    from repro_torch.configs import ARCH_IDS, cells
+    t = time.perf_counter()
+    try:
+        rcs = [proc.wait(timeout=PLANNER_WAIT_S) for proc in _PLANNER_PROCS]
+    except subprocess.TimeoutExpired:
+        stop_planner_table()
+        raise AssertionError(f"the planner's table was not traced "
+                             f"{PLANNER_WAIT_S} s into phase 12")
+    waited = time.perf_counter() - t
+    want = [(a, c.name) for a in ARCH_IDS for c in cells(a)]
+    records = []
+    for arch, shape in want:
+        path = dest / f"{arch}__{shape}__h100x1.json"
+        if path.is_file():
+            records.append(json.loads(path.read_text()))
+    log(f"  the planner's table (processes exited {rcs}, waited {waited:.1f}"
+        f" s; {len(records)} of {len(want)} cells; per cell: fits the card,"
+        " peak GiB, FLOPs, bytes, dominant term, bound ms, trace s):")
+    for r in records:
+        f = r["roofline"]
+        log(f"    {r['arch']:22s} {r['shape']:12s} fits={str(r['fits']):5s} "
+            f"peak {r['memory']['peak_device_bytes'] / 2 ** 30:10.2f} "
+            f"flops {r['cost']['flops_per_device']:.3e} bytes "
+            f"{f['bytes_per_chip']:.3e} {f['dominant']:7s} bound "
+            f"{f['bound_s'] * 1e3:14.3f} ({r['total_s']} s)")
+    if any(rcs) or len(records) != len(want):
+        raise AssertionError(f"the planner's table: exits {rcs}, "
+                             f"{len(records)} of {len(want)} cells")
+    return records
+
+
+def run_planner_phase(rt, ops, train: dict, graphs: dict, timing: dict,
+                      dest: Path) -> dict:
+    """Phase 12 (module docstring): the planner against the card."""
+    t0 = time.perf_counter()
+    mirrors = hold_meta_plans(ops)
+    steps = {label: hold_planned_step(label, run, train[key])
+             for label, run, key in (("11c", TRAIN, "steps"),
+                                     ("11f", TRAIN_BF16, "bf16_steps"))}
+    decode = hold_planned_decode(rt, graphs["passes"]["paged decode"],
+                                 timing)
+    table = read_planner_table(dest)
+    seconds = time.perf_counter() - t0
+    log(f"  phase 12 took {seconds:.1f} s")
+    return dict(mirrors=mirrors, steps=steps, decode=decode, table=table,
+                seconds=seconds)
+
+
 def port() -> types.SimpleNamespace:
     """The port's entry points this script drives, in one namespace."""
     from repro_torch.configs import get_config, get_smoke_config
@@ -5545,6 +5792,7 @@ def main() -> int:
         f"(per source: {({k: round(v, 1) for k, v in times.items()})})")
     out = Path(args.out)
     (out / "ptxas").mkdir(parents=True, exist_ok=True)
+    planner_dest = start_planner_table(out)
     for name in build.SOURCES:   # nvcc -Xptxas -v, one entry per template
         ptxas = build.library_path(name).with_suffix(".log")
         text = ptxas.read_text() if ptxas.is_file() else ""
@@ -5660,6 +5908,11 @@ def main() -> int:
     family_paths["train_ssm"] = train["ssm_path"]
     family_paths["train_bf16"] = train["bf16_path"]
     log(f"  ({time.perf_counter() - _T_PHASE[0]:.1f} s)")
+
+    log("== phase 12: the planner (repro_torch.launch.dryrun, traced on "
+        "meta tensors) against granite-3-2b's trainer steps (11c, 11f) and "
+        "its decode pass; the table of every arch x cell")
+    planner = run_planner_phase(rt, ops, train, graphs, timing, planner_dest)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -5766,7 +6019,8 @@ def main() -> int:
         prefilter_path=prefilter, spec_path=spec, dense_path=dense,
         ssm_path=ssm, graphs=graphs, dense_family=family, moe_family=moe,
         cluster=cluster, int8_granite=int8, hybrid=hybrid, profiles=profiles,
-        timing=timing, training=train, kernels=kernels), indent=1,
+        timing=timing, training=train, planner=planner, kernels=kernels),
+        indent=1,
         default=str))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
@@ -5777,4 +6031,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_planner_table()
+    sys.exit(rc)

@@ -7,9 +7,9 @@ engine) reports a :class:`Usage` per invocation; a :class:`Ledger`
 accumulates them and converts to dollars under a :class:`Pricing`.
 
 GPT-4 pricing from the paper (§7.1): 3c / 1k tokens read, 6c / 1k tokens
-generated, i.e. ``g = 2``.  We additionally ship a TPU-roofline pricing
-(see ``repro.utils.roofline.tpu_pricing``) where ``g`` is derived from the
-prefill-vs-decode cost asymmetry of the serving stack.
+generated, i.e. ``g = 2``.  We additionally ship an H100-roofline pricing
+(see ``repro_torch.utils.roofline.h100_pricing``) where ``g`` is derived
+from the prefill-vs-decode cost asymmetry of the serving stack.
 """
 
 from __future__ import annotations

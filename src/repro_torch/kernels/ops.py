@@ -43,7 +43,18 @@ dispatches on the device of its tensors:
   :mod:`repro_torch.models.layers` — the only case it is used;
 * CUDA tensors launch the kernel on ``torch.cuda.current_stream()``, or
   the call raises.  There is no fallback: a shape, dtype or layout the
-  kernel does not take is an error, and so is a failed launch.
+  kernel does not take is an error, and so is a failed launch;
+* meta tensors (the planner, :mod:`repro_torch.launch.dryrun`) take the
+  CUDA branch's checks and allocations, the scratch included, on the
+  meta device, and count one launch where the CUDA branch would launch,
+  without a card or a build: the scratch sizes the library would give
+  come from Python mirrors of its plans (:data:`SPLIT_CHUNK`, the
+  scan's ``meta_scratch_bytes``, the GEMM's ``meta_splits``, top-k's
+  :func:`_topk_plan_meta`), and no meta tensor ever reaches a plain
+  version (plain attention would materialise the ``S x S`` scores the
+  kernels never write).  Under an :mod:`repro_torch.utils.op_analysis`
+  each wrapper call is reported to it (:func:`observing`), and each
+  meta launch with its cost from :mod:`repro_torch.utils.roofline`.
 
 Tensors are fp32 or bf16; the three decode-side kernels also take K/V in
 e4m3 (an fp8 KV cache, ``cfg.kv_cache_dtype="float8_e4m3fn"``) under an
@@ -70,6 +81,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import functools
 import threading
 from typing import Callable, Dict, Optional, Sequence
 
@@ -79,6 +91,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import DeviceError
 from repro_torch.models import layers as L
 from repro_torch.models.quant import QuantizedTensor, deq
+from repro_torch.utils import roofline as R
 
 HEAD_DIMS = (16, 32, 64, 128)
 #: the most window query rows K * (H / KV) one launch of the verify kernel
@@ -121,8 +134,51 @@ NORM_MAX_D = {0: 1024 * 4 * 4, 1: 1024 * 4 * 8}
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 #: guards every kernel's ``launches`` and ``shapes``
 COUNT_LOCK = threading.Lock()
-#: per thread: ``tally`` (a Counter by kernel name, or None) and ``scratch``
+#: per thread: ``tally`` (a Counter by kernel name, or None), ``scratch``
+#: and ``observer`` (an op analysis, or None)
 _local = threading.local()
+#: positions per context chunk of the split-context decode kernels (kChunk
+#: in csrc/attention_common.cuh), for meta calls; ``chip_smoke.py`` holds
+#: it to the library's
+SPLIT_CHUNK = 256
+#: SMs of an H100 SXM, for the top-k plan of a meta call
+H100_SMS = 132
+
+
+def _observed(method):
+    """A wrapper's entry point, reported to the calling thread's op
+    analysis where one is set (:func:`observing`); otherwise called as it
+    is."""
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        obs = getattr(_local, "observer", None)
+        if obs is None:
+            return method(self, *args, **kwargs)
+        return obs.kernel_call(self, method, args, kwargs)
+    return call
+
+
+@contextlib.contextmanager
+def observing(observer):
+    """Report the calling thread's wrapper calls, and the costs of its
+    meta launches, to ``observer`` while the block runs (its
+    ``kernel_call(kernel, method, args, kwargs)`` runs each call, its
+    ``kernel_launch(kernel, cost)`` takes each meta launch's
+    :class:`~repro_torch.utils.roofline.KernelCost`)."""
+    prev = getattr(_local, "observer", None)
+    _local.observer = observer
+    try:
+        yield observer
+    finally:
+        _local.observer = prev
+
+
+def drop_meta_scratch() -> None:
+    """Forget the calling thread's meta scratch, so the next meta call
+    allocates its own, as a first call on a card does."""
+    for bufs in getattr(_local, "scratch", {}).values():
+        for dev in [d for d in bufs if str(d) == "meta"]:
+            del bufs[dev]
 
 
 class CudaKernel:
@@ -173,8 +229,14 @@ class CudaKernel:
         each of ``keys`` where one launch does several things.  A decode
         pass makes ~300 launches, so this stays lean: the raw handle of
         the current stream, ``get_device`` (no ``torch.device`` built).
-        Raises where an input requires grad (:func:`refuse_grad`)."""
+        On meta tensors nothing is launched: the launch is counted and
+        its cost reported (:meth:`_meta_launch`).  Raises where an input
+        requires grad (:func:`refuse_grad`)."""
         refuse_grad(self.name, ptrs)
+        if ptrs[0].is_meta:
+            return self._meta_launch(ptrs, ints, [tuple(k) for k in keys]
+                                     if keys else [tuple(ints if key is None
+                                                         else key)])
         fn = self._fn or self._bind()
         rc = fn(*[t if t is None else t.data_ptr() for t in ptrs], *ints,
                 *floats, _raw_stream(ptrs[0].get_device()))
@@ -183,6 +245,21 @@ class CudaKernel:
                               f"error {rc}")
         self.count(1, [tuple(k) for k in keys] if keys
                    else [tuple(ints if key is None else key)])
+
+    def _meta_launch(self, ptrs, ints, shapes) -> None:
+        """One launch on meta tensors: counted as a card's launch is, and
+        its cost (:meth:`cost`) reported to the calling thread's op
+        analysis, where one is set."""
+        self.count(1, shapes)
+        obs = getattr(_local, "observer", None)
+        if obs is not None:
+            obs.kernel_launch(self, self.cost(ptrs, ints))
+
+    def cost(self, ptrs, ints) -> "R.KernelCost":
+        """The :mod:`~repro_torch.utils.roofline` cost of one launch from
+        its arguments (where it depends on the data, such as a decode
+        row's length, the most the shapes hold)."""
+        raise NotImplementedError(self.name)
 
     def count(self, n: int, shapes) -> None:
         """Add ``n`` launches, under ``shapes`` (keys, or a Counter of
@@ -213,10 +290,24 @@ class _SplitDecode(CudaKernel):
     def partials(self, B: int, KV: int, cap: int, rows: int, hd: int,
                  device) -> torch.Tensor:
         """Scratch for the (m, l, o) partials of ``rows`` query rows per
-        (row, KV head) over a context of up to ``cap`` positions."""
-        n_chunks = -(-cap // self.chunk())
+        (row, KV head) over a context of up to ``cap`` positions (on
+        meta, chunks of :data:`SPLIT_CHUNK`)."""
+        chunk = SPLIT_CHUNK if device.type == "meta" else self.chunk()
+        n_chunks = -(-cap // chunk)
         return torch.empty(B * KV * n_chunks * rows * (hd + 2),
                            dtype=torch.float32, device=device)
+
+
+def _round256(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+def _ssd_shape_ok(B: int, S: int, H: int, P: int, N: int, chunk: int
+                  ) -> bool:
+    """``shape_ok`` of csrc/ssd_scan.cu and csrc/ssd_scan_bwd.cu."""
+    return (B > 0 and S > 0 and H > 0 and 0 < P <= SSD_MAX_P
+            and 0 < N <= SSD_MAX_N and 0 < chunk <= SSD_MAX_CHUNK
+            and S % chunk == 0)
 
 
 def refuse_grad(name: str, tensors: Sequence[Optional[torch.Tensor]]) -> None:
@@ -236,16 +327,19 @@ def refuse_grad(name: str, tensors: Sequence[Optional[torch.Tensor]]) -> None:
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU; raise on a mix or on a
-    device that is neither CPU nor CUDA."""
+    """True when every tensor lies on the CPU; False when all lie on one
+    CUDA device, or all on the meta device (the CUDA branch, launching
+    nothing); raise on a mix or on another device."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return True
     if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
         return False
+    if kinds == {"meta"}:
+        return False
     raise ValueError(f"tensors on {sorted(str(t.device) for t in tensors)}: "
                      "the kernels take tensors all on one CUDA device or "
-                     "all on the CPU")
+                     "all on the CPU (or all on the meta device)")
 
 
 def _check(name: str, tensors: Sequence[torch.Tensor],
@@ -301,6 +395,7 @@ def _flash_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
 
 
 class _FlashAttention(CudaKernel):
+    @_observed
     def __call__(self, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor) -> torch.Tensor:
         """Causal GQA attention: q ``(B,S,H,hd)``, k/v ``(B,S,KV,hd)``.
@@ -329,6 +424,9 @@ class _FlashAttention(CudaKernel):
             self._launch((q, k, v, out, lse), (B, S, H, KV, hd, dt))
         return out
 
+    def cost(self, ptrs, ints):
+        return R.flash_cost(*ints[:5], ptrs[0].dtype, lse=ptrs[4] is not None)
+
 
 class _FlashFunction(torch.autograd.Function):
     """Flash attention with its backward on the card: the forward keeps
@@ -355,6 +453,7 @@ class _FlashAttentionBwd(CudaKernel):
     ``rowsum(dO * O)``, a dK/dV kernel and a dQ kernel queued by one C
     call (one launch counted)."""
 
+    @_observed
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  out: torch.Tensor, dout: torch.Tensor,
                  lse: torch.Tensor) -> tuple:
@@ -382,8 +481,12 @@ class _FlashAttentionBwd(CudaKernel):
                          (B, S, H, KV, hd, dt))
         return dq, dk, dv
 
+    def cost(self, ptrs, ints):
+        return R.flash_bwd_cost(*ints[:5], ptrs[0].dtype)
+
 
 class _ChunkedPrefillAttention(CudaKernel):
+    @_observed
     def __call__(self, q: torch.Tensor, k_suffix: torch.Tensor,
                  v_suffix: torch.Tensor, k_prefix: torch.Tensor,
                  v_prefix: torch.Tensor,
@@ -411,8 +514,13 @@ class _ChunkedPrefillAttention(CudaKernel):
                          (B, S, P, H, KV, hd, dt))
         return out
 
+    def cost(self, ptrs, ints):
+        """The full prefix: on meta the lengths are not known."""
+        return R.chunked_prefill_cost(*ints[:6], ptrs[0].dtype)
+
 
 class _PagedDecodeAttention(_SplitDecode):
+    @_observed
     def __call__(self, q: torch.Tensor, k_pool: torch.Tensor,
                  v_pool: torch.Tensor, page_table: torch.Tensor,
                  cache_len: torch.Tensor) -> torch.Tensor:
@@ -439,8 +547,16 @@ class _PagedDecodeAttention(_SplitDecode):
                          ints + (part.numel(),), key=ints)
         return out
 
+    def cost(self, ptrs, ints):
+        """Every row at the table's capacity: on meta the lengths are
+        not known."""
+        B, H, KV, page, _, n_slots, hd = ints[:7]
+        return R.paged_decode_cost(B, H, KV, hd, page, n_slots,
+                                   ptrs[0].dtype, ptrs[1].dtype)
+
 
 class _SpecVerifyAttention(_SplitDecode):
+    @_observed
     def __call__(self, q: torch.Tensor, k_pool: torch.Tensor,
                  v_pool: torch.Tensor, page_table: torch.Tensor,
                  cache_len: torch.Tensor) -> torch.Tensor:
@@ -490,8 +606,16 @@ class _SpecVerifyAttention(_SplitDecode):
         self._launch((q, k_pool, v_pool, table, lens, out, part),
                      ints + (part.numel(),), key=ints)
 
+    def cost(self, ptrs, ints):
+        """Every window ending at the table's last position: on meta the
+        lengths are not known."""
+        B, K, H, KV, page, _, n_slots, hd = ints[:8]
+        return R.spec_verify_cost(B, K, H, KV, hd, page, n_slots,
+                                  ptrs[0].dtype, ptrs[1].dtype)
+
 
 class _DecodeAttention(_SplitDecode):
+    @_observed
     def __call__(self, q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor,
                  cache_len: torch.Tensor) -> torch.Tensor:
@@ -516,6 +640,13 @@ class _DecodeAttention(_SplitDecode):
                          ints + (part.numel(),), key=ints)
         return out
 
+    def cost(self, ptrs, ints):
+        """Every row over the whole cache: on meta the lengths are not
+        known."""
+        B, H, KV, Skv, hd = ints[:5]
+        return R.decode_attention_cost(B, H, KV, hd, Skv, ptrs[0].dtype,
+                                       ptrs[1].dtype)
+
 
 class _TopkSimilarity(CudaKernel):
     """The kernel splits N across blocks and merges each row's split lists
@@ -529,7 +660,10 @@ class _TopkSimilarity(CudaKernel):
     def plan(self, M: int, N: int, kk: int, device) -> tuple:
         """``(splits, columns a split)`` of an ``(M, N, k')`` call on
         ``device``: chosen by the kernel from the shape and the card's
-        resident blocks; no result depends on it."""
+        resident blocks; no result depends on it.  On meta,
+        :func:`_topk_plan_meta`."""
+        if device.type == "meta":
+            return _topk_plan_meta(M, N, kk)
         key = (device, M, N, kk)
         if key not in self._plans:
             fn = self._lib().repro_topk_plan
@@ -543,6 +677,7 @@ class _TopkSimilarity(CudaKernel):
             self._plans[key] = (out[0], out[1])
         return self._plans[key]
 
+    @_observed
     def __call__(self, e1: torch.Tensor, e2: torch.Tensor, *,
                  k: int) -> tuple:
         """The ``k' = min(k, N)`` most similar rows of ``e2 (N, D)`` for
@@ -583,6 +718,32 @@ class _TopkSimilarity(CudaKernel):
                          key=(M, N, D, kk))
         return idx, sim
 
+    def cost(self, ptrs, ints):
+        return R.topk_cost(*ints[:4])
+
+
+def _topk_plan_meta(M: int, N: int, kk: int) -> tuple:
+    """``pick_splits`` of csrc/topk_sim.cu on an H100's SMs at the blocks
+    per SM its launch bounds promise (2 for the wide body, k' <= 64; 1
+    for the deep one): the card's occupancy may allow more blocks, and
+    so fewer splits, than this plan of a meta call sizes scratch for."""
+    bm, bn, min_blocks = (64, 128, 2) if kk <= 64 else (4, 256, 1)
+    slots = H100_SMS * min_blocks
+    row_blocks, n_tiles = -(-M // bm), -(-N // bn)
+    best, best_cost = (1, n_tiles * bn), 1e30
+    for splits in range(1, min(n_tiles, 64) + 1):
+        tps = -(-n_tiles // splits)
+        if -(-n_tiles // tps) != splits:
+            continue
+        cps = tps * bn
+        if splits > 1 and (cps < kk or N - (splits - 1) * cps < kk):
+            continue
+        rounds = -(-(row_blocks * splits) // slots)
+        cost = rounds * (tps + 0.3) + (0.05 if splits > 1 else 0.0)
+        if cost < best_cost:
+            best, best_cost = (splits, cps), cost
+    return best
+
 
 class _SsdScan(CudaKernel):
     """One C call queues the scan's kernels (C.B^T and the log-decay sums,
@@ -598,9 +759,15 @@ class _SsdScan(CudaKernel):
         self._plans = {}
 
     def scratch_bytes(self, B: int, S: int, H: int, P: int, N: int,
-                      chunk: int) -> int:
+                      chunk: int, meta: bool = False) -> int:
         """Bytes of scratch a call of these shapes needs (from the
-        kernel)."""
+        kernel; with ``meta``, from :meth:`meta_scratch_bytes`)."""
+        if meta:
+            n = self.meta_scratch_bytes(B, S, H, P, N, chunk)
+            if n < 0:
+                raise ValueError(f"{self.name}: shapes "
+                                 f"{(B, S, H, P, N, chunk)} not taken")
+            return n
         fn = getattr(self, "_scratch_fn", None)
         if fn is None:
             fn = self._scratch_fn = getattr(self._lib(),
@@ -611,6 +778,22 @@ class _SsdScan(CudaKernel):
             raise ValueError(f"{self.name}: shapes {(B, S, H, P, N, chunk)} "
                              "not taken")
         return n
+
+    @staticmethod
+    def meta_scratch_bytes(B: int, S: int, H: int, P: int, N: int,
+                           chunk: int) -> int:
+        """``repro_ssd_scan_scratch`` (``plan`` in csrc/ssd_scan.cu) in
+        Python, for meta calls: the fp64 log-decay sums, the C.B^T tile
+        pairs and two sets of chunk states, each 256-byte aligned; -1 for
+        shapes the kernel does not take."""
+        if not _ssd_shape_ok(B, S, H, P, N, chunk):
+            return -1
+        n_chunks, n_tiles = S // chunk, -(-chunk // 64)
+        pairs = n_tiles * (n_tiles + 1) // 2
+        states = 4 * B * H * (n_chunks - 1) * SSD_MAX_N * SSD_MAX_P
+        return (_round256(8 * B * H * S)
+                + _round256(4 * B * n_chunks * pairs * 64 * 64)
+                + _round256(states) + states)
 
     def _plan(self, key, x, dt, A, b, c, chunk) -> tuple:
         B, S, H, P = x.shape
@@ -631,7 +814,8 @@ class _SsdScan(CudaKernel):
             raise ValueError(f"{self.name}: chunk {chunk} above the kernel's "
                              f"cap of {SSD_MAX_CHUNK}")
         ints = (B, S, H, P, N, chunk, dtype)
-        nbytes = self.scratch_bytes(*ints[:6]) if x.numel() else 0
+        nbytes = (self.scratch_bytes(*ints[:6], meta=x.is_meta)
+                  if x.numel() else 0)
         plan = self._plans[key] = (ints, nbytes)
         return plan
 
@@ -640,7 +824,7 @@ class _SsdScan(CudaKernel):
         once per shapes, dtypes and chunk; raises on inputs that are not
         contiguous."""
         key = (x.shape, dt.shape, A.shape, b.shape, c.shape, x.dtype,
-               dt.dtype, A.dtype, b.dtype, c.dtype, chunk)
+               dt.dtype, A.dtype, b.dtype, c.dtype, chunk, x.is_meta)
         plan = (self._plans.get(key)
                 or self._plan(key, x, dt, A, b, c, chunk))
         if not (x.is_contiguous() and dt.is_contiguous()
@@ -649,14 +833,19 @@ class _SsdScan(CudaKernel):
             raise ValueError(f"{self.name}: inputs must be contiguous")
         return plan
 
-    def _buffer(self, device: int, nbytes: int) -> torch.Tensor:
+    def _buffer(self, x: torch.Tensor, nbytes: int) -> torch.Tensor:
+        """The calling thread's scratch on ``x``'s device (a card's, or
+        meta), grown to ``nbytes``."""
+        device = "meta" if x.is_meta else x.get_device()
         scratch = self._scratch
         buf = scratch.get(device)
         if buf is None or buf.numel() < nbytes:
             buf = scratch[device] = torch.empty(
-                max(nbytes, 1), dtype=torch.uint8, device=f"cuda:{device}")
+                max(nbytes, 1), dtype=torch.uint8,
+                device="meta" if x.is_meta else f"cuda:{device}")
         return buf
 
+    @_observed
     def __call__(self, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor, *,
                  chunk: int = 256) -> torch.Tensor:
@@ -682,10 +871,13 @@ class _SsdScan(CudaKernel):
         ints, nbytes = self._plan_of(x, dt, A, b, c, chunk)
         y = torch.empty_like(x)
         if nbytes:
-            buf = self._buffer(x.get_device(), nbytes)
+            buf = self._buffer(x, nbytes)
             self._launch((x, dt, A, b, c, y, buf), ints + (buf.numel(),),
                          key=ints)
         return y
+
+    def cost(self, ptrs, ints):
+        return R.ssd_scan_cost(*ints[:6], ptrs[0].dtype)
 
 
 class _SsdScanFunction(torch.autograd.Function):
@@ -714,6 +906,27 @@ class _SsdScanBwd(_SsdScan):
     one launch counted.  Its scratch is one buffer per thread and device,
     as the forward's."""
 
+    @staticmethod
+    def meta_scratch_bytes(B: int, S: int, H: int, P: int, N: int,
+                           chunk: int) -> int:
+        """``repro_ssd_scan_bwd_scratch`` (``plan`` in
+        csrc/ssd_scan_bwd.cu) in Python, for meta calls; -1 for shapes the
+        kernel does not take."""
+        if not _ssd_shape_ok(B, S, H, P, N, chunk):
+            return -1
+        n_chunks, n_tiles = S // chunk, -(-chunk // 64)
+        pairs = B * n_chunks * n_tiles * (n_tiles + 1) // 2
+        groups = -(-H // 8)
+        states = 4 * B * H * (n_chunks - 1) * SSD_MAX_N * SSD_MAX_P
+        parts = [8 * B * H * S, states, states, 4 * pairs * 64 * 64,
+                 4 * pairs * groups * 64 * 64, 8 * pairs * H * 64,
+                 8 * pairs * H * 64, 4 * pairs * H * 64,
+                 4 * B * S * groups * N, 4 * B * S * groups * N,
+                 4 * B * H * S, 4 * B * H * S, 4 * B * H * S,
+                 8 * B * n_chunks * H]
+        return sum(_round256(n) for n in parts)
+
+    @_observed
     def __call__(self, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor, *,
                  chunk: int = 256) -> tuple:
@@ -730,13 +943,16 @@ class _SsdScanBwd(_SsdScan):
             raise ValueError("ssd_scan_bwd: inputs must be contiguous")
         grads = tuple(torch.empty_like(t) for t in (x, dt, A, b, c))
         if nbytes:
-            buf = self._buffer(x.get_device(), nbytes)
+            buf = self._buffer(x, nbytes)
             self._launch((x, dt, A, b, c, dy, *grads, buf),
                          ints + (buf.numel(),), key=ints)
         else:
             for g in grads:
                 g.zero_()
         return grads
+
+    def cost(self, ptrs, ints):
+        return R.ssd_bwd_cost(*ints[:6], ptrs[0].dtype)
 
 
 class _RmsNorm(CudaKernel):
@@ -767,6 +983,7 @@ class _RmsNorm(CudaKernel):
         self._plans[(x.shape, weight.shape, x.dtype, weight.dtype)] = plan
         return plan
 
+    @_observed
     def __call__(self, x: torch.Tensor, weight: torch.Tensor,
                  eps: float = 1e-5) -> torch.Tensor:
         """``x * rsqrt(mean(x^2) + eps) * weight`` over the last axis in
@@ -782,7 +999,9 @@ class _RmsNorm(CudaKernel):
         if not (x.is_contiguous() and weight.is_contiguous()):
             raise ValueError("rmsnorm: inputs must be contiguous")
         out = torch.empty_like(x)
-        if plan[0]:
+        if plan[0] and x.is_meta:
+            self._meta_launch((x, weight, out), plan, (plan,))
+        elif plan[0]:
             fn = self._fn or self._bind()
             rc = fn(x.data_ptr(), weight.data_ptr(), out.data_ptr(), *plan,
                     eps, _raw_stream(d))
@@ -791,6 +1010,9 @@ class _RmsNorm(CudaKernel):
                                   f"error {rc}")
             self.count(1, (plan,))
         return out
+
+    def cost(self, ptrs, ints):
+        return R.rmsnorm_cost(ints[0], ints[1], ptrs[0].dtype, ptrs[1].dtype)
 
 
 class _DecodeGemm(CudaKernel):
@@ -807,14 +1029,27 @@ class _DecodeGemm(CudaKernel):
         super().__init__(*a, **kw)
         self._splits = {}     # fp32 (K, N) -> the kernel's K splits
 
-    def splits(self, K: int, N: int) -> int:
-        """K splits of an fp32 (K, N) product (sizes its partials)."""
+    def splits(self, K: int, N: int, meta: bool = False) -> int:
+        """K splits of an fp32 (K, N) product (sizes its partials); with
+        ``meta``, :meth:`meta_splits`."""
+        if meta:
+            return self.meta_splits(K, N)
         n = self._splits.get((K, N))
         if n is None:
             fn = self._lib().repro_decode_gemm_splits
             fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
             n = self._splits[(K, N)] = int(fn(K, N))
         return n
+
+    @staticmethod
+    def meta_splits(K: int, N: int) -> int:
+        """``splits_f32`` of csrc/decode_gemm.cu in Python, for meta
+        calls: doubled up to 16 while the grid stays within 512 blocks of
+        64 columns and each split keeps 4 k-tiles of 64."""
+        n_tiles, k_tiles, s = -(-N // 64), -(-K // 64), 1
+        while 2 * s <= 16 and 2 * s * n_tiles <= 512 and k_tiles >= 8 * s:
+            s *= 2
+        return s
 
     def _buffers(self, device, n_part: int):
         scratch = self._scratch
@@ -827,6 +1062,7 @@ class _DecodeGemm(CudaKernel):
         scratch[device] = (part, counters)
         return part, counters
 
+    @_observed
     def __call__(self, x: torch.Tensor, w) -> torch.Tensor:
         """x ``(..., K)`` @ w ``(K, N)`` → ``(..., N)`` in x's dtype, fp32
         accumulation.  ``w`` is a contiguous ``(K, N)`` matrix, the
@@ -834,6 +1070,7 @@ class _DecodeGemm(CudaKernel):
         int8 ``QuantizedTensor`` of a ``(K, N)`` matrix."""
         return self.group(x, (w,))[0]
 
+    @_observed
     def group(self, x: torch.Tensor, ws: Sequence) -> list:
         """``[x @ w for w in ws]`` in one launch: every ``w`` a ``(K, N_i)``
         weight of x's dtype and device, all contiguous or all transposed
@@ -917,7 +1154,8 @@ class _DecodeGemm(CudaKernel):
         if dt == 0:   # fp32: partials for its largest split product
             rows = min(M, DECODE_MAX_ROWS)
             part, counters = self._buffers(
-                x.device, max(self.splits(K, N) * rows * N for N in Ns))
+                x.device, max(self.splits(K, N, x.is_meta) * rows * N
+                              for N in Ns))
             n_part = part.numel()
         pad = (None,) * (DECODE_MAX_GROUP - n)
         zeros = (0,) * (DECODE_MAX_GROUP - n)
@@ -941,6 +1179,12 @@ class _DecodeGemm(CudaKernel):
                           *pad, part, counters), (rows, K, *Ns, *tail),
                          keys=[(rows, K, N, w_nk, code) for N in Ns])
         return ys
+
+    def cost(self, ptrs, ints):
+        M, K, n = ints[0], ints[1], ints[8]
+        quant = ints[11]
+        return R.decode_gemm_cost(M, K, ints[2:2 + n], ptrs[0].dtype,
+                                  scales=ints[5:5 + n] if quant else None)
 
 
 flash_attention = _FlashAttention(
